@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; a failed phase raises and the script
+Phases, each printing JSON lines; a failed phase raises and the script
 exits nonzero (there is no CPU fallback):
 
 1. device: the card's name and nvidia-smi's name and power limit.
@@ -12,11 +12,22 @@ exits nonzero (there is no CPU fallback):
    decoder's four serving shapes, batch 1 and 5, fp32 and bf16: each is held
    against its plain PyTorch version on the card (TF32 off), and timed beside
    the plain version, one library call and the bound.
-4. serving: muvo.yml at full width with seeded random weights, driven
+4. backward_kernels: K1-dx, K2-dx, K3 and K3-up at the four training shapes
+   (batch 24 = 4 sequences of 6 frames), bf16 and fp32, held against their
+   plain versions and timed beside them, one library call
+   (aten.convolution_backward) and the bound.
+5. serving: muvo.yml at full width with seeded random weights, driven
    through DeploymentSession (deployment_forward, then sim_forward with a
-   5-step imagination); the kernels' launch counts must rise, outputs must be
-   finite with muvo_tpu's shapes, and one decode on the card must match the
-   same decode run by the port on the host CPU.
+   5-step imagination); K1 and K2 must be launched, outputs must be finite
+   with muvo_tpu's shapes, and one decode on the card must match the same
+   decode run by the port on the host CPU.
+6. training: build_flagship_step (muvo.yml at full width, 4 x 6 frames, bf16
+   autocast, decoder remat, AdamW + OneCycle), 3 warm-up steps, then timed
+   steps; every kernel's launches must rise by what the model predicts and
+   every loss must be finite. Then one fp32 train step at tiny_test_cfg
+   (voxel 64^3: conv2 and conv3 take the kernels) on the card against the
+   same step on the host CPU, same weights and batch, no sampling noise or
+   dropout.
 
 The last three lines are the kernels summary, nvidia-smi's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -24,6 +35,7 @@ limit, and {"ok": true, "device": {...}}.
 
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -40,6 +52,17 @@ PEAK_FLOPS = {torch.float32: 67e12,     # fp32 outside the tensor cores
 FP32_TOL = 1e-4   # max |kernel - plain| / max |plain|: summation order only
 BF16_TOL = 2e-2   # output rounded to bf16 (and K2's plain upsample rounds)
 DECODE_TOL = 1e-3  # card vs host decode, norm-relative, fp32 with TF32 off
+LOSS_TOL = 1e-4   # card vs host train step: each loss, relative
+# ... every gradient leaf: |card - host| / |host| (Frobenius norms, the
+# leaf's own) <= GRAD_TOL + NOISE_FACTOR * the host's own fp32 noise, the
+# norm-relative change of its gradient when every parameter moves by a
+# relative ULP (about one fp32 ulp), the larger of NOISE_DRAWS draws: this
+# model's fp32 gradients turn rounding into up to a few 1e-2 at this size
+# (tests/test_torch_train_step.py)
+GRAD_TOL = 2e-3
+NOISE_FACTOR = 8.0
+ULP = 1e-7
+NOISE_DRAWS = 2
 
 # (kernel, stage, input shape without batch, Cout) on muvo.yml's voxel decoder
 SHAPES = (
@@ -50,6 +73,21 @@ SHAPES = (
 )
 MAIN_SHAPE = {"K1": "conv3.conv2", "K2": "conv3.conv1"}  # summary entries
 MAIN_BATCH = 5  # the imagination rollout decodes 5 states at once
+TRAIN_BATCH = 24  # the flagship train step decodes 4 x 6 frames
+TRAIN_STEPS = 5   # timed flagship steps
+# the backward kernels by the forward kernel they differentiate
+BACKWARD = {"K1": ("K1-dx", "K3"), "K2": ("K2-dx", "K3-up")}
+KERNEL_NAMES = {"K1": "zconv3d_leaky", "K2": "upzconv3d_leaky",
+                "K1-dx": "zconv3d_dx", "K2-dx": "upzconv3d_dx",
+                "K3": "zconv3d_dw", "K3-up": "upzconv3d_dw"}
+SOURCES = {"K1": "zconv.cu", "K2": "zconv.cu", "K1-dx": "zconv.cu",
+           "K2-dx": "zconv.cu", "K3": "zconv_dw.cu", "K3-up": "zconv_dw.cu"}
+REPLACES = {"K1": "muvo_tpu/ops/pallas_zconv.py:171",
+            "K2": "muvo_tpu/ops/pallas_zconv.py:171",
+            "K1-dx": "muvo_tpu/ops/pallas_zconv.py:171",
+            "K2-dx": "muvo_tpu/ops/pallas_zconv.py:171",
+            "K3": "muvo_tpu/ops/pallas_zconv.py:388",
+            "K3-up": "muvo_tpu/ops/pallas_zconv.py:388"}
 
 
 def emit(obj):
@@ -64,9 +102,9 @@ def nvidia_smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 10) -> float:
-    fn()
-    fn()
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -78,19 +116,29 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def least_time(nbytes: int, flops: int, dtype):
+    """The larger of bytes over HBM bandwidth and operations over the
+    type's peak, in ms, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def bound(x, w, out, z_out: int, up: bool):
-    """Least time for the function: bytes (each input read once, the output
-    written once) over HBM bandwidth vs operations over the type's peak."""
+    """Least time for the forward: each input read once, the output written
+    once; 2 * 27 * C * Cout flops per output voxel (and K2's z
+    interpolation)."""
     b, X, Y, _, c = x.shape
     cout = out.shape[-1]
-    nbytes = sum(t.numel() * t.element_size() for t in (x, w, out))
-    nbytes += cout * x.element_size()  # bias
     flops = 2 * 27 * c * cout * b * X * Y * z_out
     if up:
         flops += 3 * b * X * Y * z_out * c  # the z interpolation
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return least_time(nbytes(x, w, out) + cout * x.element_size(), flops,
+                      x.dtype)
 
 
 def kernel_phase(dev):
@@ -151,6 +199,267 @@ def kernel_phase(dev):
     return results
 
 
+def backward_kernel_phase(dev):
+    """K1-dx, K2-dx, K3 and K3-up at the training shapes, against their
+    plain versions on the same inputs."""
+    from muvo_tpu_torch.models.layers import to_nchw
+    from muvo_tpu_torch.ops import zconv
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    results = {}
+    for fwd, stage, shape, cout in SHAPES:
+        up = fwd == "K2"
+        dx_id, dw_id = BACKWARD[fwd]
+        c = shape[-1]
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((TRAIN_BATCH, *shape), generator=gen,
+                            device=dev).to(dtype)
+            w = (torch.randn((cout, c, 3, 3, 3), generator=gen, device=dev)
+                 / (27 * c) ** 0.5).to(dtype)
+            bias = torch.randn((cout,), generator=gen, device=dev).to(dtype)
+            plain_fwd = (zconv.upzconv3d_leaky_plain if up
+                         else zconv.zconv3d_leaky_plain)
+            with torch.no_grad():
+                out = plain_fwd(x, w, bias, 0.2)
+                g = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+                gm = zconv.leaky_mask(g, out, 0.2)
+                xin = zconv.upsample2x_z(x) if up else x
+                b, X, Y, z_out = out.shape[:4]
+                tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+                conv = dict(stride=[1, 1, 1], padding=[1, 1, 1],
+                            dilation=[1, 1, 1], transposed=False,
+                            output_padding=[0, 0, 0], groups=1)
+                rows = []
+                # dx: the library call is the conv's input gradient over
+                # the (big-z) input, given the masked cotangent
+                dx_k = zconv.upzconv3d_dx if up else zconv.zconv3d_dx
+                dx_p = zconv.upzconv3d_dx_plain if up else zconv.zconv3d_dx_plain
+                got, want = dx_k(g, out, w, 0.2), dx_p(g, out, w, 0.2)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                rel = err / want.float().abs().max().item()
+                flops = 2 * 27 * c * cout * b * X * Y * z_out
+                if up:
+                    flops += 8 * got.numel()  # the z-upsample's transpose
+                rows.append((dx_id, err, rel,
+                             lambda: dx_k(g, out, w, 0.2),
+                             lambda: dx_p(g, out, w, 0.2),
+                             lambda: torch.ops.aten.convolution_backward(
+                                 to_nchw(gm), to_nchw(xin), w, None, **conv,
+                                 output_mask=[True, False, False]),
+                             least_time(nbytes(g, out, w, got), flops, dtype)))
+                del got, want
+                # dW and dbias (fp32 out of the kernel)
+                dw_k = zconv.upzconv3d_dw if up else zconv.zconv3d_dw
+                dw_p = zconv.upzconv3d_dw_plain if up else zconv.zconv3d_dw_plain
+                (dw, db), (dw_w, db_w) = (dw_k(x, g, out, 0.2),
+                                          dw_p(x, g, out, 0.2))
+                torch.cuda.synchronize()
+                err = max((dw - dw_w).abs().max().item(),
+                          (db - db_w).abs().max().item())
+                rel = max(((dw - dw_w).abs().max()
+                           / dw_w.abs().max()).item(),
+                          ((db - db_w).abs().max()
+                           / db_w.abs().max()).item())
+                flops = (2 * 27 * c * cout + cout) * b * X * Y * z_out
+                if up:
+                    flops += 3 * b * X * Y * z_out * c
+                rows.append((dw_id, err, rel,
+                             lambda: dw_k(x, g, out, 0.2),
+                             lambda: dw_p(x, g, out, 0.2),
+                             lambda: torch.ops.aten.convolution_backward(
+                                 to_nchw(gm), to_nchw(xin), w, [cout], **conv,
+                                 output_mask=[False, True, True]),
+                             least_time(nbytes(x, g, out, dw, db), flops,
+                                        dtype)))
+                del dw, db, dw_w, db_w
+                for kid, err, rel, kern, plain, library, (bms, by) in rows:
+                    row = {
+                        "phase": "backward_kernel", "kernel": kid,
+                        "stage": stage, "input": [TRAIN_BATCH, *shape],
+                        "cotangent": list(out.shape),
+                        "dtype": str(dtype).replace("torch.", ""),
+                        "max_abs_err": err, "rel_err": rel, "tol": tol,
+                        "ms": time_ms(kern, iters=5, warmup=1),
+                        "plain_ms": time_ms(plain, iters=3, warmup=1),
+                        "library_ms": time_ms(library, iters=3, warmup=1),
+                        "bound_ms": bms, "bound_by": by,
+                    }
+                    emit(row)
+                    if not rel <= tol:
+                        raise AssertionError(f"{kid} {stage} {dtype}: "
+                                             f"relative error {rel} > {tol}")
+                    results[(kid, stage, dtype)] = row
+            del x, w, bias, out, g, gm, xin, rows
+            torch.cuda.empty_cache()
+    return results
+
+
+def reset_launches():
+    from muvo_tpu_torch.ops import zconv
+
+    for name in KERNEL_NAMES.values():
+        getattr(zconv, name).launches = 0
+
+
+def read_launches():
+    from muvo_tpu_torch.ops import zconv
+
+    return {kid: getattr(zconv, name).launches
+            for kid, name in KERNEL_NAMES.items()}
+
+
+def predicted_launches(cfg):
+    """Kernel launches per train step the model's code predicts: each
+    kernel-path DecoderBlock (output z > 18) runs K2 then K1, twice with
+    the voxel decoder rematerialised, and each backward kernel once."""
+    z = max(1, cfg.VOXEL.SIZE[2] // 64)  # the learned constant's z
+    blocks = 0
+    for _ in range(6):  # three middle blocks, conv1, conv2, conv3
+        z *= 2
+        blocks += z >= 19
+    fwd = 2 if cfg.MODEL.REMAT else 1
+    return {"K1": fwd * blocks, "K2": fwd * blocks, "K1-dx": blocks,
+            "K2-dx": blocks, "K3": blocks, "K3-up": blocks}
+
+
+def norm_rel(got, want):
+    """|got - want| / |want| in float64 (inf where only want is zero)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    num, den = (got - want).norm().item(), want.norm().item()
+    if den == 0.0:
+        return 0.0 if num == 0.0 else math.inf
+    return num / den
+
+
+def host_noise(trainer, batch, grads):
+    """Per leaf, the largest norm-relative change of the host's gradient
+    over NOISE_DRAWS relative ULP changes of every parameter."""
+    model = trainer.state.model
+    saved = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator().manual_seed(7)
+    noise = {k: 0.0 for k in grads}
+    try:
+        for _ in range(NOISE_DRAWS):
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(saved[n] * (1.0 + ULP * torch.randn(
+                        p.shape, generator=gen)))
+            _, moved = trainer.grads(batch, stochastic=False)
+            for k, g in grads.items():
+                noise[k] = max(noise[k], norm_rel(moved[k], g))
+    finally:
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(saved[n])
+    return noise
+
+
+def training_phase(dev):
+    from muvo_tpu_torch.training.flagship import build_flagship_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fs = build_flagship_step(device=dev)
+    cfg = fs.cfg
+    frames = cfg.BATCHSIZE * (cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON)
+    warm_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fs.trainer.train_step(fs.batch, fs.generator)
+        torch.cuda.synchronize()
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms, steps = [], []
+    reset_launches()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = fs.trainer.train_step(fs.batch, fs.generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append({k: v.item() for k, v in metrics.items()})
+    launches = read_launches()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    per_step = predicted_launches(cfg)
+    median = statistics.median(step_ms)
+    emit({"phase": "training", "config": "muvo.yml", "batch": cfg.BATCHSIZE,
+          "frames_per_step": frames, "precision": str(cfg.PRECISION),
+          "remat": bool(cfg.MODEL.REMAT), "warmup_step_ms": warm_ms,
+          "step_ms": step_ms, "step_ms_median": median,
+          "frames_per_s": frames / (median / 1e3), "peak_mib": peak_mib,
+          "launches": launches,
+          "launches_per_step": {k: n // TRAIN_STEPS
+                                for k, n in launches.items()},
+          "launches_per_step_predicted": per_step,
+          "losses_last_step": steps[-1]})
+    for kid, n in per_step.items():
+        if launches[kid] != n * TRAIN_STEPS:
+            raise AssertionError(f"{kid}: {launches[kid]} launches in "
+                                 f"{TRAIN_STEPS} steps, predicted "
+                                 f"{n * TRAIN_STEPS}")
+    for i, losses in enumerate(steps):
+        bad = [k for k, v in losses.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"step {i}: non-finite losses {bad}")
+    del fs, metrics
+    torch.cuda.empty_cache()
+    card_vs_host(dev)
+    return launches
+
+
+def card_vs_host(dev):
+    """One fp32 step on the card against the same step on the host CPU:
+    the same weights and batch, no sampling noise or dropout."""
+    from muvo_tpu_torch.data.synthetic import synthetic_batch, tiny_test_cfg
+    from muvo_tpu_torch.training.trainer import WorldModelTrainer
+
+    tiny = tiny_test_cfg()
+    tiny.PRECISION = "32"
+    batch = synthetic_batch(tiny, 2, 3, seed=0)
+    host = WorldModelTrainer(tiny, device="cpu")
+    host.init_state(seed=0)
+    card = WorldModelTrainer(tiny, device=dev)
+    card.init_state(model=copy.deepcopy(host.state.model))
+    before = read_launches()
+    got_m, got_g = card.grads(batch, stochastic=False)
+    torch.cuda.synchronize()
+    tiny_launches = {k: v - before[k] for k, v in read_launches().items()}
+    t0 = time.perf_counter()
+    want_m, want_g = host.grads(batch, stochastic=False)
+    host_s = time.perf_counter() - t0
+    if set(got_g) != set(want_g) or any(
+            v is None for v in (*got_g.values(), *want_g.values())):
+        raise AssertionError("card and host gradients do not cover the same "
+                             "parameters")
+    want_g = {k: g.detach().clone() for k, g in want_g.items()}
+    noise = host_noise(host, batch, want_g)
+    loss_rel = {k: abs(got_m[k].item() - v.item()) / max(abs(v.item()), 1e-6)
+                for k, v in want_m.items()}
+    grad_rel = {k: norm_rel(got_g[k], v) for k, v in want_g.items()}
+    over = {k: (grad_rel[k] - GRAD_TOL) / max(noise[k], 1e-30)
+            for k in grad_rel}
+    bad = {k: (grad_rel[k], noise[k]) for k in grad_rel
+           if not grad_rel[k] <= GRAD_TOL + NOISE_FACTOR * noise[k]}
+    emit({"phase": "training_vs_host", "config": "tiny_test_cfg voxel 64^3",
+          "precision": "32 (TF32 off)", "launches": tiny_launches,
+          "loss": got_m["loss"].item(), "loss_host": want_m["loss"].item(),
+          "max_loss_rel": max(loss_rel.values()), "loss_tol": LOSS_TOL,
+          "max_grad_norm_rel": max(grad_rel.values()),
+          "median_grad_norm_rel": statistics.median(grad_rel.values()),
+          "worst_grad": max(grad_rel, key=grad_rel.get),
+          "host_noise_median": statistics.median(noise.values()),
+          "host_noise_max": max(noise.values()),
+          "worst_over_noise": max(over.values()),
+          "grad_leaves": len(grad_rel), "grad_tol": GRAD_TOL,
+          "noise_factor": NOISE_FACTOR, "host_step_s": host_s})
+    if not all(tiny_launches.values()):
+        raise AssertionError(f"a kernel did not run in the tiny step: "
+                             f"{tiny_launches}")
+    if not max(loss_rel.values()) <= LOSS_TOL:
+        raise AssertionError(f"card loss differs from host: {loss_rel}")
+    if bad:
+        raise AssertionError(f"card gradients differ from host: {bad}")
+
+
 def muvo_cfg():
     from muvo_tpu_torch.config import get_cfg
 
@@ -178,8 +487,7 @@ def serving_phase(dev, cfg):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    zconv.zconv3d_leaky.launches = 0
-    zconv.upzconv3d_leaky.launches = 0
+    reset_launches()
     deploy_ms, sim_ms, sim_launches = [], [], None
     for _ in range(3):
         t0 = time.perf_counter()
@@ -196,11 +504,10 @@ def serving_phase(dev, cfg):
         sim_ms.append((time.perf_counter() - t0) * 1e3)
         sim_launches = {"K1": zconv.zconv3d_leaky.launches - before[0],
                         "K2": zconv.upzconv3d_leaky.launches - before[1]}
-    launches = {"K1": zconv.zconv3d_leaky.launches,
-                "K2": zconv.upzconv3d_leaky.launches}
+    launches = read_launches()
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
 
-    if not all(launches.values()):
+    if not (launches["K1"] and launches["K2"]):
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{launches}")
     s_h, s_w = (cfg.IMAGE.CROP[3] - cfg.IMAGE.CROP[1],
@@ -257,6 +564,26 @@ def serving_phase(dev, cfg):
     return launches
 
 
+def summary_row(kid, row, serving_launches, training_launches):
+    """One entry of the kernels line: ``launches`` counts both main paths
+    (the serving run and the TRAIN_STEPS timed training steps), each as
+    read from the counters after its run."""
+    return {
+        "name": KERNEL_NAMES[kid], "id": kid, "route": "cuda",
+        "source": f"muvo_tpu_torch/csrc/{SOURCES[kid]}",
+        "replaces": REPLACES[kid],
+        "launches": serving_launches + training_launches,
+        "launches_serving": serving_launches,
+        "launches_training": training_launches,
+        "launches_per_train_step": training_launches // TRAIN_STEPS,
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "shape": row.get("shape", row.get("input")), "stage": row["stage"],
+        "dtype": row["dtype"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a "
@@ -277,25 +604,23 @@ def main() -> int:
     built = build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built,
-          "ptxas": [ln.strip() for ln in build_log("zconv").splitlines()
+          "ptxas": [ln.strip() for name in ("zconv", "zconv_dw")
+                    for ln in build_log(name).splitlines()
                     if "registers" in ln or "Compiling entry" in ln]})
 
     results = kernel_phase(dev)
-    launches = serving_phase(dev, muvo_cfg())
+    backward = backward_kernel_phase(dev)
+    serving = serving_phase(dev, muvo_cfg())
+    training = training_phase(dev)
 
     summary = []
-    for kid, name in (("K1", "zconv3d_leaky"), ("K2", "upzconv3d_leaky")):
+    for kid in ("K1", "K2"):
         row = results[(kid, MAIN_SHAPE[kid], MAIN_BATCH, torch.float32)]
-        summary.append({
-            "name": name, "route": "cuda",
-            "source": "muvo_tpu_torch/csrc/zconv.cu",
-            "replaces": "muvo_tpu/ops/pallas_zconv.py:171",
-            "launches": launches[kid], "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
-            "shape": row["shape"], "dtype": row["dtype"],
-        })
+        summary.append(summary_row(kid, row, serving[kid], training[kid]))
+    for kid, stage in (("K1-dx", "conv3.conv2"), ("K2-dx", "conv3.conv1"),
+                       ("K3", "conv3.conv2"), ("K3-up", "conv3.conv1")):
+        row = backward[(kid, stage, torch.bfloat16)]
+        summary.append(summary_row(kid, row, serving[kid], training[kid]))
     emit({"kernels": summary})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -51,7 +51,8 @@ class DeploymentSession:
     @torch.inference_mode()
     def observe_update(self, batch: Dict, carry: LatentCarry) -> LatentCarry:
         """Encode the last frame and advance the posterior one step."""
-        embedding_t = self.model.encode_frame(self.preprocess(batch))
+        embedding_t = self.model.encode_frame(
+            self.preprocess(batch, labels=False))
         out = self.model.observe_step(carry.h, carry.sample, carry.action,
                                       embedding_t, False)["posterior"]
         return LatentCarry(out["hidden_state"], out["sample"], carry.action)

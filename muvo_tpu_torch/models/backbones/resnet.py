@@ -17,7 +17,7 @@ from typing import Sequence, Tuple
 import torch.nn.functional as F
 from torch import nn
 
-from muvo_tpu_torch.models.layers import to_nchw, to_nhwc
+from muvo_tpu_torch.models.layers import BatchNorm2d, to_nchw, to_nhwc
 
 
 class _ResNetBasicBlock(nn.Module):
@@ -26,12 +26,12 @@ class _ResNetBasicBlock(nn.Module):
     def __init__(self, in_channels: int, planes: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.downsample = (nn.Sequential(
             nn.Conv2d(in_channels, planes, 1, stride, bias=False),
-            nn.BatchNorm2d(planes, eps=1e-5),
+            BatchNorm2d(planes, eps=1e-5),
         ) if stride != 1 or in_channels != planes else None)
 
     def forward(self, x):
@@ -55,7 +55,7 @@ class ResNetFeatures(nn.Module):
         self.out_indices = tuple(out_indices)
         width = 64
         self.conv1 = nn.Conv2d(in_channels, width, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(width, eps=1e-5)
+        self.bn1 = BatchNorm2d(width, eps=1e-5)
         c_in = width
         for stage, n_blocks in enumerate((2, 2, 2, 2)):
             planes = width * 2 ** stage

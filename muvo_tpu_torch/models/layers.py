@@ -9,6 +9,7 @@ upstream MUVO's (torch layout), so its state_dict loads unchanged.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -26,6 +27,53 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(1, -1)
 
 
+_frozen_stats = False
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(frozen: bool = True):
+    """BatchNorm layers in training mode normalise with batch statistics
+    but leave their running statistics alone (a checkpointed block's
+    recompute must not update them a second time)."""
+    global _frozen_stats
+    before, _frozen_stats = _frozen_stats, frozen
+    try:
+        yield
+    finally:
+        _frozen_stats = before
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (NCHW) whose running statistics follow flax's
+    BatchNorm, as muvo_tpu trains them: momentum 0.9 (torch's 0.1) with the
+    BIASED batch variance, where torch's update uses the unbiased one.
+    Normalisation is torch's own (biased variance, eps 1e-5)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        if _frozen_stats:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                                0.0, self.eps)
+        # torch's kernel updates copies of the running statistics with the
+        # batch statistics it computes in fp32 (autograd keeps the copies);
+        # the variance's share is then rescaled from unbiased to biased,
+        # which costs no pass over x
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        keep = 1.0 - self.momentum
+        with torch.no_grad():
+            self.running_mean.copy_(mean)
+            added = var - keep * self.running_var
+            self.running_var.mul_(keep).add_(added * ((n - 1) / max(n, 1)))
+        return y
+
+
 class ConvBN(nn.Sequential):
     """Conv -> BatchNorm -> ReLU; keys ``0`` (conv) and ``1`` (bn) as
     upstream's ``nn.Sequential``. NHWC in and out."""
@@ -35,7 +83,7 @@ class ConvBN(nn.Sequential):
         super().__init__(
             nn.Conv2d(in_channels, out_channels, kernel_size, stride, padding,
                       bias=False),
-            nn.BatchNorm2d(out_channels, eps=1e-5),
+            BatchNorm2d(out_channels, eps=1e-5),
             nn.ReLU(),
         )
 
@@ -52,12 +100,12 @@ class BasicBlock(nn.Module):
                  downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.downsample = (nn.Sequential(
             nn.Conv2d(in_channels, planes, 1, 2, bias=False),
-            nn.BatchNorm2d(planes, eps=1e-5),
+            BatchNorm2d(planes, eps=1e-5),
         ) if downsample else None)
 
     def forward(self, x):

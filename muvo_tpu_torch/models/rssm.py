@@ -1,5 +1,6 @@
-"""Recurrent state-space model, one step at a time (counterpart of
-muvo_tpu/models/rssm.py's observe_step / imagine_step).
+"""Recurrent state-space model (counterpart of muvo_tpu/models/rssm.py):
+one step at a time (observe_step / imagine_step) and over a sequence
+(``forward``).
 
   * prior:     (h, a)          -> N(mu, sigma), sigma = 2*sigmoid(x/2) + 0.1
   * posterior: (h, a, embed)   -> N(mu, sigma)
@@ -11,6 +12,9 @@ keep upstream's Sequential indices (``module.0`` / ``module.2``).
 
 Sampling draws its noise from an explicit ``torch.Generator``. torch and
 JAX draw different streams, so the parity tests run ``use_sample=False``.
+In training, the sequence loop's posterior dropout (one scalar draw per
+step, shared across the batch, never at t=0) feeds the prior sample
+forward instead of the posterior one.
 """
 
 from __future__ import annotations
@@ -50,8 +54,13 @@ def sample_from_distribution(mu, sigma, use_sample: bool,
 class RSSM(nn.Module):
     def __init__(self, embedding_dim: int, action_dim: int,
                  hidden_state_dim: int, state_dim: int,
-                 action_latent_dim: int):
+                 action_latent_dim: int, use_dropout: bool = True,
+                 dropout_probability: float = 0.15):
         super().__init__()
+        self.hidden_state_dim = hidden_state_dim
+        self.state_dim = state_dim
+        self.use_dropout = use_dropout
+        self.dropout_probability = dropout_probability
         self.pre_gru_net = nn.Sequential(
             nn.Linear(state_dim, hidden_state_dim), nn.Identity())
         self.recurrent_model = nn.GRUCell(hidden_state_dim, hidden_state_dim)
@@ -86,3 +95,39 @@ class RSSM(nn.Module):
         posterior = {"hidden_state": prior["hidden_state"], "sample": sample,
                      "mu": mu, "sigma": sigma}
         return {"prior": prior, "posterior": posterior}
+
+    def forward(self, embedding, action, use_sample: bool = True,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                use_prior: Optional[torch.Tensor] = None) -> Dict:
+        """embedding (b, s, C), action (b, s, A) -> {"prior", "posterior"},
+        each of hidden_state / sample / mu / sigma shaped (b, s, ...).
+
+        The action fed at step t is action[t-1] (zeros at t=0). In training
+        with USE_DROPOUT, step t > 0 takes the prior sample forward with
+        probability DROPOUT_PROBABILITY (one draw per step for the whole
+        batch); ``use_prior`` (s,) bools set those draws instead.
+        """
+        b, s, _ = embedding.shape
+        shifted = torch.cat([torch.zeros_like(action[:, :1]), action[:, :-1]],
+                            dim=1)
+        if use_prior is None:
+            use_prior = torch.zeros(s, dtype=torch.bool)
+            if training and self.use_dropout:
+                u = torch.rand(s, generator=generator,
+                               device=embedding.device).cpu()
+                use_prior = (u < self.dropout_probability) & (
+                    torch.arange(s) > 0)
+        flags = use_prior.tolist()
+        h = embedding.new_zeros((b, self.hidden_state_dim))
+        smp = embedding.new_zeros((b, self.state_dim))
+        steps = []
+        for t in range(s):
+            out = self.observe_step(h, smp, shifted[:, t], embedding[:, t],
+                                    use_sample, generator)
+            h = out["prior"]["hidden_state"]
+            smp = out["prior" if flags[t] else "posterior"]["sample"]
+            steps.append(out)
+        return {part: {key: torch.stack([o[part][key] for o in steps], dim=1)
+                       for key in steps[0][part]}
+                for part in ("prior", "posterior")}

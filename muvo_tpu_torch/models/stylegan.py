@@ -11,7 +11,10 @@ The voxel decoder's large stages run their 3x3x3 convs through the port's
 CUDA kernels (ops/zconv.py) exactly where muvo_tpu takes its Pallas path:
 every stage whose upsampled z exceeds 18 (conv2 and conv3 with muvo.yml).
 There x/y are upsampled bilinearly first, then K2 fuses the z-upsample
-into conv1, and K1 runs conv2, each followed by AdaIN.
+into conv1, and K1 runs conv2, each followed by AdaIN. Under autograd the
+two convs run inside ops/zconv.py's autograd Function, whose backward
+launches K1-dx / K2-dx and K3; AdaIN, the upsampling and the small stages
+differentiate through plain autograd, as muvo_tpu runs them in XLA.
 """
 
 from __future__ import annotations

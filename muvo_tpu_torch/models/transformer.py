@@ -4,7 +4,9 @@
 Parameter names are those of ``nn.TransformerEncoder`` (layers.{i}.self_attn.
 in_proj_weight / out_proj, linear1, linear2, norm1, norm2), but attention
 runs through the port's own math path (ops/attention.py), so ``seq_len``
-masking is available. Dropout is inactive: the port serves.
+masking is available. Dropout (p 0.1, upstream's) is active only when the
+caller asks for it (training), and draws its masks from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from muvo_tpu_torch.ops.attention import multi_head_attention
+
+
+def apply_dropout(x, p: float, generator: Optional[torch.Generator]):
+    """Inverted dropout with its mask drawn from ``generator``."""
+    if p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
 
 
 class SelfAttention(nn.Module):
@@ -38,17 +48,23 @@ class SelfAttention(nn.Module):
 
 class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int = 8,
-                 dim_feedforward: int = 2048):
+                 dim_feedforward: int = 2048, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = SelfAttention(d_model, n_heads)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x, seq_len: Optional[int] = None):
-        x = self.norm1(x + self.self_attn(x, seq_len))
-        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+    def forward(self, x, seq_len: Optional[int] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        p = self.dropout if train else 0.0
+        attn = apply_dropout(self.self_attn(x, seq_len), p, generator)
+        x = self.norm1(x + attn)
+        ff = apply_dropout(F.relu(self.linear1(x)), p, generator)
+        ff = apply_dropout(self.linear2(ff), p, generator)
+        return self.norm2(x + ff)
 
 
 class TransformerEncoder(nn.Module):
@@ -59,8 +75,9 @@ class TransformerEncoder(nn.Module):
             TransformerEncoderLayer(d_model, n_heads, dim_feedforward)
             for _ in range(n_layers))
 
-    def forward(self, x, seq_len: Optional[int] = None):
-        """x: (B, N, C) tokens."""
+    def forward(self, x, seq_len: Optional[int] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """x: (B, N, C) tokens; ``train`` turns dropout on."""
         for layer in self.layers:
-            x = layer(x, seq_len)
+            x = layer(x, seq_len, train, generator)
         return x

@@ -7,16 +7,25 @@ policy, and the enabled decoders (rgb and lidar_re ConvDecoders, the voxel
 decoder). Batch tensors are channels-last, (b, s, ...) as in muvo_tpu;
 submodule names are upstream MUVO's state_dict prefixes.
 
-Branches outside the serving slice (frustum-BEV fusion, the LARGE stride-8
+``forward`` is the training and evaluation pass over a sequence (muvo_tpu's
+``__call__``): encode every frame, roll the RSSM over the sequence, then the
+policy and every decoder on the posterior states. MODEL.REMAT (with
+REMAT_SCOPE) recomputes the decoders in the backward pass instead of
+storing their activations, and MODEL.REMAT_ENCODER does the same for the
+resnet encoders, through torch.utils.checkpoint; the recompute leaves the
+BatchNorm running statistics alone.
+
+Branches outside the ported slices (frustum-BEV fusion, the LARGE stride-8
 path, PointPillars, measurements, the no-transformer MILE branch and the
 BEV decoder) raise NotImplementedError instead of running something else.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from muvo_tpu_torch.models.backbones.resnet import build_backbone
@@ -28,10 +37,27 @@ from muvo_tpu_torch.models.common import (
     SpeedEncoder,
     position_embedding_sine,
 )
+from muvo_tpu_torch.models.layers import frozen_batch_stats
 from muvo_tpu_torch.models.rssm import RSSM
 from muvo_tpu_torch.models.stylegan import ConvDecoder, VoxelDecoder
 from muvo_tpu_torch.models.transformer import TransformerEncoder
 from muvo_tpu_torch.utils.network import pack_sequence_dim, unpack_sequence_dim
+
+
+def checkpointed(fn, *args):
+    """fn(*args) under torch.utils.checkpoint when autograd records it, so
+    its activations are recomputed in the backward pass; the recompute
+    runs with frozen BatchNorm running statistics."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    calls = []
+
+    def run(*a):
+        calls.append(None)
+        with frozen_batch_stats(len(calls) > 1):
+            return fn(*a)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def _check_supported(cfg):
@@ -85,7 +111,8 @@ class MuvoWorldModel(nn.Module):
         # ---- transition and policy -----------------------------------
         t = m.TRANSITION
         self.rssm = RSSM(emb, m.ACTION_DIM, t.HIDDEN_STATE_DIM, t.STATE_DIM,
-                         t.ACTION_LATENT_DIM)
+                         t.ACTION_LATENT_DIM, t.USE_DROPOUT,
+                         t.DROPOUT_PROBABILITY)
         state_dim = t.HIDDEN_STATE_DIM + t.STATE_DIM
         self.policy = Policy(state_dim)
 
@@ -120,13 +147,31 @@ class MuvoWorldModel(nn.Module):
                 voxel_const)
             self.decoder_names.append("voxel_decoder")
 
+        scope = str(m.REMAT_SCOPE)
+        if scope not in ("all", "voxel"):
+            raise ValueError(f"MODEL.REMAT_SCOPE must be 'all' or 'voxel', "
+                             f"got {scope!r}")
+        self.remat_decoders = (
+            set() if not m.REMAT else {"voxel_decoder"} if scope == "voxel"
+            else set(self.decoder_names))
+        self.remat_encoder = bool(m.REMAT_ENCODER)
+
     # ==================================================================
-    def encode(self, batch: Dict) -> torch.Tensor:
-        """Per-frame sensor fusion of a preprocessed batch -> (b, s, emb)."""
+    def _backbone(self, module, x):
+        if self.remat_encoder:
+            return checkpointed(module, x)
+        return module(x)
+
+    def encode(self, batch: Dict, dropout: bool = False,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Per-frame sensor fusion of a preprocessed batch -> (b, s, emb).
+        ``dropout`` turns the transformer's dropout on (training)."""
         b, s = batch["image"].shape[:2]
         tf_c = self.cfg.MODEL.TRANSFORMER.CHANNELS
-        x = self.feat_decoder(self.encoder(pack_sequence_dim(batch["image"])))
-        lidar = self.range_view_decoder(self.range_view_encoder(
+        x = self.feat_decoder(self._backbone(
+            self.encoder, pack_sequence_dim(batch["image"])))
+        lidar = self.range_view_decoder(self._backbone(
+            self.range_view_encoder,
             pack_sequence_dim(batch["range_view_pcd_xyzd"])))
 
         h_i, w_i = x.shape[1:3]
@@ -140,7 +185,8 @@ class MuvoWorldModel(nn.Module):
         lidar_tokens = (lidar_tokens.reshape(-1, h_l * w_l, tf_c)
                         + self.type_embedding[:, :, :, 1])
         tokens = self.transformer_encoder(
-            torch.cat([image_tokens, lidar_tokens], dim=1))
+            torch.cat([image_tokens, lidar_tokens], dim=1), train=dropout,
+            generator=generator)
         image_out = tokens[:, :h_i * w_i].reshape(-1, h_i, w_i, tf_c)
         lidar_out = tokens[:, h_i * w_i:].reshape(-1, h_l, w_l, tf_c)
 
@@ -161,8 +207,38 @@ class MuvoWorldModel(nn.Module):
         """Every enabled decoder on the packed state (b*s, state_dim)."""
         output: Dict = {}
         for name in self.decoder_names:
-            output.update(unpack_sequence_dim(getattr(self, name)(state), b, s))
+            decoder = getattr(self, name)
+            out = (checkpointed(decoder, state) if name in self.remat_decoders
+                   else decoder(state))
+            output.update(unpack_sequence_dim(out, b, s))
         return output
+
+    def forward(self, batch: Dict, training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                stochastic: bool = True) -> Tuple[Dict, Dict]:
+        """The reconstruction pass over a preprocessed (b, s, ...) batch
+        (muvo_tpu's ``__call__``): (output, state_dict). The BatchNorm
+        layers follow the module's train()/eval() mode; ``training`` turns
+        on the transformer dropout and the RSSM's posterior dropout.
+        ``stochastic=False`` takes the mean of every latent distribution and
+        no dropout at all, for checks against another run."""
+        b, s = batch["image"].shape[:2]
+        noisy = training and stochastic
+        embedding = self.encode(batch, noisy, generator)
+        action = torch.cat([batch["throttle_brake"], batch["steering"]],
+                           dim=-1).to(embedding.dtype)
+        state_dict = self.rssm(embedding, action, use_sample=stochastic,
+                               training=noisy, generator=generator)
+        output: Dict = dict(state_dict)
+        posterior = state_dict["posterior"]
+        state = torch.cat([posterior["hidden_state"], posterior["sample"]],
+                          dim=-1)
+        packed = pack_sequence_dim(state)
+        throttle_brake, steering = self.policy(packed).chunk(2, dim=-1)
+        output["throttle_brake"] = unpack_sequence_dim(throttle_brake, b, s)
+        output["steering"] = unpack_sequence_dim(steering, b, s)
+        output.update(self.decode_state(packed, b, s))
+        return output, state_dict
 
     def policy_forward(self, state):
         return self.policy(state)

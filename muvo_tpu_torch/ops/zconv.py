@@ -1,5 +1,5 @@
-"""The voxel decoder's 3x3x3 convolutions: K1 and K2, with their plain
-versions (the port of muvo_tpu/ops/pallas_zconv.py's forward).
+"""The voxel decoder's 3x3x3 convolutions and their gradients, with their
+plain versions (the port of muvo_tpu/ops/pallas_zconv.py).
 
 K1 ``zconv3d_leaky``: LeakyReLU(conv3d 3x3x3 SAME stride 1 + bias).
     Replaces pallas_zconv.py::_zconv_pallas_raw via zconv3d_leaky_folded.
@@ -7,14 +7,26 @@ K2 ``upzconv3d_leaky``: LeakyReLU(conv3d(2x linear z-upsample of x) + bias),
     x already upsampled in X and Y. Replaces the same Pallas kernel via
     upzconv3d_leaky_folded; like it, the upsampled tensor never exists in
     device memory (the CUDA kernel interpolates z while staging its tile).
+K1-dx ``zconv3d_dx``: K1's input gradient, the conv of the leaky-masked
+    cotangent with the flipped, transposed kernel (_vjp_bwd's dx).
+K2-dx ``upzconv3d_dx``: K2's input gradient, that adjoint conv over big z
+    followed by the z-upsample's transpose, back to small z, in one kernel
+    (_up_vjp_bwd's dx).
+K3 ``zconv3d_dw`` / ``upzconv3d_dw`` (K3-up): the weight and bias
+    gradients of K1 / K2 in one fp32 reduction pass (_dw_pallas and the
+    dbias sums beside it).
 
 Tensors are channels-last NDHWC; weights are upstream's Conv3d layout
 (Cout, C, 3, 3, 3). On a CPU tensor each wrapper runs its plain PyTorch
 version; on a CUDA tensor it launches the hand-written kernel in
-csrc/zconv.cu (route: CUDA C++ for sm_90a, plain C interface, ctypes) or
-raises. What bounds the kernels and how they are built is noted in the
-source. They have no backward yet: on CUDA a call that autograd would
-record raises (the dx and dW kernels come with the training slice).
+csrc/zconv.cu or csrc/zconv_dw.cu (route: CUDA C++ for sm_90a, plain C
+interface, ctypes) or raises. What bounds the kernels and how they are
+built is noted in the sources.
+
+Under autograd, K1 and K2 run inside ``torch.autograd.Function``s whose
+backward calls the dx and dW wrappers (kernels on the card, plain versions
+on the host); under bf16 autocast they take bf16 tensors. With grad off
+they launch the forward kernel alone and save nothing.
 """
 
 from __future__ import annotations
@@ -28,26 +40,52 @@ import torch.nn.functional as F
 from muvo_tpu_torch.models.layers import to_nchw, to_nhwc
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_libs = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _library(name: str):
+    lib = _libs.get(name)
+    if lib is None:
         from muvo_tpu_torch.ops._build import load
 
-        lib = load("zconv")
-        lib.muvo_zconv3d_leaky.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.muvo_zconv3d_leaky.restype = ctypes.c_int
-        lib.muvo_cuda_error_string.argtypes = [ctypes.c_int]
+        lib = load(name)
+        lib.muvo_cuda_error_string.argtypes = [_I]
         lib.muvo_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        if name == "zconv":
+            lib.muvo_zconv3d_leaky.argtypes = [
+                _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                ctypes.c_float, _I, _P]
+            lib.muvo_zconv3d_dx.argtypes = [
+                _P, _P, ctypes.c_float, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                _I, _P]
+            lib.muvo_zconv3d_leaky.restype = _I
+            lib.muvo_zconv3d_dx.restype = _I
+        else:
+            lib.muvo_zconv3d_dw_workspace.argtypes = [
+                _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_size_t)]
+            lib.muvo_zconv3d_dw.argtypes = [
+                _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _I, _I, _I, _I,
+                _I, _I, _I, _P]
+            lib.muvo_zconv3d_dw_workspace.restype = _I
+            lib.muvo_zconv3d_dw.restype = _I
+        _libs[name] = lib
+    return lib
+
+
+def _raise_if(rc: int, name: str, what: str):
+    if rc != 0:
+        msg = _library(name).muvo_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} (error {rc})")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -74,8 +112,66 @@ def upzconv3d_leaky_plain(x, weight, bias=None,
     return zconv3d_leaky_plain(upsample2x_z(x), weight, bias, slope)
 
 
+def leaky_mask(g, out, slope: Optional[float]):
+    """The LeakyReLU derivative applied to the cotangent g: g where the
+    forward output is >= 0, slope * g elsewhere (muvo_tpu's
+    ``where(out >= 0, dout, slope * dout)``)."""
+    if slope is None:
+        return g
+    return torch.where(out >= 0, g, g * slope)
+
+
+def _conv_input_grad(gm, weight, z_in: int):
+    b, X, Y, Z, _ = gm.shape
+    size = (b, weight.shape[1], X, Y, z_in)
+    return to_nhwc(torch.nn.grad.conv3d_input(size, weight, to_nchw(gm),
+                                              padding=1))
+
+
+def zconv3d_dx_plain(g, out, weight, slope: Optional[float] = 0.2):
+    """K1's dx: conv3d_input on the masked cotangent."""
+    gm = leaky_mask(g, out, slope)
+    return _conv_input_grad(gm, weight, gm.shape[3]).contiguous()
+
+
+def upzconv3d_dx_plain(g, out, weight, slope: Optional[float] = 0.2):
+    """K2's dx: conv3d_input over big z, then the transpose of
+    upsample2x_z, taken by autograd."""
+    gm = leaky_mask(g, out, slope)
+    dbig = _conv_input_grad(gm, weight, gm.shape[3])
+    b, X, Y, Z, C = dbig.shape
+    with torch.enable_grad():
+        small = torch.zeros((b, X, Y, Z // 2, C), dtype=dbig.dtype,
+                            device=dbig.device, requires_grad=True)
+        (dx,) = torch.autograd.grad(upsample2x_z(small), small, dbig)
+    return dx.contiguous()
+
+
+def _dw_plain(xin, g, out, cout_c, slope, with_bias: bool):
+    gm = leaky_mask(g, out, slope)
+    dw = torch.nn.grad.conv3d_weight(to_nchw(xin), cout_c, to_nchw(gm),
+                                     padding=1)
+    dbias = gm.float().sum((0, 1, 2, 3)) if with_bias else None
+    return dw.float(), dbias
+
+
+def zconv3d_dw_plain(x, g, out, slope: Optional[float] = 0.2,
+                     with_bias: bool = True):
+    """K1's dW (Cout, C, 3, 3, 3) and dbias (Cout,), both fp32:
+    conv3d_weight and a sum of the masked cotangent."""
+    shape = (g.shape[-1], x.shape[-1], 3, 3, 3)
+    return _dw_plain(x, g, out, shape, slope, with_bias)
+
+
+def upzconv3d_dw_plain(x, g, out, slope: Optional[float] = 0.2,
+                       with_bias: bool = True):
+    """K2's dW and dbias: as K1's, on the z-upsampled input."""
+    shape = (g.shape[-1], x.shape[-1], 3, 3, 3)
+    return _dw_plain(upsample2x_z(x), g, out, shape, slope, with_bias)
+
+
 # ---------------------------------------------------------------------------
-# wrappers
+# kernel launches
 # ---------------------------------------------------------------------------
 def _check(x, weight, bias):
     if x.ndim != 5:
@@ -92,15 +188,26 @@ def _check(x, weight, bias):
                              f"{x.dtype} on {x.device}")
 
 
+def _check_device(*tensors):
+    """True for CPU tensors (plain version), False for CUDA ones (kernel)."""
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if dev.type == "cuda":
+            if t.dtype not in _DTYPES:
+                raise TypeError(f"kernel takes float32 or bfloat16, got "
+                                f"{t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError("kernel inputs must be contiguous NDHWC")
+    return dev.type == "cpu"
+
+
 def _launch(x, weight, bias, slope, up: bool):
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("x must be a contiguous NDHWC tensor")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, weight, bias)):
-        raise RuntimeError("the CUDA zconv kernels have no backward yet; "
-                           "call them under torch.no_grad()")
     b, X, Y, zin, c = x.shape
     cout = weight.shape[0]
     z = 2 * zin if up else zin
@@ -108,45 +215,193 @@ def _launch(x, weight, bias, slope, up: bool):
     # (Cout, C, kx, ky, kz) -> (kx, ky, kz, C, Cout), fp32 for the kernel
     w = weight.detach().float().permute(2, 3, 4, 1, 0).contiguous()
     bias32 = None if bias is None else bias.detach().float().contiguous()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = _library().muvo_zconv3d_leaky(
-            x.data_ptr(), w.data_ptr(),
-            None if bias32 is None else bias32.data_ptr(), out.data_ptr(),
+        rc = _library("zconv").muvo_zconv3d_leaky(
+            x.data_ptr(), w.data_ptr(), _ptr(bias32), out.data_ptr(),
             b, X, Y, zin, c, cout, int(up), int(slope is not None),
-            float(slope or 0.0), _DTYPES[x.dtype], stream)
-    if rc != 0:
-        msg = _library().muvo_cuda_error_string(rc).decode()
-        raise RuntimeError(f"zconv kernel launch failed: {msg} (error {rc})")
+            float(slope or 0.0), _DTYPES[x.dtype], _stream(x))
+    _raise_if(rc, "zconv", "K2" if up else "K1")
     return out
+
+
+def _forward(x, weight, bias, slope, up: bool):
+    """K1 / K2 with no autograd: the plain version on the CPU, the kernel
+    (counted) on the card."""
+    _check(x, weight, bias)
+    if _check_device(x, weight, bias):
+        plain = upzconv3d_leaky_plain if up else zconv3d_leaky_plain
+        return plain(x, weight, bias, slope)
+    out = _launch(x, weight, bias, slope, up)
+    (upzconv3d_leaky if up else zconv3d_leaky).launches += 1
+    return out
+
+
+def _check_grad(g, out, weight, slope):
+    if g.ndim != 5 or g.shape[-1] != weight.shape[0]:
+        raise ValueError(f"cotangent shape {tuple(g.shape)} does not fit "
+                         f"weight {tuple(weight.shape)}")
+    if slope is not None and (out is None or out.shape != g.shape
+                              or out.dtype != g.dtype):
+        raise ValueError("the leaky mask needs the forward output, shaped "
+                         "and typed as the cotangent")
+
+
+def _dx(g, out, weight, slope, up: bool):
+    _check_grad(g, out, weight, slope)
+    if _check_device(g, out if slope is not None else None):
+        plain = upzconv3d_dx_plain if up else zconv3d_dx_plain
+        return plain(g, out, weight.to(g.dtype), slope)
+    b, X, Y, z, cg = g.shape
+    c = weight.shape[1]
+    dx = torch.empty((b, X, Y, z // 2 if up else z, c), dtype=g.dtype,
+                     device=g.device)
+    # adjoint kernel: flipped in space, C <-> Cout; (kx, ky, kz, Cout, C)
+    w_adj = weight.detach().float().flip(2, 3, 4).permute(2, 3, 4, 0, 1)
+    w_adj = w_adj.contiguous()
+    mask = out if slope is not None else None
+    with torch.cuda.device(g.device):
+        rc = _library("zconv").muvo_zconv3d_dx(
+            g.data_ptr(), _ptr(mask), float(slope or 0.0), w_adj.data_ptr(),
+            dx.data_ptr(), b, X, Y, z, cg, c, int(up), _DTYPES[g.dtype],
+            _stream(g))
+    _raise_if(rc, "zconv", "K2-dx" if up else "K1-dx")
+    (upzconv3d_dx if up else zconv3d_dx).launches += 1
+    return dx
+
+
+def zconv3d_dx(g, out, weight, slope: Optional[float] = 0.2):
+    """K1-dx: the gradient of K1's input. g and out (K1's output, for the
+    leaky mask; unused when ``slope`` is None) are (B, X, Y, Z, Cout);
+    returns (B, X, Y, Z, C) in g's type."""
+    return _dx(g, out, weight, slope, up=False)
+
+
+def upzconv3d_dx(g, out, weight, slope: Optional[float] = 0.2):
+    """K2-dx: the gradient of K2's small-z input. g and out are
+    (B, X, Y, 2 Zs, Cout); returns (B, X, Y, Zs, C) in g's type."""
+    if g.shape[3] % 2:
+        raise ValueError(f"K2's output z must be even, got {g.shape[3]}")
+    return _dx(g, out, weight, slope, up=True)
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def _dw(x, g, out, slope, with_bias: bool, up: bool):
+    if x.ndim != 5 or g.ndim != 5 or x.shape[:3] != g.shape[:3] or (
+            g.shape[3] != (2 if up else 1) * x.shape[3]):
+        raise ValueError(f"input {tuple(x.shape)} and cotangent "
+                         f"{tuple(g.shape)} do not fit")
+    if x.dtype != g.dtype:
+        raise ValueError(f"input is {x.dtype}, cotangent {g.dtype}")
+    if slope is not None and (out is None or out.shape != g.shape
+                              or out.dtype != g.dtype):
+        raise ValueError("the leaky mask needs the forward output, shaped "
+                         "and typed as the cotangent")
+    mask = out if slope is not None else None
+    if _check_device(x, g, mask):
+        plain = upzconv3d_dw_plain if up else zconv3d_dw_plain
+        return plain(x, g, out, slope, with_bias)
+    b, X, Y, zin, c = x.shape
+    cout = g.shape[-1]
+    cp, gp = _round_up(c, 4), _round_up(cout, 8)
+    lib = _library("zconv_dw")
+    floats = ctypes.c_size_t()
+    with torch.cuda.device(x.device):
+        rc = lib.muvo_zconv3d_dw_workspace(b, X, Y, zin, c, cout, int(up),
+                                           ctypes.byref(floats))
+        _raise_if(rc, "zconv_dw", "K3")
+        work = torch.empty(floats.value, dtype=torch.float32, device=x.device)
+        dw = torch.empty((3, 3, 3, cp, gp), dtype=torch.float32,
+                         device=x.device)
+        db = (torch.empty(gp, dtype=torch.float32, device=x.device)
+              if with_bias else None)
+        rc = lib.muvo_zconv3d_dw(
+            x.data_ptr(), g.data_ptr(), _ptr(mask), float(slope or 0.0),
+            work.data_ptr(), dw.data_ptr(), _ptr(db), b, X, Y, zin, c, cout,
+            int(up), _DTYPES[x.dtype], _stream(x))
+    _raise_if(rc, "zconv_dw", "K3-up" if up else "K3")
+    (upzconv3d_dw if up else zconv3d_dw).launches += 1
+    # (kx, ky, kz, C, Cout) -> upstream's (Cout, C, kx, ky, kz)
+    dw = dw[..., :c, :cout].permute(4, 3, 0, 1, 2).contiguous()
+    return dw, None if db is None else db[:cout].contiguous()
+
+
+def zconv3d_dw(x, g, out, slope: Optional[float] = 0.2,
+               with_bias: bool = True):
+    """K3: K1's weight gradient (Cout, C, 3, 3, 3) and bias gradient
+    (Cout,) (None without ``with_bias``), fp32, from its input x, the
+    cotangent g and K1's output (the leaky mask)."""
+    return _dw(x, g, out, slope, with_bias, up=False)
+
+
+def upzconv3d_dw(x, g, out, slope: Optional[float] = 0.2,
+                 with_bias: bool = True):
+    """K3-up: K2's weight and bias gradients; x is K2's small-z input."""
+    return _dw(x, g, out, slope, with_bias, up=True)
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+class _ZConvFunction(torch.autograd.Function):
+    """K1 / K2 with their backward kernels. Saves x, the weight and the
+    output (the leaky mask), so a checkpointed decoder recomputes the
+    forward kernel and runs each backward kernel once."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, weight, bias, slope, up):
+        out = _forward(x, weight, bias, slope, up)
+        ctx.save_for_backward(x, weight, out)
+        ctx.slope, ctx.up, ctx.has_bias = slope, up, bias is not None
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return out
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        x, weight, out = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _dx(g, out, weight, ctx.slope, ctx.up)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = _dw(x, g, out, ctx.slope,
+                         ctx.has_bias and ctx.needs_input_grad[2], ctx.up)
+            dw = dw.to(weight.dtype)
+            db = None if db is None else db.to(ctx.bias_dtype)
+        return dx, dw, db, None, None
+
+
+def _apply(x, weight, bias, slope, up: bool):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, bias)):
+        return _ZConvFunction.apply(x, weight, bias, slope, up)
+    if x.device.type == "cuda" and torch.is_autocast_enabled("cuda"):
+        dtype = torch.get_autocast_dtype("cuda")
+        x, weight = x.to(dtype), weight.to(dtype)
+        bias = None if bias is None else bias.to(dtype)
+    return _forward(x, weight, bias, slope, up)
 
 
 def zconv3d_leaky(x, weight, bias=None, slope: Optional[float] = 0.2):
     """K1: LeakyReLU_slope(conv3d_same(x) + bias); x (B, X, Y, Z, C) ->
     (B, X, Y, Z, Cout). ``slope=None`` skips the activation."""
-    _check(x, weight, bias)
-    if x.device.type == "cpu":
-        return zconv3d_leaky_plain(x, weight, bias, slope)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    out = _launch(x, weight, bias, slope, up=False)
-    zconv3d_leaky.launches += 1
-    return out
+    return _apply(x, weight, bias, slope, up=False)
 
 
 def upzconv3d_leaky(x, weight, bias=None, slope: Optional[float] = 0.2):
     """K2: LeakyReLU_slope(conv3d_same(up2_z(x)) + bias); x (B, X, Y, Zs, C)
     -> (B, X, Y, 2*Zs, Cout). x must already be upsampled in X and Y."""
-    _check(x, weight, bias)
-    if x.device.type == "cpu":
-        return upzconv3d_leaky_plain(x, weight, bias, slope)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    out = _launch(x, weight, bias, slope, up=True)
-    upzconv3d_leaky.launches += 1
-    return out
+    return _apply(x, weight, bias, slope, up=True)
 
 
 # launch counts: each wrapper adds one per kernel launch, nowhere else
 zconv3d_leaky.launches = 0
 upzconv3d_leaky.launches = 0
+zconv3d_dx.launches = 0
+upzconv3d_dx.launches = 0
+zconv3d_dw.launches = 0
+upzconv3d_dw.launches = 0

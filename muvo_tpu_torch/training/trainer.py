@@ -1,0 +1,137 @@
+"""World-model trainer (counterpart of muvo_tpu/training/trainer.py).
+
+``train_step`` runs on-device preprocessing with labels and augmentation,
+the model forward over the sequence, every loss of ``compute_loss``, the
+backward pass and the AdamW / OneCycle update, on one device. The compute
+type follows PRECISION (utils/precision.py): bf16 autocast on the card
+with fp32 master weights. ``eval_step`` observes the receptive field,
+imagines the future horizon, and returns the losses of both.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from muvo_tpu_torch.device import resolve_device
+from muvo_tpu_torch.models.preprocess import PreProcess
+from muvo_tpu_torch.models.world_model import MuvoWorldModel
+from muvo_tpu_torch.training.objectives import compute_loss, reduce_loss
+from muvo_tpu_torch.training.optim import Optimizer
+from muvo_tpu_torch.utils.precision import autocast, compute_dtype_from_cfg
+
+
+class TrainState:
+    """The model (fp32 parameters, BatchNorm statistics), its optimizer and
+    the number of train steps taken."""
+
+    def __init__(self, model: MuvoWorldModel, optimizer: Optimizer):
+        self.model = model
+        self.optimizer = optimizer
+        self.step = 0
+
+
+class WorldModelTrainer:
+    def __init__(self, cfg, device=None,
+                 compute_dtype: Optional[torch.dtype] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.compute_dtype = (compute_dtype if compute_dtype is not None
+                              else compute_dtype_from_cfg(cfg))
+        self.preprocess = PreProcess(cfg)
+        self.rf = cfg.RECEPTIVE_FIELD
+        self.fh = cfg.FUTURE_HORIZON
+        self.state: Optional[TrainState] = None
+
+    def init_state(self, seed: int = 42,
+                   model: Optional[MuvoWorldModel] = None) -> TrainState:
+        """A new model (initialised from ``seed``, unless one is given) on
+        the device, in training mode, with its optimizer."""
+        if model is None:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                model = MuvoWorldModel(self.cfg)
+        model = model.to(self.device).train()
+        self.state = TrainState(model, Optimizer(self.cfg, model))
+        return self.state
+
+    def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device)
+                for k, v in batch.items()}
+
+    def _loss(self, pb, training, generator, stochastic):
+        model = self.state.model
+        with autocast(self.device, self.compute_dtype):
+            output, state_dict = model(pb, training=training,
+                                       generator=generator,
+                                       stochastic=stochastic)
+        # the losses upcast the (bf16) outputs at their first use
+        losses = compute_loss(self.cfg, pb, output)
+        return reduce_loss(losses), losses, state_dict
+
+    def grads(self, batch: Dict, generator: Optional[torch.Generator] = None,
+              stochastic: bool = True):
+        """Forward and backward of one training step without the update:
+        ({"loss", every loss term} as device scalars, {parameter name:
+        gradient}). ``stochastic=False`` runs without augmentation, dropout
+        or sampling noise, for checks."""
+        model = self.state.model.train()
+        model.zero_grad(set_to_none=True)
+        pb = self.preprocess(self.to_device(batch), training=stochastic,
+                             generator=generator)
+        total, losses, _ = self._loss(pb, True, generator, stochastic)
+        total.backward()
+        metrics = {"loss": total.detach(),
+                   **{k: v.detach() for k, v in losses.items()}}
+        return metrics, {n: p.grad for n, p in model.named_parameters()}
+
+    def train_step(self, batch: Dict,
+                   generator: Optional[torch.Generator] = None,
+                   stochastic: bool = True) -> Dict[str, torch.Tensor]:
+        """One training step on a raw (b, s, ...) batch: ``grads``, then the
+        optimizer (which applies every ACCUMULATE_GRAD_BATCHES-th call).
+        Returns {"loss", every loss term}."""
+        metrics, _ = self.grads(batch, generator, stochastic)
+        self.state.optimizer.step()
+        self.state.step += 1
+        return metrics
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict,
+                  generator: Optional[torch.Generator] = None,
+                  stochastic: bool = True) -> Dict:
+        """Observe the receptive field (losses of the reconstruction), then
+        imagine the future horizon from the last posterior state (losses of
+        the imagination), as muvo_tpu's eval step. ``stochastic=False``
+        takes the mean of every latent distribution, for checks."""
+        model = self.state.model.eval()
+        try:
+            pb = self.preprocess(self.to_device(batch), training=False)
+            batch_rf = {k: v[:, :self.rf] for k, v in pb.items()}
+            batch_fh = {k: v[:, self.rf:] for k, v in pb.items()}
+            with autocast(self.device, self.compute_dtype):
+                output, state_dict = model(batch_rf, training=False,
+                                           generator=generator,
+                                           stochastic=stochastic)
+            out = {"losses": compute_loss(self.cfg, batch_rf, output),
+                   "output": output}
+            if self.fh > 0:
+                posterior = state_dict["posterior"]
+                imagine_batch = {
+                    "hidden_state": posterior["hidden_state"][:, -1],
+                    "sample": posterior["sample"][:, -1],
+                    "throttle_brake": batch_fh["throttle_brake"],
+                    "steering": batch_fh["steering"],
+                }
+                with autocast(self.device, self.compute_dtype):
+                    imagined = model.imagine(imagine_batch,
+                                             future_horizon=self.fh,
+                                             generator=generator,
+                                             use_sample=stochastic)
+                out["losses_imagine"] = compute_loss(self.cfg, batch_fh,
+                                                     imagined)
+                out["output_imagine"] = imagined
+            return out
+        finally:
+            model.train()

@@ -8,6 +8,12 @@ transposed; BatchNorm statistics from the batch_stats tree; the decoders'
 channels-last constants back to channels-first. Each ``*_entries`` helper
 maps one module's sub-tree under a key prefix, so a test can carry the
 weights of a single module as well as of the whole model.
+
+A gradient tree has the params' structure and maps the same way, with
+``batch_stats=None`` (no running statistics). The BatchNorm statistics
+after a training step map with the params they belong to, and
+``running_stats`` keeps only those entries, for comparing a step's
+``batch_stats`` with the port's buffers.
 """
 
 from __future__ import annotations
@@ -37,9 +43,19 @@ def dense_entries(sd, prefix, p):
         sd[prefix + "bias"] = np.asarray(p["bias"])
 
 
+class _NoStats:
+    """The batch_stats of a gradient tree: every lookup gives itself, and
+    batch_norm_entries writes no running statistics for it."""
+
+    def __getitem__(self, key):
+        return self
+
+
 def batch_norm_entries(sd, prefix, p, s):
     sd[prefix + "weight"] = np.asarray(p["scale"])
     sd[prefix + "bias"] = np.asarray(p["bias"])
+    if isinstance(s, _NoStats):
+        return
     sd[prefix + "running_mean"] = np.asarray(s["mean"])
     sd[prefix + "running_var"] = np.asarray(s["var"])
     sd[prefix + "num_batches_tracked"] = np.array(0, np.int64)
@@ -202,8 +218,11 @@ def to_tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 def state_dict_from_jax(params, batch_stats, cfg) -> Dict[str, torch.Tensor]:
     """muvo_tpu MuvoWorldModel variables (numpy-convertible trees) -> the
-    port's MuvoWorldModel state_dict, for ``load_state_dict(strict=True)``."""
-    p, s = params, batch_stats
+    port's MuvoWorldModel state_dict, for ``load_state_dict(strict=True)``.
+    With ``batch_stats=None`` ``params`` may be a gradient tree: the result
+    then holds one entry per parameter and no running statistics."""
+    p = params
+    s = batch_stats if batch_stats is not None else _NoStats()
     sd: Dict[str, np.ndarray] = {}
     resnet_entries(sd, "encoder.", p["encoder"], s["encoder"])
     decoder_ds_entries(sd, "feat_decoder.", p["feat_decoder"],
@@ -229,3 +248,9 @@ def state_dict_from_jax(params, batch_stats, cfg) -> Dict[str, torch.Tensor]:
     if "voxel_decoder" in p:
         voxel_decoder_entries(sd, "voxel_decoder.", p["voxel_decoder"])
     return to_tensors(sd)
+
+
+def running_stats(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The BatchNorm running statistics of a state_dict."""
+    return {k: v for k, v in sd.items()
+            if k.endswith(("running_mean", "running_var"))}

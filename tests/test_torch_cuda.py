@@ -15,6 +15,7 @@ fp32).
 
 import pytest
 import torch
+import torch.utils.checkpoint
 
 from muvo_tpu_torch.models.stylegan import VoxelDecoder
 from muvo_tpu_torch.ops import zconv
@@ -78,12 +79,98 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         zconv.zconv3d_leaky(x.double(), w.double(), b.double())
     with pytest.raises(ValueError):
         zconv.zconv3d_leaky(x.transpose(1, 2), w, b)
-    with pytest.raises(RuntimeError, match="no backward"):
-        zconv.zconv3d_leaky(x, w.clone().requires_grad_(), b)
+    g = torch.ones_like(x)
+    with pytest.raises(ValueError):  # the mask needs the forward output
+        zconv.zconv3d_dx(g, None, w, 0.2)
+    with pytest.raises(ValueError):  # K2's output z is even
+        zconv.upzconv3d_dx(g[:, :, :, :19], g[:, :, :, :19], w, 0.2)
     assert zconv.zconv3d_leaky.launches == n  # nothing launched
     with torch.no_grad():
         zconv.zconv3d_leaky(x, w.clone().requires_grad_(), b)
     assert zconv.zconv3d_leaky.launches == n + 1
+
+
+BACKWARD = {
+    "K1": (zconv.zconv3d_leaky_plain, zconv.zconv3d_dx,
+           zconv.zconv3d_dx_plain, zconv.zconv3d_dw,
+           zconv.zconv3d_dw_plain),
+    "K2": (zconv.upzconv3d_leaky_plain, zconv.upzconv3d_dx,
+           zconv.upzconv3d_dx_plain, zconv.upzconv3d_dw,
+           zconv.upzconv3d_dw_plain),
+}
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("kid", ["K1", "K2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 12, 10, 20, 16), 8),   # several y tiles, ragged last tile
+    ((1, 5, 7, 19, 3), 5),      # odd C, Cout not a multiple of 8
+    ((1, 1, 1, 20, 4), 12),     # one voxel column: all x/y halo is padding
+    ((3, 4, 33, 1, 8), 8),      # z of 1 (K2: 2), clamped interpolation
+    ((1, 6, 6, 16, 32), 16),    # the widest stage's channels
+    ((1, 3, 4, 6, 40), 20),     # more dW units than two per thread
+])
+@pytest.mark.parametrize("act", [True, False])
+def test_backward_kernels_match_plain(dev, kid, dtype, shape, cout, act):
+    """K1-dx / K2-dx and K3 / K3-up on the card against their plain
+    versions on the same inputs (dW and dbias are fp32 on both sides)."""
+    forward, dx_k, dx_p, dw_k, dw_p = BACKWARD[kid]
+    x, w, b = _inputs(dev, shape, cout, dtype)
+    slope = 0.2 if act else None
+    out = forward(x, w, b if act else None, slope)
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1)
+                    ).to(dtype)
+    n = (dx_k.launches, dw_k.launches)
+    dx = dx_k(g, out, w, slope)
+    dw, db = dw_k(x, g, out, slope, with_bias=act)
+    torch.cuda.synchronize()
+    assert (dx_k.launches, dw_k.launches) == (n[0] + 1, n[1] + 1)
+    dx_want = dx_p(g, out, w, slope)
+    dw_want, db_want = dw_p(x.float(), g.float(), out.float(), slope, act)
+    assert dx.dtype == dtype and dx.shape == x.shape and dx.is_contiguous()
+    assert dw.dtype == torch.float32 and dw.shape == w.shape
+    assert _rel(dx, dx_want) <= TOL[dtype]
+    assert _rel(dw, dw_want) <= TOL[dtype]
+    if act:
+        assert db.shape == (cout,) and _rel(db, db_want) <= TOL[dtype]
+    else:
+        assert db is None
+
+
+@pytest.mark.parametrize("kid", ["K1", "K2"])
+def test_autograd_on_card_matches_host(dev, kid):
+    """The autograd Function on the card (forward and backward kernels,
+    under torch.utils.checkpoint) against the same Function on the host
+    (plain versions), fp32."""
+    fn = zconv.zconv3d_leaky if kid == "K1" else zconv.upzconv3d_leaky
+    x, w, b = _inputs(dev, (2, 8, 9, 10, 6), 5, torch.float32)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xs = [t.detach().to(d).requires_grad_() for t in (x, w, b)]
+        out = torch.utils.checkpoint.checkpoint(
+            fn, *xs, 0.2, use_reentrant=False)
+        (out.square().sum()).backward()
+        grads.append([t.grad.cpu() for t in xs])
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= 1e-4
+
+
+def test_autocast_gives_the_kernels_bf16(dev):
+    x, w, b = _inputs(dev, (1, 4, 6, 20, 4), 4, torch.float32)
+    w.requires_grad_()
+    n = zconv.zconv3d_dw.launches
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = zconv.zconv3d_leaky(x, w, b)
+    assert out.dtype == torch.bfloat16
+    out.float().sum().backward()
+    assert w.grad.dtype == torch.float32
+    assert zconv.zconv3d_dw.launches == n + 1
 
 
 def test_voxel_decoder_on_card_matches_host(dev):

@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from muvo_tpu import config as jax_config
+from muvo_tpu import constants as jax_constants
 from muvo_tpu.data import synthetic as jax_synthetic
 from muvo_tpu_torch import config as port_config
+from muvo_tpu_torch import constants as port_constants
 from muvo_tpu_torch.data import synthetic as port_synthetic
 from muvo_tpu_torch.data.synthetic import tiny_test_cfg
 from muvo_tpu_torch.device import resolve_device
@@ -59,6 +61,14 @@ def test_get_cfg_equals_muvo_tpu(config_file):
     assert got.MODEL.TRANSITION.STATE_DIM == 64
     assert port_config.get_cfg().convert_to_dict() == (
         jax_config.get_cfg().convert_to_dict())
+
+
+@pytest.mark.parametrize("name", ["CARLA_FPS", "SEMANTIC_SEG_WEIGHTS",
+                                  "VOXEL_SEG_WEIGHTS"])
+def test_constants_equal_muvo_tpus(name):
+    got, want = getattr(port_constants, name), getattr(jax_constants, name)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert np.asarray(got).dtype == np.asarray(want).dtype
 
 
 def test_muvo_yml_is_muvo_tpus():

@@ -8,11 +8,28 @@ kernels N(0, 1/fan_in), biases, BatchNorm affine parameters and statistics
 spread around their neutral values, so that every carried leaf matters.
 """
 
+import sys
 from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+
+def import_torch_dynamo():
+    """Import torch._dynamo, which torch.utils.checkpoint and torch.optim
+    import on first use, with tests/reference_stubs.py's placeholder
+    modules set aside. The import registers custom ops whose source lookup
+    (inspect.getmodule) asks every module in sys.modules for ``__file__``,
+    and the placeholders raise ImportError for any attribute, so in a
+    worker that has collected the reference parity tests the first
+    checkpoint or optimizer step would fail."""
+    stubs = {name: sys.modules.pop(name) for name in ("timm", "open3d", "carla")
+             if name in sys.modules}
+    try:
+        import torch._dynamo  # noqa: F401
+    finally:
+        sys.modules.update(stubs)
 
 
 def assert_same(got, want):
@@ -66,6 +83,36 @@ def jax_trainer_and_state(cfg, batch):
     state = SimpleNamespace(params=randomise(zeros["params"], 1),
                             batch_stats=randomise(zeros["batch_stats"], 2))
     return trainer, state
+
+
+def fp32_cfgs():
+    """(muvo_tpu's, the port's) tiny_test_cfg in fp32 without the RSSM's
+    posterior dropout."""
+    from muvo_tpu.data.synthetic import tiny_test_cfg as jax_tiny_cfg
+    from muvo_tpu_torch.data.synthetic import tiny_test_cfg
+
+    jcfg, pcfg = jax_tiny_cfg(), tiny_test_cfg()
+    for cfg in (jcfg, pcfg):
+        cfg.PRECISION = "32"
+        cfg.MODEL.TRANSITION.USE_DROPOUT = False
+    return jcfg, pcfg
+
+
+def deterministic_jax(monkeypatch):
+    """muvo_tpu with its Pallas voxel kernels (interpret mode on the CPU),
+    sampling at the mean, and no augmentation or dropout: the port's
+    ``stochastic=False`` (torch and JAX random streams differ)."""
+    from flax import linen as flax_nn
+    from muvo_tpu.models.preprocess import PreProcess
+    from muvo_tpu.models.rssm import RSSM
+
+    monkeypatch.setenv("MUVO_CONV3D", "pallas")
+    monkeypatch.setattr(RSSM, "sample_from_distribution",
+                        lambda self, mu, sigma, use_sample, rng: mu)
+    monkeypatch.setattr(PreProcess, "augmentation",
+                        lambda self, batch, rng: batch)
+    monkeypatch.setattr(flax_nn, "Dropout",
+                        lambda rate, deterministic=None: (lambda x: x))
 
 
 def port_model(state, port_cfg):
