@@ -16,19 +16,37 @@ exits nonzero (there is no CPU fallback):
    (batch 24 = 4 sequences of 6 frames), bf16 and fp32, held against their
    plain versions and timed beside them, one library call
    (aten.convolution_backward) and the bound.
-5. serving: muvo.yml at full width with seeded random weights, driven
+5. flash_kernels: K4 (flash forward), K5 (fused backward), K6-dq and K6-dkv
+   (split backward) at the LARGE training shape (bh 48 = 8 heads x 6
+   frames, n 5184, d 48), at d 32, at a ragged n and with seq_len < n, fp32
+   (TF32 off) and bf16, each held against its plain version and timed
+   beside it, one library call (scaled_dot_product_attention, or its
+   backward alone) and the bound; K4-mb (the microbenchmark's kernel) once.
+6. serving: muvo.yml at full width with seeded random weights, driven
    through DeploymentSession (deployment_forward, then sim_forward with a
-   5-step imagination); K1 and K2 must be launched, outputs must be finite
-   with muvo_tpu's shapes, and one decode on the card must match the same
-   decode run by the port on the host CPU.
-6. training: build_flagship_step (muvo.yml at full width, 4 x 6 frames, bf16
+   5-step imagination); K1 and K2 must be launched and K4 not (648 tokens
+   a frame), outputs must be finite with muvo_tpu's shapes, and one decode
+   on the card must match the same decode run by the port on the host CPU.
+7. training: build_flagship_step (muvo.yml at full width, 4 x 6 frames, bf16
    autocast, decoder remat, AdamW + OneCycle), 3 warm-up steps, then timed
    steps; every kernel's launches must rise by what the model predicts and
    every loss must be finite. Then one fp32 train step at tiny_test_cfg
    (voxel 64^3: conv2 and conv3 take the kernels) on the card against the
    same step on the host CPU, same weights and batch, no sampling noise or
    dropout.
+8. serving_large: muvo.yml with MODEL.TRANSFORMER.LARGE (stride-8 features,
+   5,184 fusion tokens a frame) through DeploymentSession, fp32: K4 must be
+   launched once a layer for each encode, outputs must be finite with
+   muvo_tpu's shapes, and one frame's embedding on the card must match the
+   port's host run (the math attention path).
+9. training_large: build_flagship_step(large=True) (1 x 6 frames, bf16),
+   3 warm-up steps, then timed steps with K4 and K5 launched once a layer a
+   step; then gradients with the split backward (K6, not K5) against the
+   fused backward's.
+10. microbench: tools/torch_flash_microbench.py, K4-mb and K4 at bh 16.
 
+Each main path's launch counts are set to 0 just before it runs and read
+just after; the kernels line sums them by path.
 The last three lines are the kernels summary, nvidia-smi's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -49,6 +67,9 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,     # fp32 outside the tensor cores
               torch.bfloat16: 989e12}   # bf16 tensor cores, dense
+# the SFUs: 16 exponentials a clock on each of the 132 SMs at the 1.98 GHz
+# boost clock (CUDA programming guide's throughput table, compute 9.0)
+EXP_PER_S = 132 * 16 * 1.98e9
 FP32_TOL = 1e-4   # max |kernel - plain| / max |plain|: summation order only
 BF16_TOL = 2e-2   # output rounded to bf16 (and K2's plain upsample rounds)
 DECODE_TOL = 1e-3  # card vs host decode, norm-relative, fp32 with TF32 off
@@ -77,17 +98,37 @@ TRAIN_BATCH = 24  # the flagship train step decodes 4 x 6 frames
 TRAIN_STEPS = 5   # timed flagship steps
 # the backward kernels by the forward kernel they differentiate
 BACKWARD = {"K1": ("K1-dx", "K3"), "K2": ("K2-dx", "K3-up")}
+ZCONV_KERNELS = ("K1", "K2", "K1-dx", "K2-dx", "K3", "K3-up")
 KERNEL_NAMES = {"K1": "zconv3d_leaky", "K2": "upzconv3d_leaky",
                 "K1-dx": "zconv3d_dx", "K2-dx": "upzconv3d_dx",
-                "K3": "zconv3d_dw", "K3-up": "upzconv3d_dw"}
+                "K3": "zconv3d_dw", "K3-up": "upzconv3d_dw",
+                "K4": "flash_fwd", "K5": "flash_bwd", "K6-dq": "flash_bwd_dq",
+                "K6-dkv": "flash_bwd_dkv", "K4-mb": "flash_matmul"}
 SOURCES = {"K1": "zconv.cu", "K2": "zconv.cu", "K1-dx": "zconv.cu",
-           "K2-dx": "zconv.cu", "K3": "zconv_dw.cu", "K3-up": "zconv_dw.cu"}
+           "K2-dx": "zconv.cu", "K3": "zconv_dw.cu", "K3-up": "zconv_dw.cu",
+           "K4": "flash_attention.cu", "K5": "flash_attention.cu",
+           "K6-dq": "flash_attention.cu", "K6-dkv": "flash_attention.cu",
+           "K4-mb": "flash_attention.cu"}
 REPLACES = {"K1": "muvo_tpu/ops/pallas_zconv.py:171",
             "K2": "muvo_tpu/ops/pallas_zconv.py:171",
             "K1-dx": "muvo_tpu/ops/pallas_zconv.py:171",
             "K2-dx": "muvo_tpu/ops/pallas_zconv.py:171",
             "K3": "muvo_tpu/ops/pallas_zconv.py:388",
-            "K3-up": "muvo_tpu/ops/pallas_zconv.py:388"}
+            "K3-up": "muvo_tpu/ops/pallas_zconv.py:388",
+            "K4": "muvo_tpu/ops/flash_attention.py:79",
+            "K5": "muvo_tpu/ops/flash_attention.py:305",
+            "K6-dq": "muvo_tpu/ops/flash_attention.py:222",
+            "K6-dkv": "muvo_tpu/ops/flash_attention.py:261",
+            "K4-mb": "tools/pallas_smalld_microbench.py:42"}
+FLASH_TOL = {torch.float32: 1e-4,   # norm-relative: summation order (K5's
+                                    # dq by atomics, in a varying order)
+             torch.bfloat16: 2e-2}  # p, ds and the outputs rounded to bf16
+# (label, bh, n, d, seq_len): the LARGE training step's attention (8 heads x
+# 6 frames of 5,184 tokens, d 384 / 8), d 32, a ragged n, masked keys
+FLASH_CASES = (("training", 48, 5184, 48, None), ("d32", 48, 5184, 32, None),
+               ("ragged", 4, 300, 48, None), ("seq_len<n", 8, 5184, 48, 5000))
+# model FLOPs per (query, unmasked key) pair over d: 2 per product
+FLASH_FLOPS = {"K4": 4, "K4-mb": 4, "K5": 10, "K6-dq": 6, "K6-dkv": 8}
 
 
 def emit(obj):
@@ -116,11 +157,13 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def least_time(nbytes: int, flops: int, dtype):
-    """The larger of bytes over HBM bandwidth and operations over the
-    type's peak, in ms, and which of the two it is."""
+def least_time(nbytes: int, flops: int, dtype, exps: int = 0):
+    """The larger of bytes over HBM bandwidth and operations over their
+    peak, in ms, and which of the two it is. Operations: ``flops`` at the
+    type's peak, or ``exps`` exponentials on the SFUs, whichever takes
+    longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = max(flops / PEAK_FLOPS[dtype], exps / EXP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -295,32 +338,39 @@ def backward_kernel_phase(dev):
     return results
 
 
-def reset_launches():
-    from muvo_tpu_torch.ops import zconv
+def _wrapper(kid):
+    from muvo_tpu_torch.ops import flash_attention, zconv
 
-    for name in KERNEL_NAMES.values():
-        getattr(zconv, name).launches = 0
+    module = zconv if kid in ZCONV_KERNELS else flash_attention
+    return getattr(module, KERNEL_NAMES[kid])
+
+
+def reset_launches():
+    for kid in KERNEL_NAMES:
+        _wrapper(kid).launches = 0
 
 
 def read_launches():
-    from muvo_tpu_torch.ops import zconv
-
-    return {kid: getattr(zconv, name).launches
-            for kid, name in KERNEL_NAMES.items()}
+    return {kid: _wrapper(kid).launches for kid in KERNEL_NAMES}
 
 
 def predicted_launches(cfg):
     """Kernel launches per train step the model's code predicts: each
     kernel-path DecoderBlock (output z > 18) runs K2 then K1, twice with
-    the voxel decoder rematerialised, and each backward kernel once."""
+    the voxel decoder rematerialised, and each backward kernel once; on the
+    LARGE path (5,184 tokens, flash from 2048) each transformer layer runs
+    K4 once and K5 once (the transformer is outside every checkpoint)."""
     z = max(1, cfg.VOXEL.SIZE[2] // 64)  # the learned constant's z
     blocks = 0
     for _ in range(6):  # three middle blocks, conv1, conv2, conv3
         z *= 2
         blocks += z >= 19
     fwd = 2 if cfg.MODEL.REMAT else 1
+    layers = cfg.MODEL.TRANSFORMER.N_LAYERS if cfg.MODEL.TRANSFORMER.LARGE \
+        else 0
     return {"K1": fwd * blocks, "K2": fwd * blocks, "K1-dx": blocks,
-            "K2-dx": blocks, "K3": blocks, "K3-up": blocks}
+            "K2-dx": blocks, "K3": blocks, "K3-up": blocks,
+            "K4": layers, "K5": layers, "K6-dq": 0, "K6-dkv": 0, "K4-mb": 0}
 
 
 def norm_rel(got, want):
@@ -355,12 +405,10 @@ def host_noise(trainer, batch, grads):
     return noise
 
 
-def training_phase(dev):
-    from muvo_tpu_torch.training.flagship import build_flagship_step
-
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    fs = build_flagship_step(device=dev)
+def run_train_steps(fs, dev, phase: str, config: str):
+    """3 warm-up steps, then TRAIN_STEPS timed ones with the launch counts
+    set to 0 just before and read just after; checks the counts against
+    the prediction and every loss for finiteness."""
     cfg = fs.cfg
     frames = cfg.BATCHSIZE * (cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON)
     warm_ms = []
@@ -381,7 +429,7 @@ def training_phase(dev):
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     per_step = predicted_launches(cfg)
     median = statistics.median(step_ms)
-    emit({"phase": "training", "config": "muvo.yml", "batch": cfg.BATCHSIZE,
+    emit({"phase": phase, "config": config, "batch": cfg.BATCHSIZE,
           "frames_per_step": frames, "precision": str(cfg.PRECISION),
           "remat": bool(cfg.MODEL.REMAT), "warmup_step_ms": warm_ms,
           "step_ms": step_ms, "step_ms_median": median,
@@ -400,7 +448,17 @@ def training_phase(dev):
         bad = [k for k, v in losses.items() if not math.isfinite(v)]
         if bad:
             raise AssertionError(f"step {i}: non-finite losses {bad}")
-    del fs, metrics
+    return launches
+
+
+def training_phase(dev):
+    from muvo_tpu_torch.training.flagship import build_flagship_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fs = build_flagship_step(device=dev)
+    launches = run_train_steps(fs, dev, "training", "muvo.yml")
+    del fs
     torch.cuda.empty_cache()
     card_vs_host(dev)
     return launches
@@ -422,7 +480,8 @@ def card_vs_host(dev):
     before = read_launches()
     got_m, got_g = card.grads(batch, stochastic=False)
     torch.cuda.synchronize()
-    tiny_launches = {k: v - before[k] for k, v in read_launches().items()}
+    tiny_launches = {k: v - before[k] for k, v in read_launches().items()
+                     if k in ZCONV_KERNELS}
     t0 = time.perf_counter()
     want_m, want_g = host.grads(batch, stochastic=False)
     host_s = time.perf_counter() - t0
@@ -483,7 +542,6 @@ def serving_phase(dev, cfg):
         generator=torch.Generator(device=dev).manual_seed(0))
     seq = cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON
     batch = synthetic_batch(cfg, batch_size=1, sequence_length=seq, seed=0)
-    fh = seq - 1
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -510,31 +568,10 @@ def serving_phase(dev, cfg):
     if not (launches["K1"] and launches["K2"]):
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{launches}")
-    s_h, s_w = (cfg.IMAGE.CROP[3] - cfg.IMAGE.CROP[1],
-                cfg.IMAGE.CROP[2] - cfg.IMAGE.CROP[0])
-    expect = {
-        "throttle_brake": (1,), "steering": (1,),
-        "rgb_1": (s_h, s_w, 3), "rgb_4": (s_h // 4, s_w // 4, 3),
-        "lidar_reconstruction_1": (cfg.POINTS.CHANNELS,
-                                   cfg.POINTS.HORIZON_RESOLUTION, 4),
-        "voxel_1": (*cfg.VOXEL.SIZE, cfg.VOXEL_SEG.N_CLASSES),
-        "voxel_2": (*(v // 2 for v in cfg.VOXEL.SIZE),
-                    cfg.VOXEL_SEG.N_CLASSES),
-    }
-    state_dim = (cfg.MODEL.TRANSITION.HIDDEN_STATE_DIM
-                 + cfg.MODEL.TRANSITION.STATE_DIM)
-    for name, result, steps in (("deployment_forward", out, 1),
-                                ("sim_forward", sim_out, 1),
-                                ("imagine", imagined, fh)):
-        for key, tail in expect.items():
-            got = tuple(result[key].shape)
-            if got != (1, steps, *tail):
-                raise AssertionError(f"{name} {key}: shape {got}")
-        for key, v in result.items():
-            if not torch.isfinite(v).all():
-                raise AssertionError(f"{name} {key}: non-finite values")
-    if tuple(imagined["state"].shape) != (1, fh, state_dim):
-        raise AssertionError(f"imagine state shape {imagined['state'].shape}")
+    if launches["K4"]:  # 648 tokens a frame take the math path
+        raise AssertionError(f"flash attention ran on muvo.yml's 648 tokens: "
+                             f"{launches}")
+    check_serving_outputs(cfg, out, sim_out, imagined)
 
     # the card's decode (K1/K2 inside) against the port's host decode
     # (plain versions) on the same carry and weights
@@ -564,23 +601,324 @@ def serving_phase(dev, cfg):
     return launches
 
 
-def summary_row(kid, row, serving_launches, training_launches):
-    """One entry of the kernels line: ``launches`` counts both main paths
-    (the serving run and the TRAIN_STEPS timed training steps), each as
-    read from the counters after its run."""
+def check_serving_outputs(cfg, out, sim_out, imagined):
+    """muvo_tpu's shapes and finite values for a deployment_forward output,
+    a sim_forward output and its imagination."""
+    seq = cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON
+    fh = seq - 1
+    s_h, s_w = (cfg.IMAGE.CROP[3] - cfg.IMAGE.CROP[1],
+                cfg.IMAGE.CROP[2] - cfg.IMAGE.CROP[0])
+    expect = {
+        "throttle_brake": (1,), "steering": (1,),
+        "rgb_1": (s_h, s_w, 3), "rgb_4": (s_h // 4, s_w // 4, 3),
+        "lidar_reconstruction_1": (cfg.POINTS.CHANNELS,
+                                   cfg.POINTS.HORIZON_RESOLUTION, 4),
+        "voxel_1": (*cfg.VOXEL.SIZE, cfg.VOXEL_SEG.N_CLASSES),
+        "voxel_2": (*(v // 2 for v in cfg.VOXEL.SIZE),
+                    cfg.VOXEL_SEG.N_CLASSES),
+    }
+    state_dim = (cfg.MODEL.TRANSITION.HIDDEN_STATE_DIM
+                 + cfg.MODEL.TRANSITION.STATE_DIM)
+    for name, result, steps in (("deployment_forward", out, 1),
+                                ("sim_forward", sim_out, 1),
+                                ("imagine", imagined, fh)):
+        for key, tail in expect.items():
+            got = tuple(result[key].shape)
+            if got != (1, steps, *tail):
+                raise AssertionError(f"{name} {key}: shape {got}")
+        for key, v in result.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"{name} {key}: non-finite values")
+    if tuple(imagined["state"].shape) != (1, fh, state_dim):
+        raise AssertionError(f"imagine state shape {imagined['state'].shape}")
+
+
+def flash_bound(kid, q, seq_len, inputs, outputs):
+    """Least time of a flash kernel on (bh, n, d) inputs: FLASH_FLOPS per
+    (query, unmasked key) pair and d, one exponential per pair (K4-mb
+    none), each input read and each output written once."""
+    bh, n, d = q.shape
+    pairs = bh * n * seq_len
+    flops = FLASH_FLOPS[kid] * pairs * d
+    exps = 0 if kid == "K4-mb" else pairs
+    ms, by = least_time(nbytes(*inputs, *outputs), flops, q.dtype, exps)
+    return ms, by, {"flops": flops, "exps": exps,
+                    "ops_ms": flops / PEAK_FLOPS[q.dtype] * 1e3,
+                    "exp_ms": exps / EXP_PER_S * 1e3}
+
+
+def flash_kernel_phase(dev):
+    """K4, K5, K6-dq and K6-dkv against their plain versions on the same
+    inputs (the backward ones on K4's o and lse), norm-relative per output;
+    then K4-mb once."""
+    from muvo_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    results = {}
+    for label, bh, n, d, seq_len in FLASH_CASES:
+        keys = n if seq_len is None else seq_len
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn((bh, n, d), generator=gen, device=dev)
+                           .to(dtype) for _ in range(4))
+            o, lse = fa.flash_fwd(q, k, v, seq_len)
+            got = {"K4": (o, lse),
+                   "K5": fa.flash_bwd(q, k, v, o, lse, do, seq_len),
+                   "K6-dq": (fa.flash_bwd_dq(q, k, v, o, lse, do, seq_len),),
+                   "K6-dkv": fa.flash_bwd_dkv(q, k, v, o, lse, do, seq_len)}
+            torch.cuda.synchronize()
+            want_bwd = fa.flash_bwd_plain(q, k, v, o, lse, do, seq_len)
+            want = {"K4": fa.flash_fwd_plain(q, k, v, seq_len),
+                    "K5": want_bwd, "K6-dq": want_bwd[:1],
+                    "K6-dkv": want_bwd[1:]}
+            # the yardstick: one library call on (1, bh, n, d), and its
+            # backward alone
+            q4, k4, v4 = (t[None].detach().requires_grad_()
+                          for t in (q, k, v))
+            mask = None
+            if seq_len is not None:
+                mask = (torch.arange(n, device=dev) < seq_len)[None, None,
+                                                                None]
+            lib_out = F.scaled_dot_product_attention(q4, k4, v4,
+                                                     attn_mask=mask)
+            runs = {
+                "K4": (lambda: fa.flash_fwd(q, k, v, seq_len),
+                       lambda: fa.flash_fwd_plain(q, k, v, seq_len),
+                       lambda: F.scaled_dot_product_attention(
+                           q4, k4, v4, attn_mask=mask),
+                       (q, k, v)),
+                "K5": (lambda: fa.flash_bwd(q, k, v, o, lse, do, seq_len),
+                       lambda: fa.flash_bwd_plain(q, k, v, o, lse, do,
+                                                  seq_len),
+                       lambda: torch.autograd.grad(
+                           lib_out, (q4, k4, v4), do[None],
+                           retain_graph=True),
+                       (q, k, v, o, lse, do)),
+            }
+            runs["K6-dq"] = (
+                lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, seq_len),
+                runs["K5"][1], runs["K5"][2], runs["K5"][3])
+            runs["K6-dkv"] = (
+                lambda: fa.flash_bwd_dkv(q, k, v, o, lse, do, seq_len),
+                runs["K5"][1], runs["K5"][2], runs["K5"][3])
+            tol = FLASH_TOL[dtype]
+            for kid, (kern, plain, library, inputs) in runs.items():
+                rel = max(norm_rel(g, w) for g, w in zip(got[kid], want[kid]))
+                err = max((g.float() - w.float()).abs().max().item()
+                          for g, w in zip(got[kid], want[kid]))
+                bms, by, work = flash_bound(kid, q, keys, inputs, got[kid])
+                row = {"phase": "flash_kernel", "kernel": kid, "case": label,
+                       "bh": bh, "n": n, "d": d, "seq_len": seq_len,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "max_abs_err": err, "norm_rel_err": rel, "tol": tol,
+                       "ms": time_ms(kern, iters=5, warmup=1),
+                       "plain_ms": time_ms(plain, iters=3, warmup=1),
+                       "library_ms": time_ms(library, iters=3, warmup=1),
+                       "bound_ms": bms, "bound_by": by, **work}
+                emit(row)
+                if not rel <= tol:
+                    raise AssertionError(f"{kid} {label} {dtype}: "
+                                         f"norm-relative error {rel} > {tol}")
+                results[(kid, label, dtype)] = row
+            del q, k, v, do, o, lse, got, want, want_bwd, runs, lib_out
+            del q4, k4, v4
+            torch.cuda.empty_cache()
+    # K4-mb: the microbenchmark's shape, bf16
+    q, k, v = (torch.randn((16, 5184, 48), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    got, want = fa.flash_matmul(q, k, v), fa.flash_matmul_plain(q, k, v)
+    torch.cuda.synchronize()
+    rel = norm_rel(got, want)
+    bms, by, work = flash_bound("K4-mb", q, q.shape[1], (q, k, v), (got,))
+    row = {"phase": "flash_kernel", "kernel": "K4-mb", "case": "microbench",
+           "bh": 16, "n": 5184, "d": 48, "seq_len": None, "dtype": "bfloat16",
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "norm_rel_err": rel, "tol": FLASH_TOL[torch.bfloat16],
+           "ms": time_ms(lambda: fa.flash_matmul(q, k, v), iters=5, warmup=1),
+           "plain_ms": time_ms(lambda: fa.flash_matmul_plain(q, k, v),
+                               iters=3, warmup=1),
+           "library_ms": None, "bound_ms": bms, "bound_by": by, **work}
+    emit(row)
+    if not rel <= FLASH_TOL[torch.bfloat16]:
+        raise AssertionError(f"K4-mb: norm-relative error {rel}")
+    results[("K4-mb", "microbench", torch.bfloat16)] = row
+    return results
+
+
+def microbench_phase():
+    """tools/torch_flash_microbench.py in this process (its path: K4-mb and
+    K4 at bh 16), the launch counts set to 0 just before and read after."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import torch_flash_microbench
+
+    reset_launches()
+    out = Path(__file__).resolve().parent / "build" / "flash_microbench.json"
+    rc = torch_flash_microbench.main(["--iters", "5", "--out", str(out)])
+    launches = read_launches()
+    emit({"phase": "microbench", "rc": rc, "launches": launches})
+    if rc != 0 or not launches["K4-mb"]:
+        raise AssertionError(f"the flash microbenchmark failed: rc {rc}, "
+                             f"{launches}")
+    return launches
+
+
+def serving_large_phase(dev):
+    """muvo.yml with MODEL.TRANSFORMER.LARGE through DeploymentSession in
+    fp32: 3 deployment_forward and 3 sim_forward ticks, K4 once a layer for
+    each encode, then one frame's embedding on the card against the host."""
+    from muvo_tpu_torch.data.synthetic import synthetic_batch
+    from muvo_tpu_torch.inference import DeploymentSession
+    from muvo_tpu_torch.models.world_model import MuvoWorldModel
+    from muvo_tpu_torch.utils.network import remove_past
+
+    cfg = muvo_cfg()
+    cfg.MODEL.TRANSFORMER.LARGE = True
+    torch.manual_seed(1)
+    model = MuvoWorldModel(cfg)
+    host_model = copy.deepcopy(model).eval().requires_grad_(False)
+    session = DeploymentSession(
+        model, cfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    seq = cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON
+    batch = synthetic_batch(cfg, batch_size=1, sequence_length=seq, seed=0)
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    deploy_ms, sim_ms, encodes = [], [], 0
+    for _ in range(3):
+        encodes += session.count == 0  # the tick encodes a frame
+        t0 = time.perf_counter()
+        out = session.deployment_forward(batch, is_dreaming=False)
+        torch.cuda.synchronize()
+        deploy_ms.append((time.perf_counter() - t0) * 1e3)
+    session.reset()
+    for _ in range(3):
+        encodes += session.count == 0
+        t0 = time.perf_counter()
+        sim_out, imagined = session.sim_forward(batch, is_dreaming=False)
+        torch.cuda.synchronize()
+        sim_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    predicted_k4 = cfg.MODEL.TRANSFORMER.N_LAYERS * encodes
+    check_serving_outputs(cfg, out, sim_out, imagined)
+
+    # one frame: the card's embedding (K4 in every layer) against the
+    # port's host run (the math path), same weights and preprocessed input
+    one = session._tensors(remove_past(batch, cfg.RECEPTIVE_FIELD))
+    with torch.inference_mode():
+        pb = session.preprocess(one, labels=False)
+        before = read_launches()["K4"]
+        card = session.model.encode_frame(pb)
+        torch.cuda.synchronize()
+        frame_k4 = read_launches()["K4"] - before
+        t0 = time.perf_counter()
+        host = host_model.encode_frame(
+            {k: v.cpu() if torch.is_tensor(v) else v for k, v in pb.items()})
+        host_s = time.perf_counter() - t0
+    err = norm_rel(card, host)
+    tokens = (cfg.IMAGE.CROP[3] - cfg.IMAGE.CROP[1]) // 8 * (
+        (cfg.IMAGE.CROP[2] - cfg.IMAGE.CROP[0]) // 8) + (
+        cfg.POINTS.CHANNELS // 8) * (cfg.POINTS.HORIZON_RESOLUTION // 8)
+    emit({"phase": "serving_large", "config": "muvo.yml LARGE", "batch": 1,
+          "sequence": seq, "tokens_per_frame": tokens,
+          "deployment_tick_ms": deploy_ms, "sim_tick_ms": sim_ms,
+          "sim_tick_ms_median": statistics.median(sim_ms),
+          "deployment_tick_ms_median": statistics.median(deploy_ms),
+          "peak_mib": peak_mib, "launches": launches, "encodes": encodes,
+          "K4_predicted": predicted_k4, "frame_K4_launches": frame_k4,
+          "embedding_vs_host_norm_rel": err, "tol": DECODE_TOL,
+          "host_encode_s": host_s})
+    if launches["K4"] != predicted_k4 or frame_k4 != (
+            cfg.MODEL.TRANSFORMER.N_LAYERS):
+        raise AssertionError(f"K4: {launches['K4']} launches for {encodes} "
+                             f"encodes (predicted {predicted_k4}), "
+                             f"{frame_k4} for one frame")
+    if launches["K5"] or launches["K6-dq"] or launches["K6-dkv"]:
+        raise AssertionError(f"a backward kernel ran in serving: {launches}")
+    if not err <= DECODE_TOL:
+        raise AssertionError(f"card embedding differs from host: {err}")
+    return launches
+
+
+def training_large_phase(dev):
+    """build_flagship_step(large=True): timed steps with K4 and K5 as
+    predicted; then gradients of one step with the split backward (K6)
+    against the fused one's (K5), each leaf within the bf16 tolerance plus
+    NOISE_FACTOR x the fused backward's own change between two runs (K5's
+    dq sums by atomics in a varying order)."""
+    from muvo_tpu_torch.training.flagship import (build_flagship_step,
+                                                  set_flash_bwd)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fs = build_flagship_step(large=True, device=dev)
+    launches = run_train_steps(fs, dev, "training_large", "muvo.yml LARGE")
+    model = fs.trainer.state.model
+    layers = fs.cfg.MODEL.TRANSFORMER.N_LAYERS
+
+    def grads(bwd):
+        set_flash_bwd(model, bwd)
+        before = read_launches()
+        t0 = time.perf_counter()
+        _, g = fs.trainer.grads(fs.batch, stochastic=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counted = {k: v - before[k] for k, v in read_launches().items()}
+        return ({k: v.detach().float().clone() for k, v in g.items()
+                 if v is not None}, ms, counted)
+
+    fused, fused_ms, _ = grads("fused")
+    reset_launches()  # the split step's path
+    split, split_ms, _ = grads("split")
+    split_launches = read_launches()
+    split2_ms = grads("split")[1]
+    fused2, fused2_ms, _ = grads("fused")
+    noise = {k: norm_rel(fused2[k], g) for k, g in fused.items()}
+    rel = {k: norm_rel(split[k], g) for k, g in fused.items()}
+    tol = FLASH_TOL[torch.bfloat16]
+    bad = {k: (rel[k], noise[k]) for k in rel
+           if not rel[k] <= tol + NOISE_FACTOR * noise[k]}
+    emit({"phase": "training_large_split", "launches": split_launches,
+          "grads_ms_fused": [fused_ms, fused2_ms],
+          "grads_ms_split": [split_ms, split2_ms],
+          "max_grad_norm_rel": max(rel.values()),
+          "median_grad_norm_rel": statistics.median(rel.values()),
+          "worst_grad": max(rel, key=rel.get),
+          "fused_noise_median": statistics.median(noise.values()),
+          "fused_noise_max": max(noise.values()), "grad_leaves": len(rel),
+          "tol": tol, "noise_factor": NOISE_FACTOR})
+    if (split_launches["K6-dq"], split_launches["K6-dkv"],
+            split_launches["K5"]) != (layers, layers, 0):
+        raise AssertionError(f"the split step launched {split_launches}")
+    if bad:
+        raise AssertionError(f"split and fused gradients differ: {bad}")
+    del fs, model, fused, fused2, split
+    torch.cuda.empty_cache()
+    return launches, split_launches
+
+
+def summary_row(kid, row, paths):
+    """One entry of the kernels line: ``launches`` sums the main paths'
+    counts (``paths``: {path: {kernel: launches}}, each read from the
+    counters just after its run)."""
+    by_path = {name: counts[kid] for name, counts in paths.items()
+               if counts[kid]}
+    shape = row.get("shape", row.get("input"))
     return {
         "name": KERNEL_NAMES[kid], "id": kid, "route": "cuda",
         "source": f"muvo_tpu_torch/csrc/{SOURCES[kid]}",
         "replaces": REPLACES[kid],
-        "launches": serving_launches + training_launches,
-        "launches_serving": serving_launches,
-        "launches_training": training_launches,
-        "launches_per_train_step": training_launches // TRAIN_STEPS,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "launches_per_train_step": {
+            "muvo.yml": paths["training"][kid] // TRAIN_STEPS,
+            "muvo.yml LARGE": paths["training_large"][kid] // TRAIN_STEPS},
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        "shape": row.get("shape", row.get("input")), "stage": row["stage"],
-        "dtype": row["dtype"],
+        "shape": shape or [row["bh"], row["n"], row["d"]],
+        "stage": row.get("stage", row.get("case")), "dtype": row["dtype"],
     }
 
 
@@ -604,24 +942,31 @@ def main() -> int:
     built = build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built,
-          "ptxas": [ln.strip() for name in ("zconv", "zconv_dw")
+          "ptxas": [ln.strip()
+                    for name in ("zconv", "zconv_dw", "flash_attention")
                     for ln in build_log(name).splitlines()
                     if "registers" in ln or "Compiling entry" in ln]})
 
     results = kernel_phase(dev)
     backward = backward_kernel_phase(dev)
-    serving = serving_phase(dev, muvo_cfg())
-    training = training_phase(dev)
+    flash = flash_kernel_phase(dev)
+    paths = {"serving": serving_phase(dev, muvo_cfg()),
+             "training": training_phase(dev),
+             "serving_large": serving_large_phase(dev)}
+    paths["training_large"], paths["training_large_split"] = (
+        training_large_phase(dev))
+    paths["microbench"] = microbench_phase()
 
-    summary = []
-    for kid in ("K1", "K2"):
-        row = results[(kid, MAIN_SHAPE[kid], MAIN_BATCH, torch.float32)]
-        summary.append(summary_row(kid, row, serving[kid], training[kid]))
+    rows = {kid: results[(kid, MAIN_SHAPE[kid], MAIN_BATCH, torch.float32)]
+            for kid in ("K1", "K2")}
     for kid, stage in (("K1-dx", "conv3.conv2"), ("K2-dx", "conv3.conv1"),
                        ("K3", "conv3.conv2"), ("K3-up", "conv3.conv1")):
-        row = backward[(kid, stage, torch.bfloat16)]
-        summary.append(summary_row(kid, row, serving[kid], training[kid]))
-    emit({"kernels": summary})
+        rows[kid] = backward[(kid, stage, torch.bfloat16)]
+    for kid in ("K4", "K5", "K6-dq", "K6-dkv"):
+        rows[kid] = flash[(kid, "training", torch.bfloat16)]
+    rows["K4-mb"] = flash[("K4-mb", "microbench", torch.bfloat16)]
+    emit({"kernels": [summary_row(kid, row, paths)
+                      for kid, row in rows.items()]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

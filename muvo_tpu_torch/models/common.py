@@ -1,7 +1,7 @@
 """Shared model components (counterpart of muvo_tpu/models/common.py):
-the bottom-up FPN aggregator, route and speed encoders, the policy, the
-feature compressor and the sine position embedding. NHWC at the public
-functions; upstream MUVO's parameter names.
+the top-down and bottom-up FPN aggregators, route and speed encoders, the
+policy, the feature compressor and the sine position embedding. NHWC at
+the public functions; upstream MUVO's parameter names.
 """
 
 from __future__ import annotations
@@ -19,7 +19,32 @@ from muvo_tpu_torch.models.layers import (
     ConvBN,
     adaptive_avg_pool_1x1,
     max_pool_torch,
+    resize_bilinear,
 )
+
+
+class Decoder(nn.Module):
+    """Top-down aggregation to the finest input stride (the LARGE path).
+
+    xs: [s8, s16, s32] NHWC -> NHWC at stride 8: ``conv1`` on xs[-1], then
+    for i = 2 .. len(xs) ``upsample_skip_convs[i - 2](xs[-i])`` plus the
+    bilinear upsample of the running sum to xs[-i]'s size. (muvo_tpu names
+    the skips ``skip{i}``, i from 2; DecoderDS's from 1.)
+    """
+
+    def __init__(self, in_channels: Sequence[int], out_channels: int):
+        super().__init__()
+        self.conv1 = ConvBN(in_channels[-1], out_channels)
+        self.upsample_skip_convs = nn.ModuleList(
+            ConvBN(in_channels[-i], out_channels)
+            for i in range(2, len(in_channels) + 1))
+
+    def forward(self, xs: List[torch.Tensor]):
+        x = self.conv1(xs[-1])
+        for i in range(2, len(xs) + 1):
+            x = self.upsample_skip_convs[i - 2](xs[-i]) + resize_bilinear(
+                x, xs[-i].shape[1:3])
+        return x
 
 
 class DecoderDS(nn.Module):

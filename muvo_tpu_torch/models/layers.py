@@ -141,6 +141,21 @@ def leaky_relu_torch(x, negative_slope: float = 0.01):
     return F.leaky_relu(x, negative_slope)
 
 
+def resize_bilinear(x, size):
+    """Bilinear resize of NHWC up to ``size`` (h, w): muvo_tpu's
+    ``jax.image.resize(..., "linear")``, which for upsampling equals
+    F.interpolate with align_corners=False and no antialiasing (half-pixel
+    centres, edges clamped). The top-down FPN only ever upsamples; a size
+    below the input's raises, since jax's downsampling antialiases
+    (models/preprocess.py carries those weights for the label pyramids)."""
+    h, w = int(size[0]), int(size[1])
+    if h < x.shape[1] or w < x.shape[2]:
+        raise ValueError(f"resize_bilinear only upsamples: "
+                         f"{tuple(x.shape[1:3])} -> {(h, w)}")
+    return to_nhwc(F.interpolate(to_nchw(x), size=(h, w), mode="bilinear",
+                                 align_corners=False, antialias=False))
+
+
 def upsample2x_bilinear(x):
     """2x bilinear upsample of NHWC, half-pixel centres (align_corners=False,
     which equals jax.image.resize 'linear' for 2x upsampling)."""

@@ -3,10 +3,14 @@
 
 Parameter names are those of ``nn.TransformerEncoder`` (layers.{i}.self_attn.
 in_proj_weight / out_proj, linear1, linear2, norm1, norm2), but attention
-runs through the port's own math path (ops/attention.py), so ``seq_len``
-masking is available. Dropout (p 0.1, upstream's) is active only when the
-caller asks for it (training), and draws its masks from an explicit
-``torch.Generator``.
+runs through the port's own ops/attention.py, so ``seq_len`` masking is
+available: the math path, or the flash kernels from 2048 tokens on the card
+(the LARGE path), whose backward each SelfAttention's ``flash_bwd`` picks
+("fused": K5, "split": K6). The row-local layers run on (B, N, C) as they
+are: muvo_tpu's 2-D flatten at 2048 tokens works around an XLA emitter on
+the TPU, and ``nn.Linear`` on (B, N, C) is already one GEMM. Dropout (p
+0.1, upstream's) is active only when the caller asks for it (training),
+and draws its masks from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ class SelfAttention(nn.Module):
     def __init__(self, d_model: int, n_heads: int):
         super().__init__()
         self.n_heads = n_heads
+        self.flash_bwd = "fused"
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
@@ -42,7 +47,8 @@ class SelfAttention(nn.Module):
     def forward(self, x, seq_len: Optional[int] = None):
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = qkv.chunk(3, dim=-1)
-        attn = multi_head_attention(q, k, v, self.n_heads, seq_len=seq_len)
+        attn = multi_head_attention(q, k, v, self.n_heads, seq_len=seq_len,
+                                    bwd=self.flash_bwd)
         return self.out_proj(attn)
 
 

@@ -15,9 +15,16 @@ storing their activations, and MODEL.REMAT_ENCODER does the same for the
 resnet encoders, through torch.utils.checkpoint; the recompute leaves the
 BatchNorm running statistics alone.
 
-Branches outside the ported slices (frustum-BEV fusion, the LARGE stride-8
-path, PointPillars, measurements, the no-transformer MILE branch and the
-BEV decoder) raise NotImplementedError instead of running something else.
+MODEL.TRANSFORMER.LARGE aggregates stride-8 features with the top-down
+Decoder (5,184 tokens a frame at muvo.yml's sizes), and the transformer's
+attention takes the flash kernels on the card. The tokens run at their
+true count: muvo_tpu pads them once to the flash block multiple because
+the TPU's BlockSpec tiles cannot be ragged, and the port's kernels mask
+the ragged tail themselves.
+
+Branches outside the ported slices (frustum-BEV fusion, PointPillars,
+measurements, the no-transformer MILE branch and the BEV decoder) raise
+NotImplementedError instead of running something else.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from torch import nn
 
 from muvo_tpu_torch.models.backbones.resnet import build_backbone
 from muvo_tpu_torch.models.common import (
+    Decoder,
     DecoderDS,
     FeatureCompressor,
     Policy,
@@ -65,7 +73,6 @@ def _check_supported(cfg):
     unsupported = {
         "MODEL.TRANSFORMER.ENABLED False": not m.TRANSFORMER.ENABLED,
         "MODEL.TRANSFORMER.BEV": m.TRANSFORMER.BEV,
-        "MODEL.TRANSFORMER.LARGE": m.TRANSFORMER.LARGE,
         "MODEL.LIDAR.ENABLED False": not m.LIDAR.ENABLED,
         "MODEL.LIDAR.POINT_PILLAR": m.LIDAR.POINT_PILLAR.ENABLED,
         "MODEL.MEASUREMENTS": m.MEASUREMENTS.ENABLED,
@@ -87,11 +94,12 @@ class MuvoWorldModel(nn.Module):
         emb = m.EMBEDDING_DIM
 
         # ---- encoders ------------------------------------------------
+        fpn = Decoder if m.TRANSFORMER.LARGE else DecoderDS
         self.encoder, enc_c = build_backbone(m.ENCODER.NAME)
-        self.feat_decoder = DecoderDS(enc_c, tf_c)
+        self.feat_decoder = fpn(enc_c, tf_c)
         self.range_view_encoder, lidar_c = build_backbone(m.LIDAR.ENCODER,
                                                           in_channels=4)
-        self.range_view_decoder = DecoderDS(lidar_c, tf_c)
+        self.range_view_decoder = fpn(lidar_c, tf_c)
         self.type_embedding = nn.Parameter(torch.zeros(1, 1, tf_c, 2))
         self.transformer_encoder = TransformerEncoder(
             tf_c, m.TRANSFORMER.N_LAYERS, m.TRANSFORMER.N_HEADS,

@@ -2,8 +2,10 @@
 muvo_tpu/training/flagship.py): muvo.yml at full width, 4 sequences of
 RECEPTIVE_FIELD 4 + FUTURE_HORIZON 2 frames, decoder remat on, encoder
 remat off, no gradient accumulation, a synthetic batch made from ``seed``
-on the device. One definition for muvo_tpu_torch.bench, chip_smoke.py and
-the profiler, so each describes the same step.
+on the device. ``large=True`` is the LARGE step: stride-8 features, 5,184
+fusion tokens a frame through the flash kernels, 1 sequence of 6 frames.
+One definition for muvo_tpu_torch.bench, chip_smoke.py and the profilers,
+so each describes the same step.
 """
 
 from __future__ import annotations
@@ -27,12 +29,10 @@ def flagship_cfg(large: bool = False, batch_override: int = 0,
                  remat: str = ""):
     from muvo_tpu_torch.config import get_cfg
 
-    if large:
-        raise NotImplementedError("the LARGE path (stride-8 features, flash "
-                                  "attention) is not ported yet")
     cfg = get_cfg()
     cfg.merge_from_file(str(MUVO_YML))
-    cfg.BATCHSIZE = batch_override or 4
+    cfg.MODEL.TRANSFORMER.LARGE = large
+    cfg.BATCHSIZE = batch_override or (1 if large else 4)
     cfg.MODEL.REMAT = True
     cfg.MODEL.REMAT_ENCODER = False
     cfg.OPTIMIZER.ACCUMULATE_GRAD_BATCHES = 1
@@ -47,12 +47,25 @@ def flagship_cfg(large: bool = False, batch_override: int = 0,
     return cfg
 
 
+def set_flash_bwd(model, bwd: str):
+    """The flash backward of every attention layer of ``model``: "fused"
+    (K5) or "split" (K6)."""
+    from muvo_tpu_torch.models.transformer import SelfAttention
+
+    if bwd not in ("fused", "split"):
+        raise ValueError(f"flash_bwd must be 'fused' or 'split', got {bwd!r}")
+    for module in model.modules():
+        if isinstance(module, SelfAttention):
+            module.flash_bwd = bwd
+
+
 def build_flagship_step(large: bool = False, batch_override: int = 0,
                         remat: str = "", device=None,
                         seed: int = 0) -> FlagshipStep:
     """The benchmark train step: config, initialised trainer, batch and
-    generator. ``batch_override``: sequences (default 4); ``remat``:
-    "off|voxel|all[,enc]"; ``large=True`` raises NotImplementedError."""
+    generator. ``large``: the LARGE step; ``batch_override``: sequences
+    (default 4, LARGE 1); ``remat``: "off|voxel|all[,enc]". The flash
+    backward is K5 unless ``set_flash_bwd`` picks K6."""
     from muvo_tpu_torch.data.synthetic import synthetic_batch
     from muvo_tpu_torch.training.trainer import WorldModelTrainer
 

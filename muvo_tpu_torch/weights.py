@@ -101,6 +101,18 @@ def decoder_ds_entries(sd, prefix, p, s):
                             p[name], s[name])
 
 
+def decoder_entries(sd, prefix, p, s):
+    """The top-down Decoder: muvo_tpu's skip{j + 2} is upstream's
+    upsample_skip_convs.{j} (DecoderDS's skip{j + 1} its
+    downsample_skip_convs.{j})."""
+    conv_bn_entries(sd, prefix + "conv1.", p["conv1"], s["conv1"])
+    for name in p:
+        if name.startswith("skip"):
+            j = int(name[len("skip"):]) - 2
+            conv_bn_entries(sd, f"{prefix}upsample_skip_convs.{j}.", p[name],
+                            s[name])
+
+
 def basic_block_entries(sd, prefix, p, s):
     for i in (1, 2):
         sd[f"{prefix}conv{i}.weight"] = conv_weight(p[f"conv{i}"]["kernel"])
@@ -224,13 +236,15 @@ def state_dict_from_jax(params, batch_stats, cfg) -> Dict[str, torch.Tensor]:
     p = params
     s = batch_stats if batch_stats is not None else _NoStats()
     sd: Dict[str, np.ndarray] = {}
+    # the FPNs: the top-down Decoder on the LARGE path (as
+    # convert_reference_state_dict chooses), else DecoderDS
+    fpn = (decoder_entries if cfg.MODEL.TRANSFORMER.LARGE
+           else decoder_ds_entries)
     resnet_entries(sd, "encoder.", p["encoder"], s["encoder"])
-    decoder_ds_entries(sd, "feat_decoder.", p["feat_decoder"],
-                       s["feat_decoder"])
+    fpn(sd, "feat_decoder.", p["feat_decoder"], s["feat_decoder"])
     resnet_entries(sd, "range_view_encoder.", p["lidar_encoder"],
                    s["lidar_encoder"])
-    decoder_ds_entries(sd, "range_view_decoder.", p["lidar_decoder"],
-                       s["lidar_decoder"])
+    fpn(sd, "range_view_decoder.", p["lidar_decoder"], s["lidar_decoder"])
     sd["type_embedding"] = np.asarray(p["type_embedding"])
     transformer_entries(sd, "transformer_encoder.", p["transformer"])
     for name in ("image_feature_conv", "lidar_feature_conv"):

@@ -7,10 +7,14 @@ JAX; tests/conftest.py imports JAX, hence ``--noconftest``:
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda \
         tests/test_torch_cuda.py
 
-Tolerances, relative to max |plain|: fp32 1e-4 (summation order only, TF32
-off for the plain conv); bf16 2e-2 (the output is rounded to bf16, and K2's
-plain version also rounds its upsampled input, which the kernel keeps in
-fp32).
+Tolerances, relative to max |plain| for the voxel convs and norm-relative
+(|kernel - plain| / |plain|, Frobenius norms) for the flash kernels: fp32
+1e-4 (summation order only, TF32 off for the plain conv and matmuls; K5's
+dq sums by atomics, in an order that varies from run to run); bf16 2e-2
+(the output is rounded to bf16, K2's plain version also rounds its
+upsampled input, which the kernel keeps in fp32, and the flash kernels
+round p relative to a running maximum where the plain version uses the
+row's).
 """
 
 import pytest
@@ -18,6 +22,7 @@ import torch
 import torch.utils.checkpoint
 
 from muvo_tpu_torch.models.stylegan import VoxelDecoder
+from muvo_tpu_torch.ops import flash_attention as fa
 from muvo_tpu_torch.ops import zconv
 
 pytestmark = pytest.mark.cuda
@@ -171,6 +176,106 @@ def test_autocast_gives_the_kernels_bf16(dev):
     out.float().sum().backward()
     assert w.grad.dtype == torch.float32
     assert zconv.zconv3d_dw.launches == n + 1
+
+
+def _norm_rel(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _qkv(dev, bh, n, d, dtype, seed=0, count=3):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((bh, n, d), generator=gen, device=dev).to(dtype)
+            for _ in range(count)]
+
+
+# (bh, n, seq_len): ragged n; seq_len < n inside a key tile; key tiles of
+# masked keys only; a single tile
+FLASH_SHAPES = [(3, 300, None), (2, 640, 600), (2, 200, 60), (1, 64, None)]
+
+
+@pytest.mark.parametrize("d", [32, 48, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,n,seq_len", FLASH_SHAPES)
+def test_flash_kernels_match_plain(dev, d, dtype, bh, n, seq_len):
+    """K4, K5 and K6 (dq, dkv) against their plain versions on the same
+    inputs, norm-relative (K5's dq sums by atomics in a varying order)."""
+    q, k, v, do = _qkv(dev, bh, n, d, dtype, count=4)
+    n0 = (fa.flash_fwd.launches, fa.flash_bwd.launches,
+          fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v, seq_len)
+    fused = fa.flash_bwd(q, k, v, o, lse, do, seq_len)
+    split = fa.flash_bwd(q, k, v, o, lse, do, seq_len, split=True)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches,
+            fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == tuple(
+                c + 1 for c in n0)
+    o_want, lse_want = fa.flash_fwd_plain(q, k, v, seq_len)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert _norm_rel(o, o_want) <= TOL[dtype]
+    assert _norm_rel(lse, lse_want) <= TOL[dtype]
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, seq_len)
+    for got in (fused, split):
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            assert _norm_rel(g, w) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("d", [32, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_matmul_matches_plain(dev, d, dtype):
+    q, k, v = _qkv(dev, 2, 300, d, dtype)
+    n = fa.flash_matmul.launches
+    got = fa.flash_matmul(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_matmul.launches == n + 1
+    assert _norm_rel(got, fa.flash_matmul_plain(q, k, v)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+def test_flash_autograd_on_card_matches_host(dev, bwd):
+    """flash_attention's Function on the card (K4, then K5 or K6) against
+    the same Function on the host (plain versions), fp32."""
+    q, k, v, g = _qkv(dev, 2, 200, 48, torch.float32, count=4)
+    results = []
+    for d in (dev, torch.device("cpu")):
+        xs = [t.detach().to(d).reshape(1, 2, 200, 48).requires_grad_()
+              for t in (q, k, v)]
+        out = fa.flash_attention(*xs, seq_len=150, bwd=bwd)
+        out.backward(g.to(d).reshape(out.shape))
+        results.append([out.detach().cpu()] + [t.grad.cpu() for t in xs])
+    for got, want in zip(*results):
+        assert _norm_rel(got, want) <= 1e-4
+
+
+def test_flash_wrapper_raises_on_what_the_kernels_do_not_take(dev):
+    q, k, v = _qkv(dev, 2, 100, 48, torch.float32)
+    n = fa.flash_fwd.launches
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q.double(), k.double(), v.double())
+    w = torch.randn((2, 100, 40), device=dev)
+    with pytest.raises(ValueError):  # head dim
+        fa.flash_fwd(w, w, w)
+    with pytest.raises(ValueError):  # not contiguous
+        fa.flash_fwd(q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1))
+    with pytest.raises(ValueError):  # seq_len past n
+        fa.flash_fwd(q, k, v, 101)
+    assert fa.flash_fwd.launches == n
+    fa.flash_fwd(q, k, v)
+    assert fa.flash_fwd.launches == n + 1
+
+
+def test_attention_takes_flash_from_2048_tokens_on_the_card(dev):
+    from muvo_tpu_torch.ops.attention import multi_head_attention
+
+    for tokens, launched in ((648, 0), (2048, 1)):
+        x = torch.randn((1, tokens, 96), device=dev)
+        n = fa.flash_fwd.launches
+        got = multi_head_attention(x, x, x, 2)
+        torch.cuda.synchronize()
+        assert fa.flash_fwd.launches - n == launched
+        want = multi_head_attention(x.cpu(), x.cpu(), x.cpu(), 2)
+        assert _norm_rel(got, want) <= 1e-4
 
 
 def test_voxel_decoder_on_card_matches_host(dev):

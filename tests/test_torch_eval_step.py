@@ -5,6 +5,8 @@ imagines the future horizon (FH 1) from the last posterior state; it is
 held against muvo_tpu's make_eval_step on tiny_test_cfg (voxel 64^3, the
 Pallas kernels in interpret mode), with the same seeded weights and batch
 and sampling at the mean on both sides (tests/torch_port_common.py).
+The same holds with MODEL.TRANSFORMER.LARGE (stride-8 features through the
+top-down Decoder; on the CPU both sides take their math attention path).
 Tolerance: each loss term of both passes 1e-4 relative (fp32, summation
 order), as the train step's; the decoded outputs 1e-3 norm-relative
 (|got - want| / |want|, Frobenius norms).
@@ -33,12 +35,12 @@ LOSS_TOL = 1e-4
 OUTPUT_TOL = 1e-3
 
 
-@pytest.fixture(scope="module")
-def eval_pair():
+def _eval_pair(large: bool):
     mp = pytest.MonkeyPatch()
     try:
         deterministic_jax(mp)
         jcfg, pcfg = fp32_cfgs()
+        jcfg.MODEL.TRANSFORMER.LARGE = pcfg.MODEL.TRANSFORMER.LARGE = large
         batch = synthetic_batch(pcfg, 2, 3, seed=4)
         trainer, state = jax_trainer_and_state(jcfg, batch)
         trainer.compute_dtype = jnp.float32
@@ -56,9 +58,18 @@ def eval_pair():
     return got, want, port
 
 
-@pytest.mark.parametrize("part", ["losses", "losses_imagine"])
-def test_eval_losses_match(eval_pair, part):
-    got, want, _ = eval_pair
+@pytest.fixture(scope="module")
+def eval_pair():
+    return _eval_pair(large=False)
+
+
+@pytest.fixture(scope="module")
+def eval_pair_large():
+    return _eval_pair(large=True)
+
+
+def _assert_losses_match(pair, part):
+    got, want, _ = pair
     assert set(got[part]) == set(want[part])
     for key, w in want[part].items():
         w = float(w)
@@ -66,9 +77,18 @@ def test_eval_losses_match(eval_pair, part):
         assert abs(g - w) <= LOSS_TOL * max(abs(w), 1e-6), (part, key, g, w)
 
 
-@pytest.mark.parametrize("part", ["output", "output_imagine"])
-def test_eval_outputs_match(eval_pair, part):
-    got, want, _ = eval_pair
+@pytest.mark.parametrize("part", ["losses", "losses_imagine"])
+def test_eval_losses_match(eval_pair, part):
+    _assert_losses_match(eval_pair, part)
+
+
+@pytest.mark.parametrize("part", ["losses", "losses_imagine"])
+def test_large_eval_losses_match(eval_pair_large, part):
+    _assert_losses_match(eval_pair_large, part)
+
+
+def _assert_outputs_match(pair, part):
+    got, want, _ = pair
     keys = [k for k in want[part] if isinstance(want[part][k], np.ndarray)
             and k in got[part] and torch.is_tensor(got[part][k])]
     assert any(k.startswith("voxel") for k in keys), keys
@@ -78,6 +98,16 @@ def test_eval_outputs_match(eval_pair, part):
         assert g.shape == w.shape, (key, g.shape, w.shape)
         rel = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30)
         assert rel <= OUTPUT_TOL, (part, key, rel)
+
+
+@pytest.mark.parametrize("part", ["output", "output_imagine"])
+def test_eval_outputs_match(eval_pair, part):
+    _assert_outputs_match(eval_pair, part)
+
+
+@pytest.mark.parametrize("part", ["output", "output_imagine"])
+def test_large_eval_outputs_match(eval_pair_large, part):
+    _assert_outputs_match(eval_pair_large, part)
 
 
 def test_eval_step_returns_to_train_mode(eval_pair):

@@ -1,6 +1,8 @@
 """DeploymentSession of the PyTorch port against muvo_tpu's, at
 tiny_test_cfg() with the voxel decoder on (its conv2 and conv3 stages take
-the K2/K1 path, here through the plain versions on the CPU).
+the K2/K1 path, here through the plain versions on the CPU), and a tick
+with MODEL.TRANSFORMER.LARGE (stride-8 features through the top-down
+Decoder, served by the unchanged session).
 
 Both sessions hold the same seeded weights and see the same numpy batch.
 Tolerance: norm-relative 2e-4 (max |port - jax| <= 2e-4 * max(1, max |jax|)),
@@ -25,17 +27,21 @@ from torch_port_common import assert_same, jax_trainer_and_state, port_model
 TOL = 2e-4
 
 
-@pytest.fixture(scope="module")
-def sessions():
-    cfg = tiny_test_cfg()
+def _sessions(large: bool):
+    cfg, port_cfg = tiny_test_cfg(), port_tiny_cfg()
     assert cfg.VOXEL_SEG.ENABLED
+    cfg.MODEL.TRANSFORMER.LARGE = port_cfg.MODEL.TRANSFORMER.LARGE = large
     batch = synthetic_batch(cfg, 1, cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON)
     trainer, state = jax_trainer_and_state(cfg, batch)
-    port_cfg = port_tiny_cfg()
     port = DeploymentSession(port_model(state, port_cfg), port_cfg,
                              device="cpu")
     jax_batch = {k: jnp.asarray(v) for k, v in batch.items()}
     return batch, jax_batch, JaxSession(trainer, state), port
+
+
+@pytest.fixture(scope="module")
+def sessions():
+    return _sessions(large=False)
 
 
 def _assert_close(got, want):
@@ -110,3 +116,13 @@ def test_sim_forward_and_imagination(sessions):
     got = ps.imagine_rollout(ps.carry, torch.from_numpy(actions),
                              use_sample=False)
     _assert_close(got, want)
+
+
+def test_large_deployment_tick():
+    """One deployment_forward tick of the LARGE model: the newest frame's
+    stride-8 tokens (8 x 16 image + 8 x 16 range view at this size), the
+    posterior step and every decoder, against muvo_tpu's session."""
+    batch, jax_batch, js, ps = _sessions(large=True)
+    assert ps.model.feat_decoder.__class__.__name__ == "Decoder"
+    _assert_close(ps.deployment_forward(batch, is_dreaming=False),
+                  js.deployment_forward(jax_batch, is_dreaming=False))

@@ -155,6 +155,29 @@ def test_decoder_ds():
     _close(pm([_t(x) for x in xs]), _apply(jm, v, xs))
 
 
+def test_resize_bilinear_upsamples_as_jax_image_resize():
+    x = _randn(np.random.RandomState(0), 2, 3, 5, 4)
+    for size in ((6, 10), (7, 13), (3, 9)):
+        _close(pl.resize_bilinear(_t(x), size), jl.resize_bilinear(x, size))
+    with pytest.raises(ValueError):  # downsampling would need antialiasing
+        pl.resize_bilinear(_t(x), (2, 5))
+
+
+@pytest.mark.parametrize("odd", [False, True])
+def test_decoder(odd):
+    """The LARGE path's top-down FPN; odd sizes upsample by other than 2x."""
+    rs = np.random.RandomState(0)
+    hw = ((9, 13), (5, 7), (3, 4)) if odd else ((8, 12), (4, 6), (2, 3))
+    xs = [_randn(rs, 1, *hw[0], 8), _randn(rs, 1, *hw[1], 12),
+          _randn(rs, 1, *hw[2], 20)]
+    jm = jc.Decoder(16)
+    v = _init(jm, xs)
+    pm = _load(pc.Decoder([8, 12, 20], 16), weights.decoder_entries, v)
+    got = pm([_t(x) for x in xs])
+    assert got.shape == (1, *hw[0], 16)
+    _close(got, _apply(jm, v, xs))
+
+
 def test_route_encode():
     x = _randn(np.random.RandomState(0), 2, 32, 32, 3)
     jm = jc.RouteEncode(8)

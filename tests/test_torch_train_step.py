@@ -27,6 +27,15 @@ leaf's own norm and no floor. Tolerances:
   starts at LR / 25) and weight decay 0.5, so that Adam's term and the
   decay term are both far above fp32 rounding of the parameters;
 - the BatchNorm running statistics after the step: 2e-3 norm-relative.
+The LARGE case (test_large_step_matches, marked slow) holds the port's
+fp32 step against muvo_tpu's step in float64 (jax.enable_x64), and each
+leaf's noise is the port's own fp32 rounding: its fp32 gradient against
+its float64 one. In fp32 the image encoder's gradients below its first
+stride-32 BatchNorm (48 values a channel, whose gradient sums cancel to a
+small remainder) round by up to 1.2e-2 norm-relative in muvo_tpu and
+5e-4 in the port, each against its own float64 step, while a one-ulp
+change of the parameters moves them by about 5e-4; the two float64 steps
+agree to a median 6e-5.
 test_checks_fail_on_broken_steps shows that each check fails for a
 zeroed or halved gradient leaf, an update not applied, and an update
 without weight decay.
@@ -44,6 +53,7 @@ from muvo_tpu.models.rssm import RSSM as JaxRSSM
 from muvo_tpu.training.optim import make_optimizer as jax_make_optimizer
 from muvo_tpu_torch.data.synthetic import synthetic_batch
 from muvo_tpu_torch.models.rssm import RSSM
+from muvo_tpu_torch.training.objectives import compute_loss, reduce_loss
 from muvo_tpu_torch.training.optim import Optimizer
 from muvo_tpu_torch.training.trainer import WorldModelTrainer
 from muvo_tpu_torch.weights import running_stats, state_dict_from_jax
@@ -92,11 +102,29 @@ def _port_update(model, optimizer, grads):
             for n, p in model.named_parameters()}
 
 
-@pytest.fixture(scope="module")
-def step_pair():
-    """One training step on both sides: losses, gradients (and muvo_tpu's
-    noise per leaf), the AdamW update from the same gradients, and the
-    BatchNorm running statistics."""
+def _float64_grads(port, batch):
+    """The port's gradients of the same step (no noise or dropout) in
+    float64, on a copy of its model."""
+    model = copy.deepcopy(port.state.model).double().train()
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        pb = port.preprocess(port.to_device(batch), training=False)
+        pb = {k: v.double() if v.is_floating_point() else v
+              for k, v in pb.items()}
+        output, _ = model(pb, training=True, stochastic=False)
+        reduce_loss(compute_loss(port.cfg, pb, output)).backward()
+    finally:
+        torch.set_default_dtype(default)
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def _step_pair(large: bool):
+    """One training step on both sides: losses, gradients and each leaf's
+    noise, the AdamW update from the same gradients, and the BatchNorm
+    running statistics. muvo_tpu's step runs in fp32 with its one-ulp
+    noise, or for the LARGE step in float64 with the port's own fp32
+    rounding as the noise."""
     mp = pytest.MonkeyPatch()
     try:
         deterministic_jax(mp)
@@ -104,45 +132,57 @@ def step_pair():
         for cfg in (jcfg, pcfg):
             cfg.OPTIMIZER.LR = 25.0 * LR_STEP0
             cfg.OPTIMIZER.WEIGHT_DECAY = WEIGHT_DECAY
+            cfg.MODEL.TRANSFORMER.LARGE = large
         batch = synthetic_batch(pcfg, 2, 3, seed=3)
         trainer, state = jax_trainer_and_state(jcfg, batch)
-        trainer.compute_dtype = jnp.float32
         jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-        grad_fn = jax.jit(jax.value_and_grad(
-            lambda p, s, b: trainer._loss_fn(p, s, b, jax.random.PRNGKey(0),
-                                             True), has_aux=True))
-        (total, (losses, new_stats)), grads = grad_fn(
-            state.params, state.batch_stats, jbatch)
-        want_grads = state_dict_from_jax(jax.device_get(grads), None, pcfg)
-        rs = np.random.RandomState(7)
-        noise = {k: 0.0 for k in want_grads}
-        for _ in range(NOISE_DRAWS):
-            moved = jax.tree_util.tree_map(
-                lambda p: (np.asarray(p) * (1.0 + ULP * rs.standard_normal(
-                    np.shape(p)))).astype(np.float32), state.params)
-            other = state_dict_from_jax(jax.device_get(
-                grad_fn(moved, state.batch_stats, jbatch)[1]), None, pcfg)
-            for k, w in want_grads.items():
-                noise[k] = max(noise[k], _norm_rel(other[k], w))
-        tx = jax_make_optimizer(jcfg, state.params)
-        updates, _ = tx.update(grads, tx.init(state.params), state.params)
-        want = {
-            "losses": {"loss": float(total),
-                       **{k: float(v) for k, v in losses.items()}},
-            "grads": want_grads,
-            "noise": noise,
-            "updates": state_dict_from_jax(jax.device_get(updates), None,
-                                           pcfg),
-            "stats": running_stats(state_dict_from_jax(
-                jax.device_get(state.params), jax.device_get(new_stats),
-                pcfg)),
-        }
+        with jax.enable_x64(large):
+            trainer.compute_dtype = jnp.float64 if large else jnp.float32
+            params, stats = state.params, state.batch_stats
+            if large:
+                params, stats = jax.tree_util.tree_map(
+                    lambda p: jnp.asarray(p, jnp.float64), (params, stats))
+            grad_fn = jax.jit(jax.value_and_grad(
+                lambda p, s, b: trainer._loss_fn(
+                    p, s, b, jax.random.PRNGKey(0), True), has_aux=True))
+            (total, (losses, new_stats)), grads = grad_fn(params, stats,
+                                                          jbatch)
+            want_grads = state_dict_from_jax(jax.device_get(grads), None,
+                                             pcfg)
+            rs = np.random.RandomState(7)
+            noise = {k: 0.0 for k in want_grads}
+            for _ in range(0 if large else NOISE_DRAWS):
+                moved = jax.tree_util.tree_map(
+                    lambda p: (np.asarray(p) * (1.0 + ULP * rs.standard_normal(
+                        np.shape(p)))).astype(np.float32), state.params)
+                other = state_dict_from_jax(jax.device_get(
+                    grad_fn(moved, state.batch_stats, jbatch)[1]), None, pcfg)
+                for k, w in want_grads.items():
+                    noise[k] = max(noise[k], _norm_rel(other[k], w))
+            tx = jax_make_optimizer(jcfg, params)
+            updates, _ = tx.update(grads, tx.init(params), params)
+            want = {
+                "losses": {"loss": float(total),
+                           **{k: float(v) for k, v in losses.items()}},
+                "grads": want_grads,
+                "noise": noise,
+                "updates": state_dict_from_jax(jax.device_get(updates), None,
+                                               pcfg),
+                "stats": running_stats(state_dict_from_jax(
+                    jax.device_get(state.params), jax.device_get(new_stats),
+                    pcfg)),
+            }
     finally:
         mp.undo()
 
     port = WorldModelTrainer(pcfg, device="cpu")
     port.init_state(model=port_model(state, pcfg))
+    if large:
+        exact = _float64_grads(port, batch)
     metrics, grads = port.grads(batch, stochastic=False)
+    if large:
+        want["noise"] = {k: _norm_rel(g.detach(), exact[k])
+                         for k, g in grads.items()}
     model = port.state.model
     got = {"losses": {k: v.item() for k, v in metrics.items()},
            "grads": {k: g.detach().clone() for k, g in grads.items()},
@@ -157,16 +197,23 @@ def step_pair():
     return got, want
 
 
-def test_loss_terms_match(step_pair):
-    got, want = step_pair
+@pytest.fixture(scope="module")
+def step_pair():
+    return _step_pair(large=False)
+
+
+def _assert_losses_match(got, want):
     assert set(got["losses"]) == set(want["losses"])
     for key, w in want["losses"].items():
         assert abs(got["losses"][key] - w) <= LOSS_TOL * max(abs(w), 1e-6), (
             key, got["losses"][key], w)
 
 
-def test_every_grad_leaf_matches(step_pair):
-    got, want = step_pair
+def test_loss_terms_match(step_pair):
+    _assert_losses_match(*step_pair)
+
+
+def _assert_grads_match(got, want):
     assert set(got["grads"]) == set(want["grads"])  # no leaf uncompared
     rel = {k: _norm_rel(got["grads"][k], w) for k, w in want["grads"].items()}
     bad = {k: (rel[k], want["noise"][k]) for k, w in want["grads"].items()
@@ -176,7 +223,7 @@ def test_every_grad_leaf_matches(step_pair):
           f"{sum(v > NORM_TOL for v in rel.values())} above {NORM_TOL}: "
           f"norm-relative median "
           f"{np.median(finite):.3e}, worst {max(finite):.3e} "
-          f"({max(rel, key=rel.get)}); muvo_tpu's noise median "
+          f"({max(rel, key=rel.get)}); noise median "
           f"{np.median(list(want['noise'].values())):.3e}, worst "
           f"{max(want['noise'].values()):.3e}; worst ratio "
           f"(rel - {NORM_TOL}) / noise "
@@ -184,8 +231,11 @@ def test_every_grad_leaf_matches(step_pair):
     assert not bad, sorted(bad.items(), key=lambda kv: -kv[1][0])[:5]
 
 
-def test_updated_params_and_batch_stats_match(step_pair):
-    got, want = step_pair
+def test_every_grad_leaf_matches(step_pair):
+    _assert_grads_match(*step_pair)
+
+
+def _assert_update_and_stats_match(got, want):
     assert set(got["updates"]) == set(want["updates"])
     rel = {k: _norm_rel(got["updates"][k], u)
            for k, u in want["updates"].items()}
@@ -198,6 +248,23 @@ def test_updated_params_and_batch_stats_match(step_pair):
     print(f"running statistics {len(rel)}: worst norm-relative "
           f"{max(rel.values()):.3e}")
     assert max(rel.values()) < NORM_TOL, max(rel.items(), key=lambda kv: kv[1])
+
+
+def test_updated_params_and_batch_stats_match(step_pair):
+    _assert_update_and_stats_match(*step_pair)
+
+
+@pytest.mark.slow  # about 3 minutes: muvo_tpu's float64 step compiles
+def test_large_step_matches():
+    """The same step with MODEL.TRANSFORMER.LARGE: stride-8 features through
+    the top-down Decoder, 256 fusion tokens a frame at this size (on the
+    CPU both sides take their math attention path), against muvo_tpu's
+    step in float64."""
+    got, want = _step_pair(large=True)
+    assert any(".upsample_skip_convs." in k for k in want["grads"])
+    _assert_losses_match(got, want)
+    _assert_grads_match(got, want)
+    _assert_update_and_stats_match(got, want)
 
 
 @pytest.mark.parametrize("fault", ["zeroed_gradient", "halved_gradient",

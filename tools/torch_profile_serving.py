@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where a serving tick of the PyTorch port spends its time, on one GPU.
 
-    python3 tools/torch_profile_serving.py [--ticks 3] [--out PATH]
+    python3 tools/torch_profile_serving.py [--ticks 3] [--large] [--out PATH]
 
 Builds muvo.yml at full width with seeded random weights (as chip_smoke.py
-does), warms a DeploymentSession up, then measures:
+does; ``--large``: with MODEL.TRANSFORMER.LARGE, stride-8 features and
+5,184 fusion tokens a frame through the flash kernels), warms a
+DeploymentSession up, then measures:
 
 1. phases: host-clock milliseconds, each ending in torch.cuda.synchronize,
    of the three parts of a sim_forward tick at batch 1: observe (preprocess,
@@ -14,7 +16,7 @@ does), warms a DeploymentSession up, then measures:
 2. kernels: torch.profiler over --ticks whole sim_forward ticks: the wall
    time, the device's busy time (the union of its kernels' intervals) and
    idle share, and device time summed by kernel name, with the port's own
-   kernels (zconv_kernel: K1 and K2) named.
+   kernels (zconv_kernel: K1 and K2; flash_fwd_kernel: K4) named.
 
 Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
 mode.
@@ -49,9 +51,13 @@ def _busy_us(intervals):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=3)
-    ap.add_argument("--out", default=str(ROOT / "build"
-                                         / "torch_profile_serving.json"))
+    ap.add_argument("--large", action="store_true",
+                    help="MODEL.TRANSFORMER.LARGE (flash kernels)")
+    ap.add_argument("--out", default="")
     args = ap.parse_args()
+    out_path = Path(args.out or ROOT / "build" / (
+        "torch_profile_serving_large.json" if args.large
+        else "torch_profile_serving.json"))
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
@@ -67,6 +73,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     cfg = get_cfg()
     cfg.merge_from_file(str(ROOT / "muvo_tpu_torch" / "configs" / "muvo.yml"))
+    cfg.MODEL.TRANSFORMER.LARGE = args.large
     torch.manual_seed(0)
     session = DeploymentSession(
         MuvoWorldModel(cfg), cfg, device=dev,
@@ -124,21 +131,23 @@ def main() -> int:
     busy_ms = _busy_us(intervals) / 1e3 / args.ticks
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     zconv_ms = sum(v for k, v in by_name.items() if "zconv_kernel" in k)
+    flash_ms = sum(v for k, v in by_name.items() if "flash_fwd_kernel" in k)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[0]
     result = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "config": "muvo.yml", "batch": 1, "sequence": seq,
+        "config": "muvo.yml LARGE" if args.large else "muvo.yml",
+        "batch": 1, "sequence": seq,
         "ticks": args.ticks, "phase_ms": phase_ms,
         "tick_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "zconv_kernels_ms": zconv_ms,
+        "zconv_kernels_ms": zconv_ms, "flash_kernels_ms": flash_ms,
         "device_ms_by_kernel": [[k, v] for k, v in top[:25]],
     }
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(result, indent=1))
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0
 

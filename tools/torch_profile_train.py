@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port spends its time, on one GPU.
 
-    python3 tools/torch_profile_train.py [--steps 3] [--out PATH]
+    python3 tools/torch_profile_train.py [--steps 3] [--large] [--out PATH]
 
 Builds the flagship step (muvo_tpu_torch.training.flagship: muvo.yml at
 full width, 4 sequences of 6 frames, bf16 autocast, decoder remat, AdamW +
-OneCycle), warms it up, then measures:
+OneCycle; ``--large``: the LARGE step, 1 sequence of 6 frames with 5,184
+fusion tokens a frame through the flash kernels), warms it up, then
+measures:
 
 1. phases: host-clock milliseconds, each ending in torch.cuda.synchronize,
    of the parts of one step: preprocess (labels and augmentation), forward
@@ -17,7 +19,10 @@ OneCycle), warms it up, then measures:
    kernels are named: zconv_kernel<T, false> is K1 and K1-dx (one kernel,
    launched on the flipped weights for dx), zconv_kernel<T, true> K2,
    zconv_dxup_kernel K2-dx, dw_kernel<T, false, ...> K3, dw_kernel<T,
-   true, ...> K3-up, sum_rows_kernel K3's second pass.
+   true, ...> K3-up, sum_rows_kernel K3's second pass,
+   flash_fwd_kernel<T, D, true> K4, flash_bwd_kv_kernel<T, D, true> K5
+   (with flash_dq_flush_kernel, its last pass), flash_bwd_dq_kernel K6-dq
+   and flash_bwd_kv_kernel<T, D, false> K6-dkv.
 
 Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
 mode.
@@ -42,6 +47,12 @@ from torch_profile_serving import _busy_us  # noqa: E402
 
 # device-time groups, first match wins
 GROUPS = (
+    ("K4 (flash_fwd_kernel<T, D, true>)", r"flash_fwd_kernel<[^>]*true>"),
+    ("K5 (flash_bwd_kv_kernel<T, D, true> + flash_dq_flush_kernel)",
+     r"flash_bwd_kv_kernel<[^>]*true>|flash_dq_flush_kernel"),
+    ("K6-dq (flash_bwd_dq_kernel)", r"flash_bwd_dq_kernel"),
+    ("K6-dkv (flash_bwd_kv_kernel<T, D, false>)",
+     r"flash_bwd_kv_kernel<[^>]*false>"),
     ("K1 + K1-dx (zconv_kernel<T, false>)", r"zconv_kernel<.*, false>"),
     ("K2 (zconv_kernel<T, true>)", r"zconv_kernel<.*, true>"),
     ("K2-dx (zconv_dxup_kernel)", r"zconv_dxup_kernel"),
@@ -68,9 +79,13 @@ def group_of(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--out", default=str(ROOT / "build"
-                                         / "torch_profile_train.json"))
+    ap.add_argument("--large", action="store_true",
+                    help="the LARGE step (stride-8 features, flash kernels)")
+    ap.add_argument("--out", default="")
     args = ap.parse_args()
+    out_path = Path(args.out or ROOT / "build" / (
+        "torch_profile_train_large.json" if args.large
+        else "torch_profile_train.json"))
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
@@ -80,7 +95,7 @@ def main() -> int:
     from muvo_tpu_torch.utils.precision import autocast
 
     dev = torch.device("cuda", 0)
-    fs = build_flagship_step(device=dev)
+    fs = build_flagship_step(large=args.large, device=dev)
     trainer, cfg = fs.trainer, fs.cfg
     model = trainer.state.model
     for _ in range(3):  # builds the kernels, warms cuDNN and the allocator
@@ -146,7 +161,9 @@ def main() -> int:
                          timeout=60).stdout.strip().splitlines()[0]
     result = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "config": "muvo.yml flagship train step", "batch": cfg.BATCHSIZE,
+        "config": ("muvo.yml LARGE train step" if args.large
+                   else "muvo.yml flagship train step"),
+        "batch": cfg.BATCHSIZE,
         "frames_per_step": cfg.BATCHSIZE * (cfg.RECEPTIVE_FIELD
                                             + cfg.FUTURE_HORIZON),
         "steps": args.steps, "phase_ms": phase_ms,
@@ -155,8 +172,8 @@ def main() -> int:
         "device_ms_by_group": sorted(by_group.items(), key=lambda kv: -kv[1]),
         "device_ms_by_kernel": [[k, v] for k, v in top[:30]],
     }
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(result, indent=1))
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0
 
