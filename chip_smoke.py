@@ -18,10 +18,12 @@ exits nonzero (there is no CPU fallback):
    (aten.convolution_backward) and the bound.
 5. flash_kernels: K4 (flash forward), K5 (fused backward), K6-dq and K6-dkv
    (split backward) at the LARGE training shape (bh 48 = 8 heads x 6
-   frames, n 5184, d 48), at d 32, at a ragged n and with seq_len < n, fp32
+   frames, n 5184, d 48), at d 32, at a ragged n, with seq_len < n and at
+   n and seq_len just past a 128-row tile, fp32
    (TF32 off) and bf16, each held against its plain version and timed
-   beside it, one library call (scaled_dot_product_attention, or its
-   backward alone) and the bound; K4-mb (the microbenchmark's kernel) once.
+   beside it (FLASH_ITERS launches), one library call
+   (scaled_dot_product_attention, or its backward alone) and the bound;
+   K4-mb (the microbenchmark's kernel) once.
 6. serving: muvo.yml at full width with seeded random weights, driven
    through DeploymentSession (deployment_forward, then sim_forward with a
    5-step imagination); K1 and K2 must be launched and K4 not (648 tokens
@@ -124,9 +126,12 @@ FLASH_TOL = {torch.float32: 1e-4,   # norm-relative: summation order (K5's
                                     # dq by atomics, in a varying order)
              torch.bfloat16: 2e-2}  # p, ds and the outputs rounded to bf16
 # (label, bh, n, d, seq_len): the LARGE training step's attention (8 heads x
-# 6 frames of 5,184 tokens, d 384 / 8), d 32, a ragged n, masked keys
+# 6 frames of 5,184 tokens, d 384 / 8), d 32, a ragged n, masked keys, and
+# n and seq_len just past the bf16 kernels' 128-row tiles
 FLASH_CASES = (("training", 48, 5184, 48, None), ("d32", 48, 5184, 32, None),
-               ("ragged", 4, 300, 48, None), ("seq_len<n", 8, 5184, 48, 5000))
+               ("ragged", 4, 300, 48, None), ("seq_len<n", 8, 5184, 48, 5000),
+               ("tile_edge", 4, 257, 48, 129))
+FLASH_ITERS = 20  # timed launches of a flash kernel: steady below 1 ms
 # model FLOPs per (query, unmasked key) pair over d: 2 per product
 FLASH_FLOPS = {"K4": 4, "K4-mb": 4, "K5": 10, "K6-dq": 6, "K6-dkv": 8}
 
@@ -710,7 +715,7 @@ def flash_kernel_phase(dev):
                        "bh": bh, "n": n, "d": d, "seq_len": seq_len,
                        "dtype": str(dtype).replace("torch.", ""),
                        "max_abs_err": err, "norm_rel_err": rel, "tol": tol,
-                       "ms": time_ms(kern, iters=5, warmup=1),
+                       "ms": time_ms(kern, iters=FLASH_ITERS, warmup=2),
                        "plain_ms": time_ms(plain, iters=3, warmup=1),
                        "library_ms": time_ms(library, iters=3, warmup=1),
                        "bound_ms": bms, "bound_by": by, **work}
@@ -733,7 +738,8 @@ def flash_kernel_phase(dev):
            "bh": 16, "n": 5184, "d": 48, "seq_len": None, "dtype": "bfloat16",
            "max_abs_err": (got.float() - want.float()).abs().max().item(),
            "norm_rel_err": rel, "tol": FLASH_TOL[torch.bfloat16],
-           "ms": time_ms(lambda: fa.flash_matmul(q, k, v), iters=5, warmup=1),
+           "ms": time_ms(lambda: fa.flash_matmul(q, k, v), iters=FLASH_ITERS,
+                         warmup=2),
            "plain_ms": time_ms(lambda: fa.flash_matmul_plain(q, k, v),
                                iters=3, warmup=1),
            "library_ms": None, "bound_ms": bms, "bound_by": by, **work}

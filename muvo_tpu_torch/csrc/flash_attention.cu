@@ -31,24 +31,33 @@
 // Bound on the card (bh 48, n 5184, d 48, bf16, the LARGE training step):
 // K4 does 4 n^2 d bh = 2.5e11 flops on the tensor cores (0.25 ms at 989
 // TFLOP/s) and n^2 bh = 1.3e9 exponentials on the SFUs (16 a clock per SM,
-// 0.33 ms), so the exponentials bound it; K5 does 10 n^2 d bh flops and
+// 0.31 ms), so the exponentials bound it; K5 does 10 n^2 d bh flops and
 // K6 14 n^2 d bh (s and dp twice) with one and two exps per score. In fp32
-// the products run on the CUDA cores (67 TFLOP/s): TF32 would not hold
-// the fp32 tolerance. Design, simple first: blocks of 8 warps over 64-row
-// tiles; every tile (q^, k, v, dO, scores, p) is staged in shared memory,
-// and each product of two tiles is one pass of a shared-memory GEMM whose
-// fp32 result is accumulated in shared memory: in bf16 each warp runs
-// mma.sync.m16n8k16 (fp32 accumulation) on a 16-row by N/2 column slice,
-// in fp32 each thread accumulates a 4 x N/16 block with FMAs. The online
-// softmax statistics (running max m, sum l) live in shared memory, one
-// warp per 8 rows. Warp-specialised wgmma with TMA staging and the
-// statistics in registers is the faster design for later.
+// the products run on the CUDA cores (67 TFLOP/s, 3.7 ms for K4): TF32
+// would not hold the fp32 tolerance.
+//
+// Designs. bf16 K4, K4-mb and K5 (namespace hopper) are warp-specialised:
+// one producer thread keeps tiles in flight by TMA into a two-stage ring of
+// shared memory with mbarriers, two consumer warpgroups run wgmma with the
+// fp32 accumulators in registers, and the softmax (K4) or p and ds (K5)
+// are formed in registers and fed to the next product as its register A
+// operand; dq goes into the workspace by vector atomics, one per two
+// columns of a 64 x d tile. What bounds them now is the serial chain
+// inside each consumer (product, wait, softmax, product): no softmax
+// overlaps a product, and K5 adds the atomics' L2 traffic. fp32 K4 and
+// K4-mb (namespace fp32) hold register micro-tiles of S and O on the CUDA
+// cores, FMA-bound. K5 in fp32 and both K6 kernels keep the first design:
+// every tile in shared memory, each product one pass of a shared-memory
+// GEMM (bf16 mma.sync.m16n8k16, fp32 FMAs) accumulating in shared memory.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -83,18 +92,6 @@ __host__ __device__ constexpr int p_stride() { return is_f32<T>() ? kTile + 1 : 
 template <int D>
 __host__ __device__ constexpr int acc_stride() { return D + 4; }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
@@ -128,15 +125,12 @@ __device__ __forceinline__ uint32_t frag_b(const __nv_bfloat16* b, int ldb,
   return pack2(b[k * ldb + n], b[(k + 1) * ldb + n]);
 }
 
-// C[64 x N] = (accumulate ? C * row_scale : 0) + A[64 x K] B[K x N], C fp32
-// in shared memory (row stride ldc), A and B staged tiles of T (layouts as
-// frag_a / frag_b). row_scale (nullable) multiplies C's rows before the
-// product is added (the online softmax's rescale). All threads take part;
-// the caller synchronises before and after.
+// C[64 x N] = (accumulate ? C : 0) + A[64 x K] B[K x N], C fp32 in shared
+// memory (row stride ldc), A and B staged tiles of T (layouts as frag_a /
+// frag_b). All threads take part; the caller synchronises before and after.
 template <typename T, int N, int K, bool A_T, bool B_NK>
 __device__ __forceinline__ void gemm(float* c, int ldc, const T* a, int lda,
-                                     const T* b, int ldb, bool accumulate,
-                                     const float* row_scale) {
+                                     const T* b, int ldb, bool accumulate) {
   static_assert(N % 16 == 0 && K % 16 == 0, "tile widths are multiples of 16");
   const int tid = threadIdx.x;
   if constexpr (is_f32<T>()) {
@@ -147,10 +141,9 @@ __device__ __forceinline__ void gemm(float* c, int ldc, const T* a, int lda,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = 4 * rg + i;
-      const float s = accumulate ? (row_scale ? row_scale[m] : 1.f) : 0.f;
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        acc[i][j] = accumulate ? c[m * ldc + cc + 16 * j] * s : 0.f;
+        acc[i][j] = accumulate ? c[m * ldc + cc + 16 * j] : 0.f;
     }
 #pragma unroll 4
     for (int k = 0; k < K; ++k) {
@@ -183,15 +176,13 @@ __device__ __forceinline__ void gemm(float* c, int ldc, const T* a, int lda,
     const int m0 = (w & 3) * 16, n0 = (w >> 2) * (N / 2);
     const int r0 = m0 + g, r1 = m0 + g + 8;
     float acc[NJ][4];
-    const float s0 = accumulate ? (row_scale ? row_scale[r0] : 1.f) : 0.f;
-    const float s1 = accumulate ? (row_scale ? row_scale[r1] : 1.f) : 0.f;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int n = n0 + 8 * j + 2 * t;
-      acc[j][0] = accumulate ? c[r0 * ldc + n] * s0 : 0.f;
-      acc[j][1] = accumulate ? c[r0 * ldc + n + 1] * s0 : 0.f;
-      acc[j][2] = accumulate ? c[r1 * ldc + n] * s1 : 0.f;
-      acc[j][3] = accumulate ? c[r1 * ldc + n + 1] * s1 : 0.f;
+      acc[j][0] = accumulate ? c[r0 * ldc + n] : 0.f;
+      acc[j][1] = accumulate ? c[r0 * ldc + n + 1] : 0.f;
+      acc[j][2] = accumulate ? c[r1 * ldc + n] : 0.f;
+      acc[j][3] = accumulate ? c[r1 * ldc + n + 1] : 0.f;
     }
 #pragma unroll
     for (int k0 = 0; k0 < K; k0 += 16) {
@@ -240,103 +231,6 @@ __device__ __forceinline__ float typed_scale(float scale) {
 }
 
 template <typename T, int D>
-struct FwdSmem {
-  static constexpr int TS = tile_stride<T, D>(), PS = p_stride<T>(),
-                       OS = acc_stride<D>();
-  // fp32 buffers first, then the tiles of T (16-byte aligned offsets)
-  static constexpr size_t s_off = 0;
-  static constexpr size_t o_off = s_off + sizeof(float) * kTile * kSS;
-  static constexpr size_t stat_off = o_off + sizeof(float) * kTile * OS;
-  static constexpr size_t q_off = stat_off + sizeof(float) * 3 * kTile;
-  static constexpr size_t k_off = q_off + ((sizeof(T) * kTile * TS + 15) & ~15);
-  static constexpr size_t v_off = k_off + ((sizeof(T) * kTile * TS + 15) & ~15);
-  static constexpr size_t p_off = v_off + ((sizeof(T) * kTile * TS + 15) & ~15);
-  static constexpr size_t bytes = p_off + ((sizeof(T) * kTile * PS + 15) & ~15);
-};
-
-// K4 (SOFTMAX) and K4-mb: one block per (64-row q tile, bh).
-template <typename T, int D, bool SOFTMAX>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int n, int seq_len,
-                     float scale) {
-  using L = FwdSmem<T, D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* S = reinterpret_cast<float*>(smem + L::s_off);
-  float* O = reinterpret_cast<float*>(smem + L::o_off);
-  float* m = reinterpret_cast<float*>(smem + L::stat_off);
-  float* l = m + kTile;
-  float* alpha = l + kTile;
-  T* Qs = reinterpret_cast<T*>(smem + L::q_off);
-  T* Ks = reinterpret_cast<T*>(smem + L::k_off);
-  T* Vs = reinterpret_cast<T*>(smem + L::v_off);
-  T* Ps = reinterpret_cast<T*>(smem + L::p_off);
-
-  const int q0 = blockIdx.x * kTile;
-  const size_t base = (size_t)blockIdx.y * n * D;
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  stage<T, D, true>(Qs, q + base, q0, n, typed_scale<T>(scale));
-  if (tid < kTile) {
-    m[tid] = kNegInf;
-    l[tid] = 0.f;
-  }
-  const int kv_end = SOFTMAX ? seq_len : n;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    stage<T, D, false>(Ks, k + base, k0, n, 0.f);
-    stage<T, D, false>(Vs, v + base, k0, n, 0.f);
-    __syncthreads();
-    gemm<T, kTile, D, false, true>(S, kSS, Qs, L::TS, Ks, L::TS, false,
-                                   nullptr);
-    __syncthreads();
-    if (SOFTMAX) {
-      // warp w: rows 8 w .. 8 w + 7; lane: keys lane, lane + 32
-      for (int rr = 0; rr < 8; ++rr) {
-        const int r = 8 * w + rr;
-        float s0 = S[r * kSS + lane], s1 = S[r * kSS + lane + 32];
-        if (k0 + lane >= seq_len) s0 = kNegInf;
-        if (k0 + lane + 32 >= seq_len) s1 = kNegInf;
-        const float m_prev = m[r];
-        const float m_next = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-        const T p0 = from_float<T>(expf(s0 - m_next));
-        const T p1 = from_float<T>(expf(s1 - m_next));
-        Ps[r * L::PS + lane] = p0;
-        Ps[r * L::PS + lane + 32] = p1;
-        const float sum = warp_sum(to_float(p0) + to_float(p1));
-        __syncwarp();
-        if (lane == 0) {
-          const float a = expf(m_prev - m_next);
-          alpha[r] = a;
-          l[r] = a * l[r] + sum;
-          m[r] = m_next;
-        }
-      }
-    } else {
-      for (int i = tid; i < kTile * kTile; i += kThreads) {
-        const int r = i >> 6, c = i & 63;
-        Ps[r * L::PS + c] = from_float<T>(S[r * kSS + c]);
-      }
-    }
-    __syncthreads();
-    // O = alpha O + P V (K4-mb: O += P V)
-    gemm<T, D, kTile, false, false>(O, L::OS, Ps, L::PS, Vs, L::TS, k0 > 0,
-                                    SOFTMAX ? alpha : nullptr);
-  }
-  __syncthreads();
-  for (int i = tid; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i - r * D;
-    const int row = q0 + r;
-    if (row < n) {
-      const float val = SOFTMAX ? O[r * L::OS + c] / l[r] : O[r * L::OS + c];
-      o[base + (size_t)row * D + c] = from_float<T>(val);
-    }
-  }
-  if (SOFTMAX && tid < kTile && q0 + tid < n)
-    lse[(size_t)blockIdx.y * n + q0 + tid] = m[tid] + logf(l[tid]);
-}
-
-template <typename T, int D>
 struct BwdSmem {
   static constexpr int TS = tile_stride<T, D>(), PS = p_stride<T>(),
                        OS = acc_stride<D>();
@@ -374,9 +268,8 @@ __device__ __forceinline__ void scores_and_ds(unsigned char* smem, int q0,
   const T* Vs = reinterpret_cast<const T*>(smem + L::v_off);
   T* Pc = reinterpret_cast<T*>(smem + L::pc_off);
   T* dSc = reinterpret_cast<T*>(smem + L::ds_off);
-  gemm<T, kTile, D, false, true>(S, kSS, Qs, L::TS, Ks, L::TS, false, nullptr);
-  gemm<T, kTile, D, false, true>(dP, kSS, dOs, L::TS, Vs, L::TS, false,
-                                 nullptr);
+  gemm<T, kTile, D, false, true>(S, kSS, Qs, L::TS, Ks, L::TS, false);
+  gemm<T, kTile, D, false, true>(dP, kSS, dOs, L::TS, Vs, L::TS, false);
   __syncthreads();
   for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
     const int r = i >> 6, c = i & 63;
@@ -445,14 +338,11 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
       scores_and_ds<T, D>(smem, q0, k0, n, seq_len);
       // dv += Pc^T dO, dk += dSc^T q^ (rows: keys)
-      gemm<T, D, kTile, true, false>(dV, L::OS, Pc, L::PS, dOs, L::TS, true,
-                                     nullptr);
-      gemm<T, D, kTile, true, false>(dK, L::OS, dSc, L::PS, Qs, L::TS, true,
-                                     nullptr);
+      gemm<T, D, kTile, true, false>(dV, L::OS, Pc, L::PS, dOs, L::TS, true);
+      gemm<T, D, kTile, true, false>(dK, L::OS, dSc, L::PS, Qs, L::TS, true);
       if (FUSED) {
         // this q tile's dq share, dSc k, through the free score buffer
-        gemm<T, D, kTile, false, false>(S, kSS, dSc, L::PS, Ks, L::TS, false,
-                                        nullptr);
+        gemm<T, D, kTile, false, false>(S, kSS, dSc, L::PS, Ks, L::TS, false);
         __syncthreads();
         for (int i = tid; i < kTile * D; i += kThreads) {
           const int r = i / D, c = i - r * D;
@@ -500,8 +390,7 @@ __global__ void __launch_bounds__(kThreads)
     stage<T, D, false>(Vs, v + base, k0, n, 0.f);
     __syncthreads();
     scores_and_ds<T, D>(smem, q0, k0, n, seq_len);
-    gemm<T, D, kTile, false, false>(dQ, L::OS, dSc, L::PS, Ks, L::TS, k0 > 0,
-                                    nullptr);
+    gemm<T, D, kTile, false, false>(dQ, L::OS, dSc, L::PS, Ks, L::TS, k0 > 0);
   }
   __syncthreads();
   for (int i = tid; i < kTile * D; i += kThreads) {
@@ -521,6 +410,800 @@ __global__ void flash_dq_flush_kernel(const float* __restrict__ dq_acc,
     dq[i] = from_float<T>(dq_acc[i] * scale);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 K4, K4-mb and K5 on Hopper: TMA staging into a shared-memory ring
+// fed by one producer thread, wgmma with fp32 accumulators in registers,
+// the softmax in registers. Tiles are 64 bf16 (128 bytes) wide in the 128-
+// byte swizzle that TMA writes and wgmma reads; the tensor maps zero-fill
+// the columns past d and the rows past n of each bh, so products over the
+// padded width are exact, and q k^T runs over d only (d / 16 k-steps).
+// ---------------------------------------------------------------------------
+namespace hopper {
+
+typedef __nv_bfloat16 bf16;
+constexpr int kThreads = 384;    // a producer warpgroup, two consumer ones
+constexpr int kRowBytes = 128;   // one staged row: 64 bf16, swizzled
+constexpr int kStages = 2;       // depth of the ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done, spins = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (++spins == (1u << 28)) __trap();  // a lost arrival: fail, do not hang
+  } while (!done);
+}
+// a (64, rows, 1) box of a (d, n, bh) tensor map into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
+      "r"(row), "r"(bh)
+      : "memory");
+}
+// shared-memory writes of this thread become visible to wgmma and TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+template <int R>
+__device__ __forceinline__ void set_max_regs() {
+  if constexpr (R < 128)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+  else
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float2 unpack(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+// wgmma descriptor of a tile of 128-byte rows in the 128-byte swizzle,
+// 1024-byte aligned: 8-row groups 1024 bytes apart (SBO), the leading
+// offset unused (a K-major operand's k16 slice and an M/N-major operand's
+// 64 columns both lie inside one swizzle atom). A K-major operand steps
+// through k by 32 bytes (+2), an M/N-major one by 16 rows (+128).
+__device__ __forceinline__ uint64_t desc(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+constexpr uint64_t kStepK = 2, kStepRows = 128;
+// byte offset of element (row, col) in a swizzled tile of 128-byte rows
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * kRowBytes + ((((col >> 3) ^ row) & 7) << 4) + ((col & 7) << 1);
+}
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// K4 (SOFTMAX) and K4-mb: one block per (128 q rows, bh). Consumer c owns
+// q rows 64 c .. 64 c + 63: S = q^ k^T (m64n128, 128 keys a tile) and
+// O += P V (m64nD, P as the register A operand) stay in registers, with
+// the running max m and sum l of its two rows a thread.
+struct FwdLayout {
+  static constexpr int q = 0;                            // 128 rows
+  static constexpr int k = q + 128 * kRowBytes;          // kStages x 128
+  static constexpr int v = k + kStages * 128 * kRowBytes;
+  static constexpr int bars = v + kStages * 128 * kRowBytes;
+  static constexpr int bytes = bars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D, bool SOFTMAX>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     bf16* __restrict__ o, float* __restrict__ lse, int n,
+                     int seq_len, float scale) {
+  using L = FwdLayout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+  const int bh = blockIdx.y, q0 = blockIdx.x * 128;
+  const int kv_end = SOFTMAX ? seq_len : n;
+  const int tiles = (kv_end + 127) / 128;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    set_max_regs<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 128 * kRowBytes);
+      tma_load(smem + L::q, &tm_q, q_full, q0, bh);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % kStages;
+        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * 128 * kRowBytes);
+        tma_load(smem + L::k + s * 128 * kRowBytes, &tm_k, &full[s], t * 128, bh);
+        tma_load(smem + L::v + s * 128 * kRowBytes, &tm_v, &full[s], t * 128, bh);
+      }
+    }
+    return;
+  }
+  set_max_regs<240>();
+  const int c = wg - 1, lt = threadIdx.x - 128 * wg;
+  const int warp = lt >> 5, lane = lt & 31, g = lane >> 2, t4 = lane & 3;
+  unsigned char* qs = smem + L::q + c * 64 * kRowBytes;
+  // q^ = q * scale rounded to bf16, in place, once
+  mbar_wait(q_full, 0);
+  {
+    const float sc = __bfloat162float(__float2bfloat16(scale));
+    uint32_t* p = reinterpret_cast<uint32_t*>(qs);
+    for (int i = lt; i < 64 * kRowBytes / 4; i += 128) {
+      const float2 f = unpack(p[i]);
+      p[i] = bf16x2(f.x * sc, f.y * sc);
+    }
+    fence_proxy_async();
+    named_sync(1 + c, 128);
+  }
+  const uint64_t q_desc = desc(qs);
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % kStages;
+    mbar_wait(&full[s], (t / kStages) & 1);
+    float sacc[64];
+    const uint64_t dk = desc(smem + L::k + s * 128 * kRowBytes);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma::wgmma_ss<128, 0, 0>(sacc, q_desc + kk * kStepK, dk + kk * kStepK, kk);
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operands(sacc);
+    uint32_t pa[8][4];  // P as eight k16 A fragments
+    const int k0 = t * 128;
+    if (SOFTMAX) {
+      if (k0 + 128 > seq_len) {  // the last tile: mask keys past seq_len
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int key = k0 + 8 * i + 2 * t4;
+          if (key >= seq_len) sacc[4 * i] = sacc[4 * i + 2] = kNegInf;
+          if (key + 1 >= seq_len) sacc[4 * i + 1] = sacc[4 * i + 3] = kNegInf;
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        mx[0] = fmaxf(mx[0], fmaxf(sacc[4 * i], sacc[4 * i + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sacc[4 * i + 2], sacc[4 * i + 3]));
+      }
+      float alpha[2], mb[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = ex2((m[r] - mx[r]) * kLog2e);
+        m[r] = mx[r];
+        mb[r] = mx[r] * kLog2e;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 8 * kk + 2 * j, r = j & 1;
+          pa[kk][j] = bf16x2(ex2(fmaf(sacc[i], kLog2e, -mb[r])),
+                             ex2(fmaf(sacc[i + 1], kLog2e, -mb[r])));
+          const float2 p = unpack(pa[kk][j]);  // l sums the rounded p
+          sum[r] += p.x + p.y;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        oacc[4 * i] *= alpha[0];
+        oacc[4 * i + 1] *= alpha[0];
+        oacc[4 * i + 2] *= alpha[1];
+        oacc[4 * i + 3] *= alpha[1];
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          pa[kk][j] = bf16x2(sacc[8 * kk + 2 * j], sacc[8 * kk + 2 * j + 1]);
+    }
+    const uint64_t dv = desc(smem + L::v + s * 128 * kRowBytes);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma::wgmma_rs<D, 1>(oacc, pa[kk], dv + kk * kStepRows, 1);
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operands(oacc);
+    wgmma::fence_operands(pa);
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  const size_t base = (size_t)bh * n * D;
+  const int row0 = q0 + 64 * c + 16 * warp + g;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    float inv = 1.f;
+    if (SOFTMAX) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      inv = 1.f / lr;
+      if (t4 == 0 && row < n) lse[(size_t)bh * n + row] = m[r] + logf(lr);
+    }
+    if (row < n) {
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(o + base + (size_t)row * D + 8 * i + 2 * t4) =
+            bf16x2(oacc[4 * i + 2 * r] * inv, oacc[4 * i + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// K5: one block per (128 keys, bh), consumer c holding keys 64 c .. 64 c +
+// 63 with dk, dv in registers, walking 64-row q tiles that TMA streams
+// through the ring (q^, dO; lse and delta stored by the producer warp).
+// S^T = k q^T and dP^T = v dO^T (m64n64); P^T and dS^T are formed in
+// registers and feed dv += P^T dO and dk += dS^T q^ as register A
+// operands; dS^T also goes to shared memory for this tile's dq share,
+// dS k (m64nD, both operands M/N-major). Consumer 1 hands its share to
+// consumer 0 through shared memory, which adds both and accumulates the
+// tile into the fp32 workspace with vector atomics (one per two columns).
+struct BwdLayout {
+  static constexpr int k = 0;                        // 128 keys
+  static constexpr int v = k + 128 * kRowBytes;
+  static constexpr int ds = v + 128 * kRowBytes;     // dS^T, 128 keys x 64 q
+  static constexpr int q = ds + 128 * kRowBytes;     // kStages x 64 rows
+  static constexpr int dout = q + kStages * 64 * kRowBytes;
+  static constexpr int x = dout + kStages * 64 * kRowBytes;  // dq hand-over
+  static constexpr int stats = x + 128 * 32 * 4;     // kStages x (lse, delta)
+  static constexpr int bars = stats + kStages * 128 * 4;
+  static constexpr int bytes = bars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, float* __restrict__ dq_acc, int n,
+                     int seq_len) {
+  using L = BwdLayout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+  float* stats = reinterpret_cast<float*>(smem + L::stats);
+  const int bh = blockIdx.y, k0 = blockIdx.x * 128;
+  const int tiles = (n + 63) / 64;
+  const bool active = k0 < seq_len;  // a tile of masked keys has zero grads
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp
+      mbar_init(&empty[s], 8);  // each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: warp 0
+    set_max_regs<24>();
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x < 32 && active) {
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * 128 * kRowBytes);
+        tma_load(smem + L::k, &tm_k, kv_full, k0, bh);
+        tma_load(smem + L::v, &tm_v, kv_full, k0, bh);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % kStages, q0 = t * 64;
+        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        float* st = stats + s * 128;
+        for (int j = lane; j < 64; j += 32) {
+          const bool in = q0 + j < n;
+          st[j] = in ? lse[(size_t)bh * n + q0 + j] : 0.f;
+          st[64 + j] = in ? delta[(size_t)bh * n + q0 + j] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * 64 * kRowBytes);
+          tma_load(smem + L::q + s * 64 * kRowBytes, &tm_q, &full[s], q0, bh);
+          tma_load(smem + L::dout + s * 64 * kRowBytes, &tm_do, &full[s], q0, bh);
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+  set_max_regs<240>();
+  const int c = wg - 1, lt = threadIdx.x - 128 * wg;
+  const int warp = lt >> 5, lane = lt & 31, g = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * warp + g;  // this thread's rows: r0, r0 + 8
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  const size_t base = (size_t)bh * n * D;
+  if (active) {
+    mbar_wait(kv_full, 0);
+    const uint64_t dk_desc = desc(smem + L::k + c * 64 * kRowBytes);
+    const uint64_t dv_desc = desc(smem + L::v + c * 64 * kRowBytes);
+    unsigned char* ds_tile = smem + L::ds + c * 64 * kRowBytes;
+    const uint64_t ds_desc = desc(ds_tile);
+    const bool masked[2] = {k0 + 64 * c + r0 >= seq_len,
+                            k0 + 64 * c + r0 + 8 >= seq_len};
+    float* x = reinterpret_cast<float*>(smem + L::x) + lt * (D / 2);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % kStages, q0 = t * 64;
+      mbar_wait(&full[s], (t / kStages) & 1);
+      const uint64_t q_desc = desc(smem + L::q + s * 64 * kRowBytes);
+      const uint64_t do_desc = desc(smem + L::dout + s * 64 * kRowBytes);
+      float sacc[32], dpacc[32];
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma::wgmma_ss<64, 0, 0>(sacc, dk_desc + kk * kStepK,
+                                  q_desc + kk * kStepK, kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma::wgmma_ss<64, 0, 0>(dpacc, dv_desc + kk * kStepK,
+                                  do_desc + kk * kStepK, kk);
+      wgmma::commit();
+      wgmma::wait<0>();
+      wgmma::fence_operands(sacc);
+      wgmma::fence_operands(dpacc);
+      const float* st = stats + s * 128;
+      uint32_t pa[4][4], da[4][4];  // P^T, dS^T as k16 A fragments (k: q)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 8 * kk + 2 * j, r = j & 1, chunk = 2 * kk + (j >> 1);
+          const int col = 8 * chunk + 2 * t4;
+          const float2 ls = *reinterpret_cast<const float2*>(st + col);
+          const float2 dl = *reinterpret_cast<const float2*>(st + 64 + col);
+          const float p0 = masked[r] ? 0.f : ex2((sacc[i] - ls.x) * kLog2e);
+          const float p1 = masked[r] ? 0.f : ex2((sacc[i + 1] - ls.y) * kLog2e);
+          pa[kk][j] = bf16x2(p0, p1);
+          da[kk][j] = bf16x2(p0 * (dpacc[i] - dl.x), p1 * (dpacc[i + 1] - dl.y));
+          *reinterpret_cast<uint32_t*>(ds_tile + swz(r0 + 8 * r, col)) = da[kk][j];
+        }
+      fence_proxy_async();
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma::wgmma_rs<D, 1>(dva, pa[kk], do_desc + kk * kStepRows, 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma::wgmma_rs<D, 1>(dka, da[kk], q_desc + kk * kStepRows, 1);
+      wgmma::commit();
+      named_sync(1 + c, 128);  // this consumer's dS^T is in shared memory
+      float dqa[D / 2];
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma::wgmma_ss<D, 1, 1>(dqa, ds_desc + kk * kStepRows,
+                                 dk_desc + kk * kStepRows, kk);
+      wgmma::commit();
+      wgmma::wait<0>();
+      wgmma::fence_operands(dva);
+      wgmma::fence_operands(dka);
+      wgmma::fence_operands(dqa);
+      wgmma::fence_operands(pa);
+      wgmma::fence_operands(da);
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (c == 1) {
+        if (t > 0) named_sync(4, 256);  // consumer 0 has read the last share
+#pragma unroll
+        for (int i = 0; i < D / 2; i += 4)
+          *reinterpret_cast<float4*>(x + i) =
+              make_float4(dqa[i], dqa[i + 1], dqa[i + 2], dqa[i + 3]);
+        named_arrive(3, 256);
+      } else {
+        named_sync(3, 256);
+#pragma unroll
+        for (int i = 0; i < D / 2; i += 4) {
+          const float4 y = *reinterpret_cast<const float4*>(x + i);
+          dqa[i] += y.x;
+          dqa[i + 1] += y.y;
+          dqa[i + 2] += y.z;
+          dqa[i + 3] += y.w;
+        }
+        if (t + 1 < tiles) named_arrive(4, 256);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + r0 + 8 * r;
+          if (row < n) {
+            float* dst = dq_acc + base + (size_t)row * D + 2 * t4;
+#pragma unroll
+            for (int i = 0; i < D / 8; ++i)
+              atomicAdd(reinterpret_cast<float2*>(dst + 8 * i),
+                        make_float2(dqa[4 * i + 2 * r], dqa[4 * i + 2 * r + 1]));
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + 64 * c + r0 + 8 * r;
+    if (row < n) {
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const size_t at = base + (size_t)row * D + 8 * i + 2 * t4;
+        *reinterpret_cast<uint32_t*>(dk + at) =
+            bf16x2(dka[4 * i + 2 * r], dka[4 * i + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv + at) =
+            bf16x2(dva[4 * i + 2 * r], dva[4 * i + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// q^ = q * scale rounded to bf16 (the scale itself in bf16), for K5's TMA
+__global__ void scale_q_kernel(const __nv_bfloat162* __restrict__ q,
+                               __nv_bfloat162* __restrict__ out, size_t pairs,
+                               float scale) {
+  const float sc = __bfloat162float(__float2bfloat16(scale));
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < pairs;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float2 f = __bfloat1622float2(q[i]);
+    out[i] = __floats2bfloat162_rn(f.x * sc, f.y * sc);
+  }
+}
+
+// the driver's cuTensorMapEncodeTiled, looked up once through the runtime
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (bh, n, d) bf16 tensor as a (d, n, bh) map of (64, rows, 1) boxes in
+// the 128-byte swizzle; columns past d and rows past n read as zeros
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int bh, int n, int d,
+                       int rows) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return cudaErrorMisalignedAddress;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(ptr), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int n, int seq_len, float scale,
+                bool softmax, cudaStream_t st) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = tensor_map(&mq, q, bh, n, D, 128);
+  if (err == cudaSuccess) err = tensor_map(&mk, k, bh, n, D, 128);
+  if (err == cudaSuccess) err = tensor_map(&mv, v, bh, n, D, 128);
+  if (err != cudaSuccess) return err;
+  if (reinterpret_cast<uintptr_t>(o) % 4 != 0) return cudaErrorMisalignedAddress;
+  auto kernel = softmax ? flash_fwd_wgmma<D, true> : flash_fwd_wgmma<D, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             FwdLayout::bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((n + 127) / 128, bh), kThreads, FwdLayout::bytes, st>>>(
+      mq, mk, mv, static_cast<bf16*>(o), lse, n, seq_len, scale);
+  return cudaGetLastError();
+}
+
+// K5 in bf16: zero the workspace, q^ into dq (free until the last pass),
+// the kernel, then dq = dq_acc * scale
+template <int D>
+cudaError_t bwd_fused(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, void* dk, void* dv, float* dq_acc, int bh,
+                      int n, int seq_len, float scale, cudaStream_t st) {
+  const size_t count = (size_t)bh * n * D;
+  cudaError_t err = cudaMemsetAsync(dq_acc, 0, count * sizeof(float), st);
+  if (err != cudaSuccess) return err;
+  if (reinterpret_cast<uintptr_t>(q) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(dk) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(dv) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(dq_acc) % 8 != 0)
+    return cudaErrorMisalignedAddress;
+  const size_t blocks = (count / 2 + 255) / 256;
+  scale_q_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(
+      static_cast<const __nv_bfloat162*>(q), static_cast<__nv_bfloat162*>(dq),
+      count / 2, scale);
+  err = cudaGetLastError();
+  CUtensorMap mq, mk, mv, mdo;
+  if (err == cudaSuccess) err = tensor_map(&mq, dq, bh, n, D, 64);
+  if (err == cudaSuccess) err = tensor_map(&mk, k, bh, n, D, 128);
+  if (err == cudaSuccess) err = tensor_map(&mv, v, bh, n, D, 128);
+  if (err == cudaSuccess) err = tensor_map(&mdo, dout, bh, n, D, 64);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_bwd_wgmma<D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             BwdLayout::bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((n + 127) / 128, bh), kThreads, BwdLayout::bytes, st>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), dq_acc, n, seq_len);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t fblocks = (count + 255) / 256;
+  flash_dq_flush_kernel<bf16><<<(int)(fblocks < 4096 ? fblocks : 4096), 256, 0, st>>>(
+      dq_acc, static_cast<bf16*>(dq), count, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
+// ---------------------------------------------------------------------------
+// fp32 K4 and K4-mb on the CUDA cores (wgmma has no fp32 short of TF32,
+// which would break the 1e-4 tolerance). A block of 256 threads takes 128
+// q rows of one bh and walks 64-key tiles; thread (ty, tx) of a 16 x 16
+// grid holds an 8 x 4 micro-tile of S (rows 8 ty + i, keys 4 tx + j) and
+// an 8 x D/16 one of O (columns tx + 16 c) in registers, with its rows'
+// running max and partial sums; a row's 16 threads lie in one half-warp
+// and reduce by shuffles. q^ is staged once, transposed; k (transposed)
+// and v are double-buffered in shared memory, the next tile loaded into
+// registers while this one is used. P goes through shared memory, the one
+// exchange a register-tiled P V needs.
+// ---------------------------------------------------------------------------
+namespace fp32 {
+
+constexpr int kRows = 128, kKeys = 64, kThreads = 256;
+constexpr int kPS = kRows + 4;  // P^T rows: float4 reads, spread stores
+constexpr int kKS = kKeys + 4;  // k^T rows
+
+template <int D>
+struct Layout {  // in floats
+  static constexpr int q = 0;                      // q^T: D x kRows
+  static constexpr int k = q + D * kRows;          // 2 x k^T: D x kKS
+  static constexpr int v = k + 2 * D * kKS;        // 2 x v: kKeys x D
+  static constexpr int p = v + 2 * kKeys * D;      // P^T: kKeys x kPS
+  static constexpr size_t bytes = sizeof(float) * (p + kKeys * kPS);
+};
+
+template <int D, bool SOFTMAX>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int n, int seq_len, float scale) {
+  using L = Layout<D>;
+  constexpr int F4 = D / 4;                  // float4s a row
+  constexpr int PER = kKeys * F4 / kThreads;  // float4s a thread stages
+  constexpr int NC = D / 16;                 // O columns a thread
+  static_assert(kKeys * F4 % kThreads == 0, "whole float4s a thread");
+  extern __shared__ __align__(16) float sm[];
+  float* Qt = sm + L::q;
+  float* Pt = sm + L::p;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
+  const size_t base = (size_t)bh * n * D;
+  const int kv_end = SOFTMAX ? seq_len : n;
+  const int tiles = (kv_end + kKeys - 1) / kKeys;
+
+  for (int i = tid; i < kRows * D; i += kThreads) {
+    const int r = i / D, c = i - r * D;
+    Qt[c * kRows + r] = q0 + r < n ? q[base + (size_t)(q0 + r) * D + c] * scale : 0.f;
+  }
+  float4 kr[PER], vr[PER];
+  auto load = [&](int t) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int idx = tid + kThreads * j, row = idx / F4, c4 = idx - row * F4;
+      const int key = t * kKeys + row;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      kr[j] = key < n ? *reinterpret_cast<const float4*>(k + base + (size_t)key * D + 4 * c4) : zero;
+      vr[j] = key < n ? *reinterpret_cast<const float4*>(v + base + (size_t)key * D + 4 * c4) : zero;
+    }
+  };
+  auto store = [&](int buf) {
+    float* Kt = sm + L::k + buf * D * kKS;
+    float* Vs = sm + L::v + buf * kKeys * D;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int idx = tid + kThreads * j, row = idx / F4, c4 = idx - row * F4;
+      Kt[(4 * c4) * kKS + row] = kr[j].x;
+      Kt[(4 * c4 + 1) * kKS + row] = kr[j].y;
+      Kt[(4 * c4 + 2) * kKS + row] = kr[j].z;
+      Kt[(4 * c4 + 3) * kKS + row] = kr[j].w;
+      *reinterpret_cast<float4*>(Vs + row * D + 4 * c4) = vr[j];
+    }
+  };
+  load(0);
+  store(0);
+  __syncthreads();
+
+  float oacc[8][NC], m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) oacc[i][c] = 0.f;
+  }
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1, k0 = t * kKeys;
+    if (t + 1 < tiles) load(t + 1);
+    const float* Kt = sm + L::k + buf * D * kKS;
+    const float* Vs = sm + L::v + buf * kKeys * D;
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      const float4 qa = *reinterpret_cast<const float4*>(Qt + c * kRows + 8 * ty);
+      const float4 qb = *reinterpret_cast<const float4*>(Qt + c * kRows + 8 * ty + 4);
+      const float4 kv = *reinterpret_cast<const float4*>(Kt + c * kKS + 4 * tx);
+      const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+      const float kk[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kk[j], s[i][j]);
+    }
+    if (SOFTMAX) {
+      if (k0 + kKeys > seq_len) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k0 + 4 * tx + j >= seq_len)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) s[i][j] = kNegInf;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_next = fmaxf(m[i], mx);
+        const float alpha = expf(m[i] - m_next);
+        m[i] = m_next;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = expf(s[i][j] - m_next);
+          sum += s[i][j];
+        }
+        l[i] = alpha * l[i] + sum;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) oacc[i][c] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float* dst = Pt + (4 * tx + j) * kPS + 8 * ty;
+      *reinterpret_cast<float4*>(dst) = make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int key = 0; key < kKeys; ++key) {
+      const float4 pa = *reinterpret_cast<const float4*>(Pt + key * kPS + 8 * ty);
+      const float4 pb = *reinterpret_cast<const float4*>(Pt + key * kPS + 8 * ty + 4);
+      const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+      float vv[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) vv[c] = Vs[key * D + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) oacc[i][c] = fmaf(pv[i], vv[c], oacc[i][c]);
+    }
+    if (t + 1 < tiles) store(buf ^ 1);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + 8 * ty + i;
+    float li = l[i];
+    if (SOFTMAX) {
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        li += __shfl_xor_sync(0xffffffffu, li, off);
+    }
+    if (row < n) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        o[base + (size_t)row * D + tx + 16 * c] = SOFTMAX ? oacc[i][c] / li : oacc[i][c];
+      if (SOFTMAX && tx == 0) lse[(size_t)bh * n + row] = m[i] + logf(li);
+    }
+  }
+}
+
+template <int D>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int n, int seq_len, float scale,
+                bool softmax, cudaStream_t st) {
+  for (const void* p : {q, k, v})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  const size_t bytes = Layout<D>::bytes;
+  auto kernel = softmax ? flash_fwd_f32<D, true> : flash_fwd_f32<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((n + kRows - 1) / kRows, bh), kThreads, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, n, seq_len,
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace fp32
+
 template <typename K>
 cudaError_t prepare(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -533,15 +1216,10 @@ template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, int bh, int n, int seq_len, float scale,
                 bool softmax, cudaStream_t st) {
-  const size_t bytes = FwdSmem<T, D>::bytes;
-  auto kernel = softmax ? flash_fwd_kernel<T, D, true>
-                        : flash_fwd_kernel<T, D, false>;
-  cudaError_t err = prepare(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid_of(bh, n), kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, n, seq_len, scale);
-  return cudaGetLastError();
+  if constexpr (is_f32<T>())
+    return fp32::fwd<D>(q, k, v, o, lse, bh, n, seq_len, scale, softmax, st);
+  else
+    return hopper::fwd<D>(q, k, v, o, lse, bh, n, seq_len, scale, softmax, st);
 }
 
 template <typename T, int D>
@@ -583,16 +1261,21 @@ cudaError_t bwd_fused(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, void* dk, void* dv, float* dq_acc, int bh,
                       int n, int seq_len, float scale, cudaStream_t st) {
-  const size_t count = (size_t)bh * n * D;
-  cudaError_t err = cudaMemsetAsync(dq_acc, 0, count * sizeof(float), st);
-  if (err != cudaSuccess) return err;
-  err = bwd_kv<T, D>(q, k, v, dout, lse, delta, dk, dv, dq_acc, bh, n,
-                     seq_len, scale, st);
-  if (err != cudaSuccess) return err;
-  const size_t blocks = (count + 255) / 256;
-  flash_dq_flush_kernel<T><<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(
-      dq_acc, static_cast<T*>(dq), count, scale);
-  return cudaGetLastError();
+  if constexpr (!is_f32<T>()) {
+    return hopper::bwd_fused<D>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc,
+                                bh, n, seq_len, scale, st);
+  } else {
+    const size_t count = (size_t)bh * n * D;
+    cudaError_t err = cudaMemsetAsync(dq_acc, 0, count * sizeof(float), st);
+    if (err != cudaSuccess) return err;
+    err = bwd_kv<T, D>(q, k, v, dout, lse, delta, dk, dv, dq_acc, bh, n,
+                       seq_len, scale, st);
+    if (err != cudaSuccess) return err;
+    const size_t blocks = (count + 255) / 256;
+    flash_dq_flush_kernel<T><<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(
+        dq_acc, static_cast<T*>(dq), count, scale);
+    return cudaGetLastError();
+  }
 }
 
 bool bad_args(int bh, int n, int d, int seq_len, int dtype) {

@@ -18,11 +18,13 @@ q, k, v are (bh, n, d) with d in {32, 48, 64} on the card; keys at or past
 ``seq_len`` are masked, and no caller pads n (the kernels mask the ragged
 tail). On a CPU tensor each wrapper runs its plain PyTorch version; on a
 CUDA tensor it launches the hand-written kernel in csrc/flash_attention.cu
-(CUDA C++ for sm_90a, plain C interface, ctypes) or raises. The source
-notes what bounds the kernels. muvo_tpu's _FUSED_DQ_VMEM_BUDGET limits the
-TPU's VMEM and has no counterpart: K5's dq workspace lies in device
-memory, so K5 serves every length, and ``split`` is the port's form of
-muvo_tpu's MUVO_FLASH_FUSED_BWD switch, an argument and not an
+(CUDA C++ for sm_90a, plain C interface, ctypes) or raises: in bf16 K4,
+K4-mb and K5 stage tiles by TMA and multiply with wgmma, which need the
+tensors' data 16-byte aligned (a misaligned view is copied first). The
+source notes what bounds the kernels. muvo_tpu's _FUSED_DQ_VMEM_BUDGET
+limits the TPU's VMEM and has no counterpart: K5's dq workspace lies in
+device memory, so K5 serves every length, and ``split`` is the port's
+form of muvo_tpu's MUVO_FLASH_FUSED_BWD switch, an argument and not an
 environment variable.
 
 ``flash_attention(q, k, v, seq_len, bwd)`` takes muvo_tpu's (B, H, N, D)
@@ -184,7 +186,15 @@ def _check_lse(lse, q):
                          f"on {q.device}")
 
 
+def _aligned(*tensors):
+    """The tensors, each copied if its data does not start on 16 bytes
+    (a view at an odd offset): the bf16 kernels read through TMA tensor
+    maps, which need 16-byte aligned addresses."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
+
+
 def _forward_launch(q, k, v, seq_len, softmax: bool):
+    q, k, v = _aligned(q, k, v)
     bh, n, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, n), dtype=torch.float32, device=q.device)
@@ -228,6 +238,7 @@ def _backward_args(q, k, v, o, lse, do, seq_len):
     if on_host:
         return True, seq_len, None
     delta = (do.float() * o.float()).sum(-1)
+    q, k, v, do = _aligned(q, k, v, do)
     bh, n, d = q.shape
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())

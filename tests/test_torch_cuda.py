@@ -190,8 +190,13 @@ def _qkv(dev, bh, n, d, dtype, seed=0, count=3):
 
 
 # (bh, n, seq_len): ragged n; seq_len < n inside a key tile; key tiles of
-# masked keys only; a single tile
-FLASH_SHAPES = [(3, 300, None), (2, 640, 600), (2, 200, 60), (1, 64, None)]
+# masked keys only; a single tile; then the bf16 kernels' tile edges (128
+# q rows a block, 128 keys a forward tile, 64 q rows a backward tile): n
+# just under, on and just past 128, and seq_len on and just past a 128-key
+# boundary
+FLASH_SHAPES = [(3, 300, None), (2, 640, 600), (2, 200, 60), (1, 64, None),
+                (2, 127, None), (1, 128, None), (3, 129, None),
+                (2, 257, 128), (2, 257, 129)]
 
 
 @pytest.mark.parametrize("d", [32, 48, 64])

@@ -7,8 +7,12 @@ mode, as tests/test_ops.py runs them) and the port's plain versions: K4's
 _flash_bwd_fused and _flash_bwd on muvo_tpu's own o and lse, and the
 port's autograd Function (flash_attention, both backward schemes) against
 jax.vjp of muvo_tpu's flash_attention. Shapes: (bh 2, n 300, d 48), a
-ragged n inside one block, and (bh 2, n 640, seq_len 600, d 32), keys
-masked past seq_len across two blocks.
+ragged n inside one block, (bh 2, n 640, seq_len 600, d 32), keys
+masked past seq_len across two blocks, and two at the edges of the card's
+bf16 tiles: n 129 (d 48) and seq_len 128 of n 200 (d 64).
+test_zero_padded_head_dim_changes_nothing holds what those kernels rely
+on: zero columns past d leave every product, and so the results, as they
+are.
 
 Tolerances, norm-relative (|port - jax| / |jax|, Frobenius norms, per
 output): fp32 1e-5 (summation order only); bf16 2e-2 (both sides round
@@ -31,7 +35,10 @@ from muvo_tpu_torch.ops import flash_attention as fa
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # (bh, n, d, seq_len)
-SHAPES = {"n300_d48": (2, 300, 48, None), "n640_d32_seq600": (2, 640, 32, 600)}
+SHAPES = {"n300_d48": (2, 300, 48, None), "n640_d32_seq600": (2, 640, 32, 600),
+          # the bf16 kernels' tile edges: n one past a 128-row block, and
+          # seq_len on a 128-key tile boundary
+          "n129_d48": (2, 129, 48, None), "n200_d64_seq128": (2, 200, 64, 128)}
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -207,3 +214,38 @@ def test_bench_counts_each_flash_attention(monkeypatch, seq_len):
             for h in hooks:
                 h.remove()
         assert counts[0] == want
+
+
+@pytest.mark.parametrize("seq_len", [None, 40])
+@pytest.mark.parametrize("part", ["forward", "backward"])
+def test_zero_padded_head_dim_changes_nothing(monkeypatch, part, seq_len):
+    """The bf16 kernels stage d = 48 as 64 columns, the 16 past d zero (a
+    tile 128 bytes wide). The plain versions on q, k, v, dO padded so, with
+    the scale of d = 48, give the unpadded results exactly in fp32: o and
+    the gradients in the first 48 columns, zeros past them, the same lse.
+    The backward takes o on a 1/64 grid and dO on a 1/8 grid, so that
+    delta = rowsum(dO o), which the kernels take from the unpadded
+    tensors, sums exactly in any order (the CPU groups 64 terms other than
+    48)."""
+    rs = np.random.RandomState(2)
+    q, k, v = (torch.from_numpy(rs.randn(2, 70, 48).astype(np.float32))
+               for _ in range(3))
+    do = torch.from_numpy(rs.randint(-8, 9, (2, 70, 48)).astype(np.float32)
+                          / 8)
+    o, lse = fa.flash_fwd_plain(q, k, v, seq_len)
+    o = torch.round(o * 64) / 64
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, seq_len)
+    q64, k64, v64, do64, o64 = (torch.nn.functional.pad(t, (0, 16))
+                                for t in (q, k, v, do, o))
+    monkeypatch.setattr(fa, "softmax_scale", lambda d: 1.0 / 48 ** 0.5)
+    if part == "forward":
+        got_o, got_lse = fa.flash_fwd_plain(q64, k64, v64, seq_len)
+        o, lse = fa.flash_fwd_plain(q, k, v, seq_len)
+        assert torch.equal(got_o[..., :48], o)
+        assert not got_o[..., 48:].any()
+        assert torch.equal(got_lse, lse)
+    else:
+        got = fa.flash_bwd_plain(q64, k64, v64, o64, lse, do64, seq_len)
+        for g, w in zip(got, want):
+            assert torch.equal(g[..., :48], w)
+            assert not g[..., 48:].any()

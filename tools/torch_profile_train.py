@@ -20,9 +20,11 @@ measures:
    launched on the flipped weights for dx), zconv_kernel<T, true> K2,
    zconv_dxup_kernel K2-dx, dw_kernel<T, false, ...> K3, dw_kernel<T,
    true, ...> K3-up, sum_rows_kernel K3's second pass,
-   flash_fwd_kernel<T, D, true> K4, flash_bwd_kv_kernel<T, D, true> K5
-   (with flash_dq_flush_kernel, its last pass), flash_bwd_dq_kernel K6-dq
-   and flash_bwd_kv_kernel<T, D, false> K6-dkv.
+   flash_fwd_wgmma<D, true> (bf16) and flash_fwd_f32<D, true> K4,
+   flash_bwd_wgmma<D> (bf16, with scale_q_kernel and flash_dq_flush_kernel,
+   its first and last passes) and flash_bwd_kv_kernel<T, D, true> (fp32)
+   K5, flash_bwd_dq_kernel K6-dq and flash_bwd_kv_kernel<T, D, false>
+   K6-dkv.
 
 Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
 mode.
@@ -47,9 +49,12 @@ from torch_profile_serving import _busy_us  # noqa: E402
 
 # device-time groups, first match wins
 GROUPS = (
-    ("K4 (flash_fwd_kernel<T, D, true>)", r"flash_fwd_kernel<[^>]*true>"),
-    ("K5 (flash_bwd_kv_kernel<T, D, true> + flash_dq_flush_kernel)",
-     r"flash_bwd_kv_kernel<[^>]*true>|flash_dq_flush_kernel"),
+    ("K4 (flash_fwd_wgmma / flash_fwd_f32<D, true>)",
+     r"flash_fwd_(wgmma|f32)<[^>]*true>"),
+    ("K5 (flash_bwd_wgmma or flash_bwd_kv_kernel<T, D, true>, with "
+     "scale_q_kernel and flash_dq_flush_kernel)",
+     r"flash_bwd_wgmma|flash_bwd_kv_kernel<[^>]*true>|scale_q_kernel|"
+     r"flash_dq_flush_kernel"),
     ("K6-dq (flash_bwd_dq_kernel)", r"flash_bwd_dq_kernel"),
     ("K6-dkv (flash_bwd_kv_kernel<T, D, false>)",
      r"flash_bwd_kv_kernel<[^>]*false>"),
