@@ -11,11 +11,14 @@ exits nonzero (there is no CPU fallback):
 3. kernels: K1 (zconv3d_leaky) and K2 (upzconv3d_leaky) at the voxel
    decoder's four serving shapes, batch 1 and 5, fp32 and bf16: each is held
    against its plain PyTorch version on the card (TF32 off), and timed beside
-   the plain version, one library call and the bound.
+   the plain version, one library call and the bound. bf16 K2 is the
+   tensor-core kernel on the small-z grid (zconv_tc_kernel), fp32 K2 and K1
+   the CUDA-core one.
 4. backward_kernels: K1-dx, K2-dx, K3 and K3-up at the four training shapes
    (batch 24 = 4 sequences of 6 frames), bf16 and fp32, held against their
    plain versions and timed beside them, one library call
-   (aten.convolution_backward) and the bound.
+   (aten.convolution_backward) and the bound. bf16 K2-dx is
+   zconv_tc_kernel with the adjoint fold.
 5. flash_kernels: K4 (flash forward), K5 (fused backward), K6-dq and K6-dkv
    (split backward) at the LARGE training shape (bh 48 = 8 heads x 6
    frames, n 5184, d 48), at d 32, at a ragged n, with seq_len < n and at
@@ -963,8 +966,11 @@ def main() -> int:
         training_large_phase(dev))
     paths["microbench"] = microbench_phase()
 
-    rows = {kid: results[(kid, MAIN_SHAPE[kid], MAIN_BATCH, torch.float32)]
-            for kid in ("K1", "K2")}
+    # K1 in fp32 (serving's type); K2 in bf16 (training's), the type its
+    # tensor-core kernel serves
+    rows = {kid: results[(kid, MAIN_SHAPE[kid], MAIN_BATCH, dtype)]
+            for kid, dtype in (("K1", torch.float32),
+                               ("K2", torch.bfloat16))}
     for kid, stage in (("K1-dx", "conv3.conv2"), ("K2-dx", "conv3.conv1"),
                        ("K3", "conv3.conv2"), ("K3-up", "conv3.conv1")):
         rows[kid] = backward[(kid, stage, torch.bfloat16)]

@@ -6,12 +6,14 @@ K1 ``zconv3d_leaky``: LeakyReLU(conv3d 3x3x3 SAME stride 1 + bias).
 K2 ``upzconv3d_leaky``: LeakyReLU(conv3d(2x linear z-upsample of x) + bias),
     x already upsampled in X and Y. Replaces the same Pallas kernel via
     upzconv3d_leaky_folded; like it, the upsampled tensor never exists in
-    device memory (the CUDA kernel interpolates z while staging its tile).
+    device memory: in fp32 the CUDA kernel interpolates z while staging its
+    tile; in bf16 a tensor-core kernel computes on the small-z grid with
+    the upsample folded into the weights (``up_fold_weights``).
 K1-dx ``zconv3d_dx``: K1's input gradient, the conv of the leaky-masked
     cotangent with the flipped, transposed kernel (_vjp_bwd's dx).
 K2-dx ``upzconv3d_dx``: K2's input gradient, that adjoint conv over big z
     followed by the z-upsample's transpose, back to small z, in one kernel
-    (_up_vjp_bwd's dx).
+    (_up_vjp_bwd's dx); in bf16 the adjoint fold on the small-z grid.
 K3 ``zconv3d_dw`` / ``upzconv3d_dw`` (K3-up): the weight and bias
     gradients of K1 / K2 in one fp32 reduction pass (_dw_pallas and the
     dbias sums beside it).
@@ -32,6 +34,7 @@ they launch the forward kernel alone and save nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -147,6 +150,56 @@ def upzconv3d_dx_plain(g, out, weight, slope: Optional[float] = 0.2):
     return dx.contiguous()
 
 
+# K2 on the small-z grid. Output z = 2k + p (phase p) of the conv of the
+# z-upsampled input is a 3x3x3 SAME conv of the small-z input whose z tap t
+# reads slice k - 1 + t, with folded weights
+#   W'[kx, ky, t][c, p Cout + co] = sum_dz E[p, t, dz] w[co, c, kx, ky, dz]
+# (zero padding outside the volume), plus two centre-tap (t = 1) terms that
+# the clamped upsample adds at the first and last small slice (both when
+# Zs = 1), applied to x[0] and x[Zs - 1]:
+#   EDGE[0][p, dz] at k = 0, EDGE[1][p, dz] at k = Zs - 1.
+# The same numbers as muvo_tpu/ops/pallas_zconv.py::_z_coeff_np, which
+# builds them per z block for the TPU's banded weights.
+UP_FOLD_E = (((0.75, 0.25, 0.0), (0.25, 0.75, 0.75), (0.0, 0.0, 0.25)),
+             ((0.25, 0.0, 0.0), (0.75, 0.75, 0.25), (0.0, 0.25, 0.75)))
+UP_FOLD_EDGE = (((-0.25, 0.25, 0.0), (0.25, 0.0, 0.0)),
+                ((0.0, 0.0, 0.25), (0.0, 0.25, -0.25)))
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_tables(device):
+    """E and EDGE as fp32 tensors on ``device``, made once (a copy to the
+    card per call would wait for the stream)."""
+    return (torch.tensor(UP_FOLD_E, dtype=torch.float32, device=device),
+            torch.tensor(UP_FOLD_EDGE, dtype=torch.float32, device=device))
+
+
+def up_fold_weights(weight, adjoint: bool = False):
+    """K2's weights folded onto the small-z grid, fp32.
+
+    Forward: (main (3, 3, 3, C, 2 Cout), edges (2, 3, 3, C, 2 Cout)) in
+    (kx, ky, t, input channel, output channel) order, output channel
+    p Cout + co; the conv of x (B, X, Y, Zs, C) with ``main`` plus
+    ``edges[0]`` applied (as a 3x3 conv) to slice 0 and ``edges[1]`` to
+    slice Zs - 1 is K2's output viewed as (B, X, Y, Zs, 2 Cout) before bias
+    and activation.
+
+    ``adjoint``: the flipped, transposed fold, (3, 3, 3, 2 Cout, C) and
+    (2, 3, 3, 2 Cout, C): the same conv structure on the masked cotangent
+    viewed as (B, X, Y, Zs, 2 Cout) gives K2's input gradient."""
+    w = weight.detach().float().permute(2, 3, 4, 1, 0)  # kx ky dz C Cout
+    e, d = _fold_tables(w.device)
+    c, cout = w.shape[3], w.shape[4]
+    main = torch.einsum("ptd,xydce->xytcpe", e, w).reshape(3, 3, 3, c,
+                                                           2 * cout)
+    edges = torch.einsum("qpd,xydce->qxycpe", d, w).reshape(2, 3, 3, c,
+                                                            2 * cout)
+    if adjoint:
+        main = main.flip(0, 1, 2).transpose(-1, -2)
+        edges = edges.flip(1, 2).transpose(-1, -2)
+    return main.contiguous(), edges.contiguous()
+
+
 def _dw_plain(xin, g, out, cout_c, slope, with_bias: bool):
     gm = leaky_mask(g, out, slope)
     dw = torch.nn.grad.conv3d_weight(to_nchw(xin), cout_c, to_nchw(gm),
@@ -212,8 +265,10 @@ def _launch(x, weight, bias, slope, up: bool):
     cout = weight.shape[0]
     z = 2 * zin if up else zin
     out = torch.empty((b, X, Y, z, cout), dtype=x.dtype, device=x.device)
-    # (Cout, C, kx, ky, kz) -> (kx, ky, kz, C, Cout), fp32 for the kernel
-    w = weight.detach().float().permute(2, 3, 4, 1, 0).contiguous()
+    if up and x.dtype == torch.bfloat16:  # zconv_tc_kernel: the small-z fold
+        w = torch.cat([t.reshape(-1) for t in up_fold_weights(weight)])
+    else:  # (Cout, C, kx, ky, kz) -> (kx, ky, kz, C, Cout), fp32
+        w = weight.detach().float().permute(2, 3, 4, 1, 0).contiguous()
     bias32 = None if bias is None else bias.detach().float().contiguous()
     with torch.cuda.device(x.device):
         rc = _library("zconv").muvo_zconv3d_leaky(
@@ -255,9 +310,12 @@ def _dx(g, out, weight, slope, up: bool):
     c = weight.shape[1]
     dx = torch.empty((b, X, Y, z // 2 if up else z, c), dtype=g.dtype,
                      device=g.device)
-    # adjoint kernel: flipped in space, C <-> Cout; (kx, ky, kz, Cout, C)
-    w_adj = weight.detach().float().flip(2, 3, 4).permute(2, 3, 4, 0, 1)
-    w_adj = w_adj.contiguous()
+    if up and g.dtype == torch.bfloat16:  # zconv_tc_kernel: adjoint fold
+        w_adj = torch.cat([t.reshape(-1) for t in
+                           up_fold_weights(weight, adjoint=True)])
+    else:  # flipped in space, C <-> Cout; (kx, ky, kz, Cout, C)
+        w_adj = weight.detach().float().flip(2, 3, 4).permute(2, 3, 4, 0, 1)
+        w_adj = w_adj.contiguous()
     mask = out if slope is not None else None
     with torch.cuda.device(g.device):
         rc = _library("zconv").muvo_zconv3d_dx(

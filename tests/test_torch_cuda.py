@@ -306,3 +306,58 @@ def test_voxel_decoder_on_card_matches_host(dev):
         assert g.shape == v.shape
         rel = (g - v).abs().max() / max(1.0, v.abs().max().item())
         assert rel.item() < 2e-3, (key, rel.item())
+
+
+# bf16 K2 and K2-dx run zconv_tc_kernel on the small-z grid: a block covers
+# ceil(128 / Zs) y rows (at most Y) and 8 x rows, 64-row tiles of (y, z)
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 5, 6, 1, 16), 8),       # Zs 1: both z edges on one slice
+    ((1, 4, 9, 2, 32), 16),      # Zs 2: both z edges in one tile
+    ((1, 11, 13, 16, 16), 8),    # X ends mid block (8 rows), Y mid block (8)
+    ((2, 9, 7, 32, 16), 8),      # Zs 32: Y ends mid block (4 rows)
+    ((1, 96, 96, 16, 32), 16),   # conv2.conv1 at full width, batch 1
+    ((1, 192, 192, 32, 16), 8),  # conv3.conv1 at full width, batch 1
+])
+def test_bf16_up_kernels_on_the_small_z_grid(dev, shape, cout):
+    x, w, b = _inputs(dev, shape, cout, torch.bfloat16)
+    n = (zconv.upzconv3d_leaky.launches, zconv.upzconv3d_dx.launches)
+    out = zconv.upzconv3d_leaky(x, w, b, 0.2)
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1)
+                    ).to(torch.bfloat16)
+    dx = zconv.upzconv3d_dx(g, out, w, 0.2)
+    torch.cuda.synchronize()
+    assert (zconv.upzconv3d_leaky.launches - n[0],
+            zconv.upzconv3d_dx.launches - n[1]) == (1, 1)
+    assert _rel(out, zconv.upzconv3d_leaky_plain(x, w, b, 0.2)) <= 2e-2
+    assert dx.shape == x.shape and dx.dtype == torch.bfloat16
+    assert _rel(dx, zconv.upzconv3d_dx_plain(g, out, w, 0.2)) <= 2e-2
+
+
+def _kernel_names(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()]
+
+
+def test_bf16_up_launches_the_tensor_core_kernel(dev):
+    """The profile names zconv_tc_kernel<..., false> for bf16 K2 and
+    zconv_tc_kernel<..., true> for bf16 K2-dx, and neither CUDA-core
+    kernel; fp32 K2 and K2-dx keep theirs."""
+    x, w, b = _inputs(dev, (1, 6, 7, 16, 32), 16, torch.bfloat16)
+    out = zconv.upzconv3d_leaky(x, w, b, 0.2)
+    fwd = _kernel_names(lambda: zconv.upzconv3d_leaky(x, w, b, 0.2))
+    dx = _kernel_names(lambda: zconv.upzconv3d_dx(out, out, w, 0.2))
+    assert any("zconv_tc_kernel" in k and "false>" in k for k in fwd), fwd
+    assert any("zconv_tc_kernel" in k and "true>" in k for k in dx), dx
+    assert not any("zconv_kernel<" in k or "zconv_dxup_kernel" in k
+                   for k in fwd + dx)
+    x32, w32, b32 = (t.float() for t in (x, w, b))
+    out32 = zconv.upzconv3d_leaky(x32, w32, b32, 0.2)
+    fwd = _kernel_names(lambda: zconv.upzconv3d_leaky(x32, w32, b32, 0.2))
+    dx = _kernel_names(lambda: zconv.upzconv3d_dx(out32, out32, w32, 0.2))
+    assert any("zconv_kernel<float, true>" in k for k in fwd), fwd
+    assert any("zconv_dxup_kernel<float>" in k for k in dx), dx

@@ -16,8 +16,8 @@ DeploymentSession up, then measures:
 2. kernels: torch.profiler over --ticks whole sim_forward ticks: the wall
    time, the device's busy time (the union of its kernels' intervals) and
    idle share, and device time summed by kernel name, with the port's own
-   kernels (zconv_kernel: K1 and K2; flash_fwd_f32 and flash_fwd_wgmma:
-   K4) named.
+   kernels (zconv_kernel: K1 and K2, zconv_tc_kernel: K2 in bf16;
+   flash_fwd_f32 and flash_fwd_wgmma: K4) named.
 
 Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
 mode.
@@ -131,7 +131,8 @@ def main() -> int:
         raise RuntimeError("the profiler recorded no device activity")
     busy_ms = _busy_us(intervals) / 1e3 / args.ticks
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    zconv_ms = sum(v for k, v in by_name.items() if "zconv_kernel" in k)
+    zconv_ms = sum(v for k, v in by_name.items()
+                   if "zconv_kernel" in k or "zconv_tc_kernel" in k)
     flash_ms = sum(v for k, v in by_name.items() if "flash_fwd_" in k)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,

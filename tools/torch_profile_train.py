@@ -17,9 +17,10 @@ measures:
    the device's busy time (the union of its kernels' intervals) and idle
    share, device time summed by kernel name and by group. The port's
    kernels are named: zconv_kernel<T, false> is K1 and K1-dx (one kernel,
-   launched on the flipped weights for dx), zconv_kernel<T, true> K2,
-   zconv_dxup_kernel K2-dx, dw_kernel<T, false, ...> K3, dw_kernel<T,
-   true, ...> K3-up, sum_rows_kernel K3's second pass,
+   launched on the flipped weights for dx), zconv_kernel<T, true> (fp32)
+   and zconv_tc_kernel<N, K, false> (bf16) K2, zconv_dxup_kernel (fp32) and
+   zconv_tc_kernel<N, K, true> (bf16) K2-dx, dw_kernel<T, false, ...> K3,
+   dw_kernel<T, true, ...> K3-up, sum_rows_kernel K3's second pass,
    flash_fwd_wgmma<D, true> (bf16) and flash_fwd_f32<D, true> K4,
    flash_bwd_wgmma<D> (bf16, with scale_q_kernel and flash_dq_flush_kernel,
    its first and last passes) and flash_bwd_kv_kernel<T, D, true> (fp32)
@@ -59,8 +60,10 @@ GROUPS = (
     ("K6-dkv (flash_bwd_kv_kernel<T, D, false>)",
      r"flash_bwd_kv_kernel<[^>]*false>"),
     ("K1 + K1-dx (zconv_kernel<T, false>)", r"zconv_kernel<.*, false>"),
-    ("K2 (zconv_kernel<T, true>)", r"zconv_kernel<.*, true>"),
-    ("K2-dx (zconv_dxup_kernel)", r"zconv_dxup_kernel"),
+    ("K2 (zconv_kernel<T, true>, bf16 zconv_tc_kernel<N, K, false>)",
+     r"zconv_kernel<.*, true>|zconv_tc_kernel<[^>]*false>"),
+    ("K2-dx (zconv_dxup_kernel, bf16 zconv_tc_kernel<N, K, true>)",
+     r"zconv_dxup_kernel|zconv_tc_kernel<[^>]*true>"),
     ("K3 (dw_kernel<T, false, U>)", r"dw_kernel<[^,]*, false"),
     ("K3-up (dw_kernel<T, true, U>)", r"dw_kernel<[^,]*, true"),
     ("K3 second pass (sum_rows_kernel)", r"sum_rows_kernel"),

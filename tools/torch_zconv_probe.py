@@ -1,0 +1,196 @@
+#!/usr/bin/env python3
+"""bf16 K2 and K2-dx (the tensor-core kernel on the small-z grid) on one GPU:
+right at the edges, then timed launch by launch at the voxel decoder's two
+K2 stages beside cuDNN.
+
+    python3 tools/torch_zconv_probe.py [--iters 12] [--out PATH]
+
+1. edges: K2 (upzconv3d_leaky) and K2-dx (upzconv3d_dx) in bf16 against
+   their plain versions, relative to max |plain| (2e-2, as chip_smoke.py),
+   at Zs 1 and 2 (both z edges in one tile), Zs 3, X and Y that end mid
+   block, odd and wide channel counts, no activation, and both full-width
+   stage shapes at batch 1; a second launch must give the same bits. A
+   case that fails prints where the error sits (by small z slice and by
+   output channel) before the script stops.
+2. timing: each kernel --iters times in a row, one CUDA event between
+   launches: K2 at batch 5 (the imagination's decode), K2-dx at batch 24
+   (the flagship step's 4 x 6 frames), conv2 and conv3, each beside one
+   cuDNN call on the same inputs (F.conv3d of the z-upsampled input;
+   aten.convolution_backward's input gradient over big z), with the bound
+   (each input read and each output written once, over 3.35 TB/s, or the
+   flops over 989 TFLOP/s).
+
+Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
+mode.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+TOL = 2e-2
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+# (label, input shape (B, X, Y, Zs, C), Cout, activation)
+EDGES = (("Zs1", (2, 5, 6, 1, 16), 8, True),
+         ("Zs2", (1, 4, 9, 2, 32), 16, True),
+         ("Zs3_odd_c", (1, 3, 5, 3, 3), 5, True),
+         ("xy_mid_block", (1, 11, 13, 16, 16), 8, True),
+         ("y_mid_block_zs32", (2, 9, 7, 32, 16), 8, True),
+         ("wide_c", (1, 3, 4, 6, 40), 20, True),
+         ("cout12", (1, 2, 3, 10, 4), 12, True),
+         ("no_act", (1, 4, 5, 16, 32), 16, False),
+         ("conv2.conv1", (1, 96, 96, 16, 32), 16, True),
+         ("conv3.conv1", (1, 192, 192, 32, 16), 8, True))
+# (stage, input shape without batch, Cout)
+STAGES = (("conv2.conv1", (96, 96, 16, 32), 16),
+          ("conv3.conv1", (192, 192, 32, 16), 8))
+FWD_BATCH, BWD_BATCH = 5, 24
+
+
+def per_launch(fn, iters):
+    """ms of each of ``iters`` launches after one warm-up."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    fn()
+    torch.cuda.synchronize()
+    events[0].record()
+    for i in range(iters):
+        fn()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return [events[i].elapsed_time(events[i + 1]) for i in range(iters)]
+
+
+def inputs(dev, shape, cout, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((cout, c, 3, 3, 3), generator=gen, device=dev)
+         / (27 * c) ** 0.5).to(torch.bfloat16)
+    b = torch.randn((cout,), generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((*shape[:3], 2 * shape[3], cout), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    return x, w, b, g
+
+
+def rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def where(got, want, zs):
+    """Max |error| by small z slice and by channel, relative to max |want|."""
+    d = (got.float() - want.float()).abs() / want.float().abs().max()
+    d = d.reshape(*d.shape[:3], zs, -1)
+    return {"by_z": d.amax((0, 1, 2, 4)).tolist(),
+            "by_channel": d.amax((0, 1, 2, 3)).tolist()}
+
+
+def ms_median(ms):
+    return sorted(ms)[len(ms) // 2]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=12)
+    ap.add_argument("--out", default=str(ROOT / "build"
+                                         / "torch_zconv_probe.json"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    from muvo_tpu_torch.models.layers import to_nchw
+    from muvo_tpu_torch.ops import zconv
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    edges, failed = [], []
+    for label, shape, cout, act in EDGES:
+        x, w, b, g = inputs(dev, shape, cout)
+        slope = 0.2 if act else None
+        bias = b if act else None
+        out = zconv.upzconv3d_leaky(x, w, bias, slope)
+        want = zconv.upzconv3d_leaky_plain(x, w, bias, slope)
+        dx = zconv.upzconv3d_dx(g, out, w, slope)
+        dx_want = zconv.upzconv3d_dx_plain(g, out, w, slope)
+        # no atomics: a second launch gives the same bits
+        same = (torch.equal(out, zconv.upzconv3d_leaky(x, w, bias, slope))
+                and torch.equal(dx, zconv.upzconv3d_dx(g, out, w, slope)))
+        torch.cuda.synchronize()
+        row = {"case": label, "shape": list(shape), "cout": cout, "act": act,
+               "K2": rel(out, want), "K2-dx": rel(dx, dx_want),
+               "repeat_equal": same}
+        if not same:
+            failed.append(f"{label}: a second launch differs")
+        for kid, got, ref in (("K2", out, want), ("K2-dx", dx, dx_want)):
+            if not row[kid] <= TOL:
+                row[kid + "_where"] = where(got, ref, shape[3])
+                failed.append(f"{kid} {label}: {row[kid]}")
+        edges.append(row)
+        print(json.dumps(row), flush=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+    conv = dict(stride=[1, 1, 1], padding=[1, 1, 1], dilation=[1, 1, 1],
+                transposed=False, output_padding=[0, 0, 0], groups=1)
+    timed = []
+    for stage, shape, cout in STAGES:
+        c = shape[-1]
+        x, w, b, _ = inputs(dev, (FWD_BATCH, *shape), cout)
+        out = zconv.upzconv3d_leaky(x, w, b, 0.2)
+        big = (shape[0], shape[1], 2 * shape[2])
+        vox = FWD_BATCH * big[0] * big[1] * big[2]
+        flops = 2 * 27 * c * cout * vox
+        nbytes = 2 * (x.numel() + w.numel() + out.numel() + cout)
+        runs = {"K2": (lambda: zconv.upzconv3d_leaky(x, w, b, 0.2)),
+                "cudnn_K2": (lambda: F.conv3d(F.interpolate(
+                    to_nchw(x), size=big, mode="trilinear",
+                    align_corners=False), w, b, padding=1))}
+        bounds = {"K2": max(nbytes / HBM_BYTES_PER_S,
+                            flops / BF16_FLOPS) * 1e3}
+        xb, wb, bb, gb = inputs(dev, (BWD_BATCH, *shape), cout, seed=1)
+        outb = zconv.upzconv3d_leaky(xb, wb, bb, 0.2)
+        gm = zconv.leaky_mask(gb, outb, 0.2)
+        xin = zconv.upsample2x_z(xb)
+        runs["K2-dx"] = lambda: zconv.upzconv3d_dx(gb, outb, wb, 0.2)
+        runs["cudnn_K2-dx"] = lambda: torch.ops.aten.convolution_backward(
+            to_nchw(gm), to_nchw(xin), wb, None, **conv,
+            output_mask=[True, False, False])
+        nbytes = 2 * (gb.numel() + outb.numel() + wb.numel() + xb.numel())
+        bounds["K2-dx"] = max(nbytes / HBM_BYTES_PER_S,
+                              flops / FWD_BATCH * BWD_BATCH / BF16_FLOPS) * 1e3
+        for name, fn in runs.items():
+            ms = per_launch(fn, args.iters)
+            kid = name.replace("cudnn_", "")
+            batch = FWD_BATCH if kid == "K2" else BWD_BATCH
+            row = {"run": name, "stage": stage, "batch": batch,
+                   "input": [batch, *shape], "cout": cout, "ms": ms,
+                   "ms_median": ms_median(ms)}
+            if name in bounds:
+                row["bound_ms"] = bounds[name]
+            timed.append(row)
+            print(json.dumps(row), flush=True)
+        del x, w, b, out, xb, wb, bb, gb, outb, gm, xin, runs
+        torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+              "edges": edges, "timed": timed}
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps({k: result[k] for k in ("device", "nvidia_smi")}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
