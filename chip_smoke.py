@@ -18,7 +18,10 @@ exits nonzero (there is no CPU fallback):
    (batch 24 = 4 sequences of 6 frames), bf16 and fp32, held against their
    plain versions and timed beside them, one library call
    (aten.convolution_backward) and the bound. bf16 K2-dx is
-   zconv_tc_kernel with the adjoint fold.
+   zconv_tc_kernel with the adjoint fold; bf16 K3 and K3-up are
+   tc::dw_tc_kernel (zconv_dw_tc.cu), fp32 ones dw_kernel (zconv_dw.cu),
+   named in each dW row's ``impl``; a second dW launch must give the same
+   bits.
 5. flash_kernels: K4 (flash forward), K5 (fused backward), K6-dq and K6-dkv
    (split backward) at the LARGE training shape (bh 48 = 8 heads x 6
    frames, n 5184, d 48), at d 32, at a ragged n, with seq_len < n and at
@@ -109,8 +112,11 @@ KERNEL_NAMES = {"K1": "zconv3d_leaky", "K2": "upzconv3d_leaky",
                 "K3": "zconv3d_dw", "K3-up": "upzconv3d_dw",
                 "K4": "flash_fwd", "K5": "flash_bwd", "K6-dq": "flash_bwd_dq",
                 "K6-dkv": "flash_bwd_dkv", "K4-mb": "flash_matmul"}
+# K3 and K3-up in bf16, the type of the training path and of the kernels
+# line (fp32: zconv_dw.cu's dw_kernel)
 SOURCES = {"K1": "zconv.cu", "K2": "zconv.cu", "K1-dx": "zconv.cu",
-           "K2-dx": "zconv.cu", "K3": "zconv_dw.cu", "K3-up": "zconv_dw.cu",
+           "K2-dx": "zconv.cu", "K3": "zconv_dw_tc.cu",
+           "K3-up": "zconv_dw_tc.cu",
            "K4": "flash_attention.cu", "K5": "flash_attention.cu",
            "K6-dq": "flash_attention.cu", "K6-dkv": "flash_attention.cu",
            "K4-mb": "flash_attention.cu"}
@@ -292,7 +298,7 @@ def backward_kernel_phase(dev):
                 flops = 2 * 27 * c * cout * b * X * Y * z_out
                 if up:
                     flops += 8 * got.numel()  # the z-upsample's transpose
-                rows.append((dx_id, err, rel,
+                rows.append((dx_id, err, rel, None,
                              lambda: dx_k(g, out, w, 0.2),
                              lambda: dx_p(g, out, w, 0.2),
                              lambda: torch.ops.aten.convolution_backward(
@@ -305,7 +311,13 @@ def backward_kernel_phase(dev):
                 dw_p = zconv.upzconv3d_dw_plain if up else zconv.zconv3d_dw_plain
                 (dw, db), (dw_w, db_w) = (dw_k(x, g, out, 0.2),
                                           dw_p(x, g, out, 0.2))
+                impl = dw_k.last_impl
+                dw2, db2 = dw_k(x, g, out, 0.2)
                 torch.cuda.synchronize()
+                if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+                    raise AssertionError(f"{dw_id} {stage} {dtype}: a second "
+                                         f"launch gave other bits")
+                del dw2, db2
                 err = max((dw - dw_w).abs().max().item(),
                           (db - db_w).abs().max().item())
                 rel = max(((dw - dw_w).abs().max()
@@ -315,7 +327,7 @@ def backward_kernel_phase(dev):
                 flops = (2 * 27 * c * cout + cout) * b * X * Y * z_out
                 if up:
                     flops += 3 * b * X * Y * z_out * c
-                rows.append((dw_id, err, rel,
+                rows.append((dw_id, err, rel, impl,
                              lambda: dw_k(x, g, out, 0.2),
                              lambda: dw_p(x, g, out, 0.2),
                              lambda: torch.ops.aten.convolution_backward(
@@ -324,7 +336,8 @@ def backward_kernel_phase(dev):
                              least_time(nbytes(x, g, out, dw, db), flops,
                                         dtype)))
                 del dw, db, dw_w, db_w
-                for kid, err, rel, kern, plain, library, (bms, by) in rows:
+                for (kid, err, rel, impl, kern, plain, library,
+                     (bms, by)) in rows:
                     row = {
                         "phase": "backward_kernel", "kernel": kid,
                         "stage": stage, "input": [TRAIN_BATCH, *shape],
@@ -336,6 +349,9 @@ def backward_kernel_phase(dev):
                         "library_ms": time_ms(library, iters=3, warmup=1),
                         "bound_ms": bms, "bound_by": by,
                     }
+                    if impl is not None:  # the dW kernel that ran
+                        row["impl"] = impl
+                        row["repeat_equal"] = True
                     emit(row)
                     if not rel <= tol:
                         raise AssertionError(f"{kid} {stage} {dtype}: "
@@ -952,7 +968,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built,
           "ptxas": [ln.strip()
-                    for name in ("zconv", "zconv_dw", "flash_attention")
+                    for name in ("zconv", "zconv_dw", "zconv_dw_tc",
+                                 "flash_attention")
                     for ln in build_log(name).splitlines()
                     if "registers" in ln or "Compiling entry" in ln]})
 

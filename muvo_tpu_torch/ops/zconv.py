@@ -15,15 +15,17 @@ K2-dx ``upzconv3d_dx``: K2's input gradient, that adjoint conv over big z
     followed by the z-upsample's transpose, back to small z, in one kernel
     (_up_vjp_bwd's dx); in bf16 the adjoint fold on the small-z grid.
 K3 ``zconv3d_dw`` / ``upzconv3d_dw`` (K3-up): the weight and bias
-    gradients of K1 / K2 in one fp32 reduction pass (_dw_pallas and the
-    dbias sums beside it).
+    gradients of K1 / K2 in one pass (_dw_pallas and the dbias sums beside
+    it), fp32 out: in bf16 a split-K GEMM on the tensor cores over the
+    big-z positions (csrc/zconv_dw_tc.cu, planned by ``dw_tc_plan``), in
+    fp32 a CUDA-core reduction (csrc/zconv_dw.cu).
 
 Tensors are channels-last NDHWC; weights are upstream's Conv3d layout
 (Cout, C, 3, 3, 3). On a CPU tensor each wrapper runs its plain PyTorch
 version; on a CUDA tensor it launches the hand-written kernel in
-csrc/zconv.cu or csrc/zconv_dw.cu (route: CUDA C++ for sm_90a, plain C
-interface, ctypes) or raises. What bounds the kernels and how they are
-built is noted in the sources.
+csrc/zconv.cu, csrc/zconv_dw.cu or csrc/zconv_dw_tc.cu (route: CUDA C++
+for sm_90a, plain C interface, ctypes) or raises. What bounds the kernels
+and how they are built is noted in the sources.
 
 Under autograd, K1 and K2 run inside ``torch.autograd.Function``s whose
 backward calls the dx and dW wrappers (kernels on the card, plain versions
@@ -65,6 +67,13 @@ def _library(name: str):
                 _I, _P]
             lib.muvo_zconv3d_leaky.restype = _I
             lib.muvo_zconv3d_dx.restype = _I
+        elif name == "zconv_dw_tc":
+            lib.muvo_dw_tc_limits.argtypes = [ctypes.POINTER(_I)] * 2
+            lib.muvo_zconv3d_dw_tc.argtypes = [
+                _P, _P, _P, ctypes.c_float, _P, _P,
+                ctypes.POINTER(_DwTcShape), _I, _P]
+            lib.muvo_dw_tc_limits.restype = _I
+            lib.muvo_zconv3d_dw_tc.restype = _I
         else:
             lib.muvo_zconv3d_dw_workspace.argtypes = [
                 _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_size_t)]
@@ -346,6 +355,144 @@ def _round_up(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
 
+# bf16 K3 / K3-up: tc::dw_tc_kernel in csrc/zconv_dw_tc.cu, the split-K
+# GEMM D[(t, c), co] += A[(t, c), p] B[p, co] over the output positions p.
+# Its plan is made here and passed in as the kernel's DwTcShape, whose
+# fields are these, in this order.
+DW_TC_FIELDS = (
+    "B", "X", "Y", "Zin", "Z", "C", "Cout", "cp8", "cs", "zp", "zh", "ty",
+    "nyt", "ntiles", "np", "mt", "mtiles", "mt0", "n0", "nwg", "grid",
+    "m_passes", "n_passes", "xvec", "gvec", "plane_bytes", "gbuf_bytes",
+    "smem_bytes")
+DW_TC_MAX_WARPGROUPS = 4
+DW_IMPL = {torch.bfloat16: "tc::dw_tc_kernel (csrc/zconv_dw_tc.cu)",
+           torch.float32: "dw_kernel (csrc/zconv_dw.cu)"}
+
+
+class _DwTcShape(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in DW_TC_FIELDS]
+
+
+def dw_tc_plan(B: int, X: int, Y: int, Zin: int, C: int, Cout: int,
+               up: bool, sms: int, smem_optin: int, xvec: bool = True,
+               gvec: bool = True) -> dict:
+    """The split of a bf16 K3 / K3-up call over the card, as the kernel
+    reads it (see the source note of csrc/zconv_dw_tc.cu).
+
+    GEMM rows: 27 taps x C rounded up to 8, then one row of ones (dbias),
+    in m64 tiles; a warpgroup holds ``mt`` of them (at most 4 for N <= 16,
+    else 2), a block ``nwg`` of 2-4 warpgroups, the pair that wastes the
+    fewest tiles (then two warpgroups, so that two blocks share an SM);
+    what one pass cannot hold takes more passes (also over 64-channel
+    slices of Cout > 64). Positions: z rounded up to 32 (an even number of
+    k16 steps), tiles of ``ty`` y rows (a power of two up to 16, cut until
+    two blocks of 2 warpgroups share an SM, or one block of 3-4 fits) of
+    one x row, x innermost; block i takes tiles
+    i * ntiles // grid .. (i + 1) * ntiles // grid - 1. ``xvec`` and
+    ``gvec`` say whether x allows 16-byte and g 4-byte loads. Raises
+    ValueError for a shape whose block does not fit ``smem_optin``."""
+    if min(B, X, Y, Zin, C, Cout) <= 0:
+        raise ValueError(f"empty shape {(B, X, Y, Zin, C, Cout)}")
+    Z = 2 * Zin if up else Zin
+    cp8 = _round_up(C, 8)
+    cs = cp8 if (cp8 // 8) % 2 else cp8 + 8
+    zp = _round_up(Z, 32)
+    np_ = next(n for n in (8, 16, 32, 64) if n >= min(Cout, 64))
+    mt_max = 4 if np_ <= 16 else 2
+    mtiles = -(-(27 * cp8 + 8) // 64)
+    if mtiles >= DW_TC_MAX_WARPGROUPS * mt_max:
+        nwg, mt = DW_TC_MAX_WARPGROUPS, mt_max
+    else:
+        nwg, mt = min(((w, m) for w in range(2, DW_TC_MAX_WARPGROUPS + 1)
+                       for m in range(1, mt_max + 1) if w * m >= mtiles),
+                      key=lambda wm: (wm[0] * wm[1], wm[0] != 2, wm[0]))
+    per_sm = 2 if nwg <= 2 else 1
+    cap = smem_optin // 2 - 1024 if per_sm == 2 else smem_optin
+
+    def sizes(ty):
+        plane = (ty + 2) * (zp + 2) * cs * 2
+        gbuf = _round_up(ty * zp // 8 * (np_ // 8), 4) * 128
+        return plane, gbuf, 128 + 2 * gbuf + 4 * plane
+
+    ty = 16
+    while ty > 1 and (ty // 2 >= Y or sizes(ty)[2] > cap):
+        ty //= 2
+    plane, gbuf, smem = sizes(ty)
+    if smem > smem_optin:
+        raise ValueError(f"bf16 dW kernel: z {Z} x {C} channels needs "
+                         f"{smem} bytes of shared memory a block, the card "
+                         f"allows {smem_optin}")
+    nyt = -(-Y // ty)
+    ntiles = B * nyt * X
+    if ntiles >= 2 ** 31:
+        raise ValueError(f"bf16 dW kernel: {ntiles} tiles")
+    return dict(B=B, X=X, Y=Y, Zin=Zin, Z=Z, C=C, Cout=Cout, cp8=cp8, cs=cs,
+                zp=zp, zh=zp + 2, ty=ty, nyt=nyt, ntiles=ntiles, np=np_,
+                mt=mt, mtiles=mtiles, mt0=0, n0=0, nwg=nwg,
+                grid=min(ntiles, per_sm * sms),
+                m_passes=-(-mtiles // (nwg * mt)),
+                n_passes=-(-Cout // np_), xvec=int(xvec and C % 8 == 0),
+                gvec=int(gvec and Cout % 2 == 0), plane_bytes=plane,
+                gbuf_bytes=gbuf, smem_bytes=smem)
+
+
+def dw_tc_tiles(plan: dict, block: int):
+    """(b, x, y0, y1) of each tile block ``block`` walks, in order: the
+    kernel's tile decode (x innermost, then y tiles, then batch)."""
+    n, grid = plan["ntiles"], plan["grid"]
+    tiles = []
+    for t in range(block * n // grid, (block + 1) * n // grid):
+        q, xi = divmod(t, plan["X"])
+        b, yt = divmod(q, plan["nyt"])
+        y0 = yt * plan["ty"]
+        tiles.append((b, xi, y0, min(y0 + plan["ty"], plan["Y"])))
+    return tiles
+
+
+def dw_tc_unpack(d, c: int, cout: int, with_bias: bool):
+    """The kernel's D, (passes, rows, N) fp32 (row t * cp8 + c, column
+    co - n0 of pass n0 / N; row 27 * cp8 is dbias), as dW (Cout, C, 3, 3,
+    3) and dbias (Cout,) (None without ``with_bias``)."""
+    passes, rows, n = d.shape
+    d = d.permute(1, 0, 2).reshape(rows, passes * n)
+    cp8 = _round_up(c, 8)
+    dw = d[:27 * cp8].reshape(3, 3, 3, cp8, passes * n)[..., :c, :cout]
+    db = d[27 * cp8, :cout].contiguous() if with_bias else None
+    return dw.permute(4, 3, 0, 1, 2).contiguous(), db
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_tc_limits(index: int):
+    sms, optin = _I(), _I()
+    with torch.cuda.device(index):
+        rc = _library("zconv_dw_tc").muvo_dw_tc_limits(ctypes.byref(sms),
+                                                      ctypes.byref(optin))
+    _raise_if(rc, "zconv_dw_tc", "K3")
+    return sms.value, optin.value
+
+
+def _dw_tc(x, g, mask, slope, with_bias: bool, up: bool):
+    b, X, Y, zin, c = x.shape
+    cout = g.shape[-1]
+    sms, optin = _dw_tc_limits(x.device.index or 0)
+    plan = dw_tc_plan(
+        b, X, Y, zin, c, cout, up, sms, optin,
+        xvec=x.data_ptr() % 16 == 0,
+        gvec=all(t.data_ptr() % 4 == 0 for t in (g, mask) if t is not None))
+    rows = plan["mtiles"] * 64
+    work = torch.empty(plan["grid"] * rows * plan["np"], dtype=torch.float32,
+                       device=x.device)
+    d = torch.empty((plan["n_passes"], rows, plan["np"]),
+                    dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _library("zconv_dw_tc").muvo_zconv3d_dw_tc(
+            x.data_ptr(), g.data_ptr(), _ptr(mask), float(slope or 0.0),
+            work.data_ptr(), d.data_ptr(), ctypes.byref(_DwTcShape(**plan)),
+            int(up), _stream(x))
+    _raise_if(rc, "zconv_dw_tc", "K3-up" if up else "K3")
+    return dw_tc_unpack(d, c, cout, with_bias)
+
+
 def _dw(x, g, out, slope, with_bias: bool, up: bool):
     if x.ndim != 5 or g.ndim != 5 or x.shape[:3] != g.shape[:3] or (
             g.shape[3] != (2 if up else 1) * x.shape[3]):
@@ -361,6 +508,12 @@ def _dw(x, g, out, slope, with_bias: bool, up: bool):
     if _check_device(x, g, mask):
         plain = upzconv3d_dw_plain if up else zconv3d_dw_plain
         return plain(x, g, out, slope, with_bias)
+    counted = upzconv3d_dw if up else zconv3d_dw
+    if x.dtype == torch.bfloat16:
+        result = _dw_tc(x, g, mask, slope, with_bias, up)
+        counted.launches += 1
+        counted.last_impl = DW_IMPL[x.dtype]
+        return result
     b, X, Y, zin, c = x.shape
     cout = g.shape[-1]
     cp, gp = _round_up(c, 4), _round_up(cout, 8)
@@ -380,7 +533,8 @@ def _dw(x, g, out, slope, with_bias: bool, up: bool):
             work.data_ptr(), dw.data_ptr(), _ptr(db), b, X, Y, zin, c, cout,
             int(up), _DTYPES[x.dtype], _stream(x))
     _raise_if(rc, "zconv_dw", "K3-up" if up else "K3")
-    (upzconv3d_dw if up else zconv3d_dw).launches += 1
+    counted.launches += 1
+    counted.last_impl = DW_IMPL[x.dtype]
     # (kx, ky, kz, C, Cout) -> upstream's (Cout, C, kx, ky, kz)
     dw = dw[..., :c, :cout].permute(4, 3, 0, 1, 2).contiguous()
     return dw, None if db is None else db[:cout].contiguous()
@@ -463,3 +617,6 @@ zconv3d_dx.launches = 0
 upzconv3d_dx.launches = 0
 zconv3d_dw.launches = 0
 upzconv3d_dw.launches = 0
+# the kernel the last launch of each dW wrapper ran (DW_IMPL's names)
+zconv3d_dw.last_impl = None
+upzconv3d_dw.last_impl = None

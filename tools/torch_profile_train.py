@@ -19,8 +19,9 @@ measures:
    kernels are named: zconv_kernel<T, false> is K1 and K1-dx (one kernel,
    launched on the flipped weights for dx), zconv_kernel<T, true> (fp32)
    and zconv_tc_kernel<N, K, false> (bf16) K2, zconv_dxup_kernel (fp32) and
-   zconv_tc_kernel<N, K, true> (bf16) K2-dx, dw_kernel<T, false, ...> K3,
-   dw_kernel<T, true, ...> K3-up, sum_rows_kernel K3's second pass,
+   zconv_tc_kernel<N, K, true> (bf16) K2-dx, dw_kernel<T, false, ...>
+   (fp32) and dw_tc_kernel<N, MT, false> (bf16) K3, dw_kernel<T, true, ...>
+   and dw_tc_kernel<N, MT, true> K3-up, sum_rows_kernel K3's second pass,
    flash_fwd_wgmma<D, true> (bf16) and flash_fwd_f32<D, true> K4,
    flash_bwd_wgmma<D> (bf16, with scale_q_kernel and flash_dq_flush_kernel,
    its first and last passes) and flash_bwd_kv_kernel<T, D, true> (fp32)
@@ -64,8 +65,10 @@ GROUPS = (
      r"zconv_kernel<.*, true>|zconv_tc_kernel<[^>]*false>"),
     ("K2-dx (zconv_dxup_kernel, bf16 zconv_tc_kernel<N, K, true>)",
      r"zconv_dxup_kernel|zconv_tc_kernel<[^>]*true>"),
-    ("K3 (dw_kernel<T, false, U>)", r"dw_kernel<[^,]*, false"),
-    ("K3-up (dw_kernel<T, true, U>)", r"dw_kernel<[^,]*, true"),
+    ("K3 (dw_kernel<T, false, U>, bf16 dw_tc_kernel<N, MT, false>)",
+     r"dw_kernel<[^,]*, false|dw_tc_kernel<[^>]*false>"),
+    ("K3-up (dw_kernel<T, true, U>, bf16 dw_tc_kernel<N, MT, true>)",
+     r"dw_kernel<[^,]*, true|dw_tc_kernel<[^>]*true>"),
     ("K3 second pass (sum_rows_kernel)", r"sum_rows_kernel"),
     ("cuDNN / cuBLAS convolutions and GEMMs",
      r"cudnn|xmma|gemm|cutlass|implicit_convolve|dgrad|wgrad|conv|"

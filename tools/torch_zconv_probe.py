@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""bf16 K2 and K2-dx (the tensor-core kernel on the small-z grid) on one GPU:
-right at the edges, then timed launch by launch at the voxel decoder's two
-K2 stages beside cuDNN.
+"""bf16 K2 and K2-dx (the tensor-core kernel on the small-z grid) and bf16 K3
+and K3-up (the split-K weight-gradient GEMM) on one GPU: right at the
+edges, then timed launch by launch at the voxel decoder's stages beside
+cuDNN.
 
     python3 tools/torch_zconv_probe.py [--iters 12] [--out PATH]
 
@@ -19,6 +20,17 @@ K2 stages beside cuDNN.
    aten.convolution_backward's input gradient over big z), with the bound
    (each input read and each output written once, over 3.35 TB/s, or the
    flops over 989 TFLOP/s).
+3. dw edges: K3 (zconv3d_dw) and K3-up (upzconv3d_dw) in bf16 against their
+   plain versions on the same bf16 inputs (dW and dbias, relative to max
+   |plain|, 2e-2), at C 3 and 40, Cout 12, no activation, X and Y that end
+   mid tile, Zs 1-3 and batch 1, each with a second launch that must give
+   the same bits, and the kernel the wrapper names.
+4. dw timing: each at batch 24 at its two stages (K3-up: conv2.conv1,
+   conv3.conv1; K3: conv2.conv2, conv3.conv2), --iters launches one event
+   apart, beside aten.convolution_backward's weight and bias gradient on
+   the same inputs and the bound (x, g and the forward output read once,
+   dW and dbias written once, over 3.35 TB/s), and the rate of the
+   kernel's m64 x k16 tensor-core products an SM (from its plan).
 
 Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
 mode.
@@ -54,6 +66,23 @@ EDGES = (("Zs1", (2, 5, 6, 1, 16), 8, True),
 STAGES = (("conv2.conv1", (96, 96, 16, 32), 16),
           ("conv3.conv1", (192, 192, 32, 16), 8))
 FWD_BATCH, BWD_BATCH = 5, 24
+# (label, kernel, input shape (B, X, Y, Z, C), Cout, activation); K3-up's z
+# is the small z
+DW_EDGES = (("c3_zs3", "K3-up", (1, 5, 7, 3, 3), 5, True),
+            ("c3", "K3", (1, 5, 7, 6, 3), 5, True),
+            ("c40_cout12", "K3-up", (1, 3, 4, 6, 40), 12, True),
+            ("c40_cout12", "K3", (1, 3, 4, 6, 40), 12, True),
+            ("no_act", "K3-up", (1, 4, 5, 16, 32), 16, False),
+            ("no_act", "K3", (1, 4, 5, 16, 32), 16, False),
+            ("zs1", "K3-up", (1, 11, 13, 1, 16), 8, True),
+            ("zs2_y_mid_tile", "K3-up", (1, 9, 6, 2, 16), 8, True),
+            ("xy_mid_tile", "K3", (1, 11, 13, 16, 16), 8, True),
+            ("z1", "K3", (2, 9, 7, 1, 8), 8, True))
+# (kernel, stage, input shape without batch, Cout)
+DW_STAGES = (("K3-up", "conv2.conv1", (96, 96, 16, 32), 16),
+             ("K3", "conv2.conv2", (96, 96, 32, 16), 16),
+             ("K3-up", "conv3.conv1", (192, 192, 32, 16), 8),
+             ("K3", "conv3.conv2", (192, 192, 64, 8), 8))
 
 
 def per_launch(fn, iters):
@@ -98,6 +127,94 @@ def ms_median(ms):
     return sorted(ms)[len(ms) // 2]
 
 
+CONV = dict(stride=[1, 1, 1], padding=[1, 1, 1], dilation=[1, 1, 1],
+            transposed=False, output_padding=[0, 0, 0], groups=1)
+
+
+def dw_fns(kid):
+    from muvo_tpu_torch.ops import zconv
+
+    if kid == "K3-up":
+        return (zconv.upzconv3d_leaky, zconv.upzconv3d_dw,
+                zconv.upzconv3d_dw_plain)
+    return zconv.zconv3d_leaky, zconv.zconv3d_dw, zconv.zconv3d_dw_plain
+
+
+def dw_edges(dev):
+    """Part 3: bf16 K3 / K3-up against their plain versions at the edges."""
+    edges, failed = [], []
+    for label, kid, shape, cout, act in DW_EDGES:
+        fwd, kern, plain = dw_fns(kid)
+        x, w, b, _ = inputs(dev, shape, cout)
+        slope = 0.2 if act else None
+        out = fwd(x, w, b if act else None, slope)
+        g = torch.randn(out.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(1)).to(torch.bfloat16)
+        dw, db = kern(x, g, out, slope, with_bias=act)
+        impl = kern.last_impl
+        dw2, db2 = kern(x, g, out, slope, with_bias=act)
+        want, db_want = plain(x, g, out, slope, act)
+        torch.cuda.synchronize()
+        same = torch.equal(dw, dw2) and (not act or torch.equal(db, db2))
+        row = {"case": label, "kernel": kid, "shape": list(shape),
+               "cout": cout, "act": act, "impl": impl, "dW": rel(dw, want),
+               "dbias": rel(db, db_want) if act else None,
+               "repeat_equal": same}
+        if not same:
+            failed.append(f"{kid} {label}: a second launch differs")
+        if not (row["dW"] <= TOL and (not act or row["dbias"] <= TOL)):
+            failed.append(f"{kid} {label}: {row['dW']} {row['dbias']}")
+        edges.append(row)
+        print(json.dumps(row), flush=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return edges
+
+
+def dw_timed(dev, iters):
+    """Part 4: bf16 K3 / K3-up per launch at batch 24 beside cuDNN."""
+    from muvo_tpu_torch.models.layers import to_nchw
+    from muvo_tpu_torch.ops import zconv
+
+    timed = []
+    for kid, stage, shape, cout in DW_STAGES:
+        fwd, kern, _ = dw_fns(kid)
+        x, w, b, _ = inputs(dev, (BWD_BATCH, *shape), cout, seed=2)
+        out = fwd(x, w, b, 0.2)
+        g = torch.randn(out.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(3)).to(torch.bfloat16)
+        gm = zconv.leaky_mask(g, out, 0.2)
+        xin = zconv.upsample2x_z(x) if kid == "K3-up" else x
+        runs = {kid: lambda: kern(x, g, out, 0.2),
+                "cudnn_" + kid: lambda: torch.ops.aten.convolution_backward(
+                    to_nchw(gm), to_nchw(xin), w, [cout], **CONV,
+                    output_mask=[False, True, True])}
+        nbytes = 2 * (x.numel() + g.numel() + out.numel()) + 4 * (
+            w.numel() + cout)
+        for name, fn in runs.items():
+            ms = per_launch(fn, iters)
+            row = {"run": name, "stage": stage, "batch": BWD_BATCH,
+                   "input": [BWD_BATCH, *shape], "cout": cout, "ms": ms,
+                   "ms_median": ms_median(ms)}
+            if name == kid:
+                row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+                row["impl"] = kern.last_impl
+                # the kernel's m64 x k16 wgmma products an SM a microsecond
+                sms, optin = zconv._dw_tc_limits(dev.index or 0)
+                plan = zconv.dw_tc_plan(*x.shape, cout, kid == "K3-up",
+                                        sms, optin)
+                products = (plan["nwg"] * plan["mt"] * plan["m_passes"]
+                            * plan["n_passes"] * plan["B"] * plan["X"]
+                            * plan["Y"] * plan["zp"] // 16)
+                row["products_per_sm_per_us"] = products / sms / (
+                    row["ms_median"] * 1e3)
+            timed.append(row)
+            print(json.dumps(row), flush=True)
+        del x, w, b, out, g, gm, xin, runs
+        torch.cuda.empty_cache()
+    return timed
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=12)
@@ -107,11 +224,28 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    result = {"device": torch.cuda.get_device_name(0)}
+    result["edges"], result["timed"] = k2_parts(dev, args.iters)
+    result["dw_edges"] = dw_edges(dev)
+    result["dw_timed"] = dw_timed(dev, args.iters)
+    result["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps({k: result[k] for k in ("device", "nvidia_smi")}))
+    return 0
+
+
+def k2_parts(dev, iters):
+    """Parts 1 and 2: bf16 K2 and K2-dx at the edges, then timed."""
     from muvo_tpu_torch.models.layers import to_nchw
     from muvo_tpu_torch.ops import zconv
 
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
     edges, failed = [], []
     for label, shape, cout, act in EDGES:
         x, w, b, g = inputs(dev, shape, cout)
@@ -139,8 +273,6 @@ def main(argv=None) -> int:
     if failed:
         raise AssertionError("; ".join(failed))
 
-    conv = dict(stride=[1, 1, 1], padding=[1, 1, 1], dilation=[1, 1, 1],
-                transposed=False, output_padding=[0, 0, 0], groups=1)
     timed = []
     for stage, shape, cout in STAGES:
         c = shape[-1]
@@ -162,13 +294,13 @@ def main(argv=None) -> int:
         xin = zconv.upsample2x_z(xb)
         runs["K2-dx"] = lambda: zconv.upzconv3d_dx(gb, outb, wb, 0.2)
         runs["cudnn_K2-dx"] = lambda: torch.ops.aten.convolution_backward(
-            to_nchw(gm), to_nchw(xin), wb, None, **conv,
+            to_nchw(gm), to_nchw(xin), wb, None, **CONV,
             output_mask=[True, False, False])
         nbytes = 2 * (gb.numel() + outb.numel() + wb.numel() + xb.numel())
         bounds["K2-dx"] = max(nbytes / HBM_BYTES_PER_S,
                               flops / FWD_BATCH * BWD_BATCH / BF16_FLOPS) * 1e3
         for name, fn in runs.items():
-            ms = per_launch(fn, args.iters)
+            ms = per_launch(fn, iters)
             kid = name.replace("cudnn_", "")
             batch = FWD_BATCH if kid == "K2" else BWD_BATCH
             row = {"run": name, "stage": stage, "batch": batch,
@@ -180,16 +312,7 @@ def main(argv=None) -> int:
             print(json.dumps(row), flush=True)
         del x, w, b, out, xb, wb, bb, gb, outb, gm, xin, runs
         torch.cuda.empty_cache()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()[0]
-    result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "edges": edges, "timed": timed}
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(result, indent=1))
-    print(json.dumps({k: result[k] for k in ("device", "nvidia_smi")}))
-    return 0
+    return edges, timed
 
 
 if __name__ == "__main__":
