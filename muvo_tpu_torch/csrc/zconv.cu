@@ -40,35 +40,46 @@
 // while writing, so the big-z dx never exists in device memory either.
 // The channel stride of the tile is odd, so neighbouring threads
 // (neighbouring z) read distinct banks. That CUDA-core design stays for
-// fp32 (K1, K2, K1-dx, K2-dx) and for bf16 K1 and K1-dx.
+// fp32 (K1, K2, K1-dx, K2-dx), the serving path's type, and for bf16 K1 and
+// K1-dx past 64 channels (ops/zconv.py::k1_route), which no model shape
+// reaches.
 //
-// bf16 K2 and K2-dx: zconv_tc_kernel, an implicit GEMM on the tensor cores
-// (wgmma) over the small-z grid, computing the same function as the TPU
-// kernel's banded z-block weights (pallas_zconv.py::up_banded_weight,
-// up_banded_adjoint_weight) without its lane layout. K2's output
-// (B, X, Y, 2 Zs, Cout) is byte for byte (B, X, Y, Zs, 2 Cout), output
-// channel p Cout + co for big z = 2k + p, and that is a 3x3x3 SAME conv of
-// the small-z input with folded weights (ops/zconv.py::up_fold_weights)
-// plus two centre-tap terms at the first and last small slice; K2-dx is
-// the same conv structure over the masked cotangent viewed as
-// (B, X, Y, Zs, 2 Cout) with the adjoint fold. So neither the upsampled
-// input nor a big-z gradient exists anywhere, and each small-z voxel is
-// read once per block. GEMM: M = output voxels of the small-z grid in
-// 64-row tiles (one per consumer warpgroup at a time), N = the view's
-// output channels (2 Cout or C, padded to 16), K = 27 taps x the view's
-// input channels (padded to 16), plus 2 x 9 edge taps. The folded weights
-// live in shared memory for the whole block as bf16 in wgmma's K-major
-// no-swizzle layout (8 x 16-byte core matrices); A comes from registers,
-// gathered with ldmatrix out of a haloed bf16 x-plane (zero outside the
-// volume), the row addresses making the im2col implicit. A block walks xs
-// x rows with a ring of four planes, three in use and the next one
-// arriving by cp.async (zero-fill for the halo), so each input plane is
-// staged once per block. K2-dx applies the leaky mask while staging (g and
-// the forward output read once). The edge taps reuse the centre tap's A
-// fragments with the rows that are not at the edge zeroed. Epilogue: bias
-// and LeakyReLU (forward), fp32 -> bf16. Bound at the decoder's shapes:
-// bytes (about 4 flops per byte at N = 32); the MMAs are far below the
-// tensor cores' rate.
+// bf16 K1, K2, K1-dx and K2-dx: zconv_tc_kernel<NP, KS, EDGES, DX>, an
+// implicit GEMM on the tensor cores (wgmma) over a view of the volume with
+// the same bytes, (B, X, Y, Zs, Kc) -> (B, X, Y, Zs, N), that the wrapper
+// picks:
+//   K2, K2-dx (EDGES): the small-z grid. K2's output (B, X, Y, 2 Zs, Cout)
+//     is byte for byte (B, X, Y, Zs, 2 Cout), output channel p Cout + co
+//     for big z = 2k + p, and that is a 3x3x3 SAME conv of the small-z
+//     input with folded weights (ops/zconv.py::up_fold_weights) plus two
+//     centre-tap terms at the first and last small slice; K2-dx is the same
+//     conv structure over the masked cotangent viewed as (B, X, Y, Zs,
+//     2 Cout) with the adjoint fold. The same function as the TPU kernel's
+//     banded z-block weights (pallas_zconv.py::up_banded_weight,
+//     up_banded_adjoint_weight) without its lane layout: neither the
+//     upsampled input nor a big-z gradient exists anywhere.
+//   K1, K1-dx (no edge terms): the plain view (Zs = Z, Kc = C, N = Cout),
+//     or, where 8 channels would leave a k16 x n16 product mostly empty,
+//     the pair view: z pairs folded into channels, (B, X, Y, Z / 2, 2 C)
+//     -> (B, X, Y, Z / 2, 2 Cout), a 3x3x3 SAME conv with the weights of
+//     ops/zconv.py::pair_fold_weights (the TPU kernel's banded_weight with
+//     f = 2; exact for even Z, no edge terms). K1-dx is K1 on the masked
+//     cotangent with the flipped, transposed kernel.
+// GEMM: M = output voxels of the view in 64-row tiles (one per consumer
+// warpgroup at a time), N = the view's output channels (padded to 16), K =
+// 27 taps x the view's input channels (padded to 16), plus 2 x 9 edge taps
+// for EDGES. The weights live in shared memory for the whole block as bf16
+// in wgmma's K-major no-swizzle layout (8 x 16-byte core matrices); A comes
+// from registers, gathered with ldmatrix out of a haloed bf16 x-plane (zero
+// outside the volume), the row addresses making the im2col implicit. A
+// block walks xs x rows with a ring of four planes, three in use and the
+// next one arriving by cp.async (zero-fill for the halo), so each input
+// plane is staged once per block. DX applies the leaky mask while staging
+// (g and the forward output read once). The edge taps reuse the centre
+// tap's A fragments with the rows that are not at the edge zeroed.
+// Epilogue: bias (output channel n takes bias[n % Cb]) and LeakyReLU
+// (forward), fp32 -> bf16. Bound at the decoder's shapes: bytes (about 4
+// flops per byte at N = 32); the MMAs are far below the tensor cores' rate.
 
 #include <algorithm>
 
@@ -333,7 +344,7 @@ cudaError_t launch_dxup(const void* g, const void* mask, float mslope,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// bf16 K2 and K2-dx on the tensor cores (see the header)
+// bf16 K1, K2, K1-dx and K2-dx on the tensor cores (see the header)
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -348,22 +359,23 @@ constexpr int kMaxThreads = 384;
 constexpr int kPlanes = 4;  // x-plane ring: three in use, one arriving
 
 struct TcShape {
-  int B, X, Y, Zs;  // the small-z grid
+  int B, X, Y, Zs;  // the view's grid
   int Kc, N;        // input and output channels of the views
   int Cb;           // bias period: output channel n takes bias[n % Cb]
-  int edges;        // centre-tap edge terms at k = 0 and k = Zs - 1
   int ty, xs;       // y rows and x rows of a block
   int vec;          // 16-byte staging (Kc % 8 == 0, aligned tensors)
 };
 
-__host__ __device__ inline int taps(const TcShape& s) {
-  return 27 + 18 * s.edges;
+// taps with weights in shared memory: 27, and with the edge terms (K2,
+// K2-dx) 2 x 9 more at k = 0 and k = Zs - 1
+__host__ __device__ constexpr int taps(bool edges) {
+  return edges ? 45 : 27;
 }
 __host__ __device__ inline int plane_elems(const TcShape& s, int ks) {
   return (s.ty + 2) * (s.Zs + 2) * (ks * 16 + 8);  // +8: conflict-free rows
 }
-inline size_t tc_smem_bytes(const TcShape& s, int ks, int np) {
-  return (size_t)taps(s) * ks * np * 32 +
+inline size_t tc_smem_bytes(const TcShape& s, int ks, int np, bool edges) {
+  return (size_t)taps(edges) * ks * np * 32 +
          (size_t)kPlanes * plane_elems(s, ks) * sizeof(bf16);
 }
 
@@ -473,8 +485,9 @@ __device__ __forceinline__ void stage_plane(bf16* dst,
 }
 
 // One block: output x rows x0 .. x0 + xs - 1, y rows y0 .. y0 + ty - 1, all
-// Zs, all N channels, of batch b. Output rows r = (y - y0) Zs + k.
-template <int NP, int KS, bool DX>
+// Zs, all N channels, of batch b. Output rows r = (y - y0) Zs + k. EDGES:
+// K2's and K2-dx's centre-tap edge terms.
+template <int NP, int KS, bool EDGES, bool DX>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     zconv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ mask,
                     float mslope, const float* __restrict__ w,
@@ -482,8 +495,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                     TcShape s, int has_act, float slope) {
   constexpr int KP = KS * 16, VS = KP + 8;
   constexpr int kBStep = NP * 32;  // bytes of B per k16 step
+  constexpr int ntaps = taps(EDGES);
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  const int ntaps = taps(s);
   bf16* planes =
       reinterpret_cast<bf16*>(tc_smem + (size_t)ntaps * KS * kBStep);
   const int ZH = s.Zs + 2, plane = plane_elems(s, KS);
@@ -548,8 +561,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = rg + 8 * h, k = row % s.Zs;
-        e0[h] = s.edges && row < rows && k == 0;
-        e1[h] = s.edges && row < rows && k == s.Zs - 1;
+        e0[h] = EDGES && row < rows && k == 0;
+        e1[h] = EDGES && row < rows && k == s.Zs - 1;
       }
       float acc[NP / 2];
 #pragma unroll
@@ -562,7 +575,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         if (tap >= 2) {  // the group that read this buffer is done
           wgmma::wait<1>();
           wgmma::fence_operands(fa[buf]);
-          wgmma::fence_operands(fe[buf]);
+          if (EDGES) wgmma::fence_operands(fe[buf]);
         }
         const uint32_t addr =
             pbase + ((xo + kx - x0) % kPlanes) * plane * 2 + a_off +
@@ -570,7 +583,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks)
           ldmatrix_x4(fa[buf][ks], addr + ks * 32);
-        if (kz == 1 && s.edges) {
+        if (EDGES && kz == 1) {
 #pragma unroll
           for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
@@ -585,7 +598,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
           wgmma::wgmma_rs<NP, 0>(
               acc, fa[buf][ks],
               kmajor_desc(bbase + (tap * KS + ks) * kBStep), 1);
-        if (kz == 1 && s.edges) {
+        if (EDGES && kz == 1) {
           const int e = kx * 3 + ky;
 #pragma unroll
           for (int ks = 0; ks < KS; ++ks) {
@@ -603,8 +616,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       wgmma::fence_operands(acc);
       wgmma::fence_operands(fa[0]);
       wgmma::fence_operands(fa[1]);
-      wgmma::fence_operands(fe[0]);
-      wgmma::fence_operands(fe[1]);
+      if (EDGES) {
+        wgmma::fence_operands(fe[0]);
+        wgmma::fence_operands(fe[1]);
+      }
 
       // epilogue: d[4i + 2h], d[4i + 2h + 1] are row rg + 8h, columns
       // 8i + 2(lane % 4) + {0, 1}
@@ -643,12 +658,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
 }
 
-template <int NP, int KS, bool DX>
+template <int NP, int KS, bool EDGES, bool DX>
 cudaError_t launch_tc_t(const void* x, const void* mask, float mslope,
                         const float* w, const float* bias, void* out,
                         TcShape s, int has_act, float slope,
                         cudaStream_t stream) {
-  auto kernel = zconv_tc_kernel<NP, KS, DX>;
+  auto kernel = zconv_tc_kernel<NP, KS, EDGES, DX>;
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -662,20 +677,21 @@ cudaError_t launch_tc_t(const void* x, const void* mask, float mslope,
   auto shape_for = [&](int nwg, int xs) {
     TcShape t = s;
     t.ty = std::min(s.Y, (64 * nwg + s.Zs - 1) / s.Zs);
-    while (t.ty > 1 && tc_smem_bytes(t, KS, NP) > (size_t)optin) --t.ty;
+    while (t.ty > 1 && tc_smem_bytes(t, KS, NP, EDGES) > (size_t)optin)
+      --t.ty;
     t.xs = std::min(s.X, xs);
     return t;
   };
   int nwg = 2, blocks = 0;
   s = shape_for(2, 16);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kernel, 256, tc_smem_bytes(s, KS, NP));
+      &blocks, kernel, 256, tc_smem_bytes(s, KS, NP, EDGES));
   if (err != cudaSuccess) return err;
   if (blocks < 2) {
     nwg = 3;
     s = shape_for(3, 8);
   }
-  const size_t smem = tc_smem_bytes(s, KS, NP);
+  const size_t smem = tc_smem_bytes(s, KS, NP, EDGES);
   if (smem > (size_t)optin) return cudaErrorInvalidValue;
   dim3 grid((s.Y + s.ty - 1) / s.ty, (s.X + s.xs - 1) / s.xs, s.B);
   kernel<<<grid, 128 * nwg, smem, stream>>>(
@@ -686,7 +702,7 @@ cudaError_t launch_tc_t(const void* x, const void* mask, float mslope,
 
 // Kc <= 64 and N <= 64 (four k16 steps a tap, m64n64); the tile height is
 // cut until the block fits the card's shared memory
-template <bool DX>
+template <bool EDGES, bool DX>
 cudaError_t launch_tc(const void* x, const void* mask, float mslope,
                       const float* w, const float* bias, void* out, TcShape s,
                       int has_act, float slope, cudaStream_t stream) {
@@ -695,8 +711,8 @@ cudaError_t launch_tc(const void* x, const void* mask, float mslope,
   s.vec = s.vec && s.Kc % 8 == 0;
 #define MUVO_TC_CASE(NP_, KS_)                                            \
   if (np == NP_ && ks == KS_)                                             \
-    return launch_tc_t<NP_, KS_, DX>(x, mask, mslope, w, bias, out, s,    \
-                                     has_act, slope, stream);
+    return launch_tc_t<NP_, KS_, EDGES, DX>(x, mask, mslope, w, bias, out, \
+                                            s, has_act, slope, stream);
   MUVO_TC_CASE(16, 1) MUVO_TC_CASE(16, 2) MUVO_TC_CASE(16, 3)
   MUVO_TC_CASE(16, 4) MUVO_TC_CASE(32, 1) MUVO_TC_CASE(32, 2)
   MUVO_TC_CASE(32, 3) MUVO_TC_CASE(32, 4) MUVO_TC_CASE(48, 1)
@@ -725,24 +741,17 @@ bool bad_dims(int B, int X, int Y, int Z, int C, int Cout, int dtype) {
 // Plain C interface, called through ctypes. dtype: 0 = fp32, 1 = bf16.
 // Each returns a cudaError_t; nonzero means the kernel did not launch.
 
-// K1 / K2. up: 0 = K1 (Z = Zin), 1 = K2 (Z = 2 * Zin). bias may be null.
-// w is (kx, ky, kz, C, Cout) in fp32, except for bf16 K2 (zconv_tc_kernel),
-// which takes up_fold_weights(weight): main then edges, fp32.
+// K1 / K2 on the CUDA cores: fp32 K1 and K2, and bf16 K1 (up 0) past 64
+// channels. up: 0 = K1 (Z = Zin), 1 = K2 (Z = 2 * Zin). w is (kx, ky, kz,
+// C, Cout) in fp32; bias may be null.
 extern "C" int muvo_zconv3d_leaky(const void* x, const float* w,
                                   const float* bias, void* out, int B, int X,
                                   int Y, int Zin, int C, int Cout, int up,
                                   int has_act, float slope, int dtype,
                                   void* stream) {
-  if (bad_dims(B, X, Y, Zin, C, Cout, dtype))
-    return (int)cudaErrorInvalidValue;
+  if (bad_dims(B, X, Y, Zin, C, Cout, dtype) || (up && dtype == 1))
+    return (int)cudaErrorInvalidValue;  // bf16 K2: muvo_zconv3d_tc
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (up && dtype == 1) {
-    // w: up_fold_weights' (3, 3, 3, C, 2 Cout) then (2, 3, 3, C, 2 Cout)
-    tc::TcShape t{B, X, Y, Zin, C, 2 * Cout, Cout, 1, 0, 0,
-                  tc::aligned16(x)};
-    return (int)tc::launch_tc<false>(x, nullptr, 0.f, w, bias, out, t,
-                                     has_act, slope, st);
-  }
   Shape s{B, X, Y, Zin, up ? 2 * Zin : Zin, C, Cout, 16,
           (C % 2 == 0) ? C + 1 : C, round_up(Cout, kCoChunk), 0};
   if (!pick_ty(s)) return (int)cudaErrorInvalidValue;
@@ -755,27 +764,19 @@ extern "C" int muvo_zconv3d_leaky(const void* x, const float* w,
                                            has_act, slope, st);
 }
 
-// K1-dx / K2-dx. g and mask (the forward output; null without activation)
-// are (B, X, Y, Z, Cg); w_adj is the flipped, transposed kernel
-// (kx, ky, kz, Cg, C) in fp32, except for bf16 K2-dx (zconv_tc_kernel),
-// which takes up_fold_weights(weight, adjoint=True): main then edges; dx is
-// (B, X, Y, Z, C) for K1-dx (up 0) and (B, X, Y, Z / 2, C) for K2-dx (up 1,
-// Z even).
+// K1-dx / K2-dx on the CUDA cores: fp32 K1-dx and K2-dx, and bf16 K1-dx
+// (up 0) past 64 channels. g and mask (the forward output; null without
+// activation) are (B, X, Y, Z, Cg); w_adj is the flipped, transposed kernel
+// (kx, ky, kz, Cg, C) in fp32; dx is (B, X, Y, Z, C) for K1-dx (up 0) and
+// (B, X, Y, Z / 2, C) for K2-dx (up 1, Z even).
 extern "C" int muvo_zconv3d_dx(const void* g, const void* mask, float slope,
                                const float* w_adj, void* dx, int B, int X,
                                int Y, int Z, int Cg, int C, int up, int dtype,
                                void* stream) {
-  if (bad_dims(B, X, Y, Z, Cg, C, dtype) || (up && Z % 2 != 0))
-    return (int)cudaErrorInvalidValue;
+  if (bad_dims(B, X, Y, Z, Cg, C, dtype) || (up && Z % 2 != 0) ||
+      (up && dtype == 1))
+    return (int)cudaErrorInvalidValue;  // bf16 K2-dx: muvo_zconv3d_tc
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (up && dtype == 1) {
-    // g and mask viewed as (B, X, Y, Z / 2, 2 Cg); w_adj: up_fold_weights'
-    // adjoint (3, 3, 3, 2 Cg, C) then (2, 3, 3, 2 Cg, C)
-    tc::TcShape t{B, X, Y, Z / 2, 2 * Cg, C, C, 1, 0, 0,
-                  tc::aligned16(g) && tc::aligned16(mask)};
-    return (int)tc::launch_tc<true>(g, mask, slope, w_adj, nullptr, dx, t, 0,
-                                    0.f, st);
-  }
   Shape s{B, X, Y, Z, Z, Cg, C, 16, (Cg % 2 == 0) ? Cg + 1 : Cg,
           round_up(C, kCoChunk), up};
   if (!pick_ty(s)) return (int)cudaErrorInvalidValue;
@@ -785,6 +786,40 @@ extern "C" int muvo_zconv3d_dx(const void* g, const void* mask, float slope,
                           : launch<__nv_bfloat16, false>(
                                 g, mask, slope, w_adj, nullptr, dx, s, 0, 0.f,
                                 st));
+}
+
+// bf16 K1, K2, K1-dx and K2-dx on the tensor cores (zconv_tc_kernel): the
+// 3x3x3 SAME conv of x viewed as (B, X, Y, Zs, Kc) into out viewed as
+// (B, X, Y, Zs, N), Kc and N at most 64. w is the view's weights
+// (kx, ky, t, Kc, N) in fp32, followed for edges (K2, K2-dx) by the
+// centre-tap edge terms (2, 3, 3, Kc, N): ops/zconv.py's pair_fold_weights,
+// up_fold_weights or the plain kernel. dx (K1-dx, K2-dx): x is the
+// cotangent, masked while staging by mask (the forward output, viewed as x;
+// null without activation) with slope mslope; no bias or activation.
+// Otherwise output channel n takes bias[n % Cb] (bias may be null), then
+// LeakyReLU with slope when has_act.
+extern "C" int muvo_zconv3d_tc(const void* x, const void* mask, float mslope,
+                               const float* w, const float* bias, void* out,
+                               int B, int X, int Y, int Zs, int Kc, int N,
+                               int Cb, int edges, int dx, int has_act,
+                               float slope, void* stream) {
+  if (bad_dims(B, X, Y, Zs, Kc, N, 1) || Cb <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  tc::TcShape t{B, X, Y, Zs, Kc, N, Cb, 0, 0,
+                tc::aligned16(x) && tc::aligned16(mask)};
+  if (dx)
+    return (int)(edges ? tc::launch_tc<true, true>(x, mask, mslope, w,
+                                                   nullptr, out, t, 0, 0.f,
+                                                   st)
+                       : tc::launch_tc<false, true>(x, mask, mslope, w,
+                                                    nullptr, out, t, 0, 0.f,
+                                                    st));
+  return (int)(edges ? tc::launch_tc<true, false>(x, nullptr, 0.f, w, bias,
+                                                  out, t, has_act, slope, st)
+                     : tc::launch_tc<false, false>(x, nullptr, 0.f, w, bias,
+                                                   out, t, has_act, slope,
+                                                   st));
 }
 
 extern "C" const char* muvo_cuda_error_string(int code) {

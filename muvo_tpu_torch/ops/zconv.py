@@ -3,6 +3,10 @@ plain versions (the port of muvo_tpu/ops/pallas_zconv.py).
 
 K1 ``zconv3d_leaky``: LeakyReLU(conv3d 3x3x3 SAME stride 1 + bias).
     Replaces pallas_zconv.py::_zconv_pallas_raw via zconv3d_leaky_folded.
+    In bf16 a tensor-core kernel computes it on the view ``k1_route``
+    picks: the volume as it is, or with z pairs folded into channels
+    (``pair_fold_weights``) where 8 channels would leave its products
+    mostly empty; in fp32 a CUDA-core kernel.
 K2 ``upzconv3d_leaky``: LeakyReLU(conv3d(2x linear z-upsample of x) + bias),
     x already upsampled in X and Y. Replaces the same Pallas kernel via
     upzconv3d_leaky_folded; like it, the upsampled tensor never exists in
@@ -10,7 +14,8 @@ K2 ``upzconv3d_leaky``: LeakyReLU(conv3d(2x linear z-upsample of x) + bias),
     tile; in bf16 a tensor-core kernel computes on the small-z grid with
     the upsample folded into the weights (``up_fold_weights``).
 K1-dx ``zconv3d_dx``: K1's input gradient, the conv of the leaky-masked
-    cotangent with the flipped, transposed kernel (_vjp_bwd's dx).
+    cotangent with the flipped, transposed kernel (_vjp_bwd's dx); routed
+    as K1, on the flipped, transposed kernel.
 K2-dx ``upzconv3d_dx``: K2's input gradient, that adjoint conv over big z
     followed by the z-upsample's transpose, back to small z, in one kernel
     (_up_vjp_bwd's dx); in bf16 the adjoint fold on the small-z grid.
@@ -24,8 +29,9 @@ Tensors are channels-last NDHWC; weights are upstream's Conv3d layout
 (Cout, C, 3, 3, 3). On a CPU tensor each wrapper runs its plain PyTorch
 version; on a CUDA tensor it launches the hand-written kernel in
 csrc/zconv.cu, csrc/zconv_dw.cu or csrc/zconv_dw_tc.cu (route: CUDA C++
-for sm_90a, plain C interface, ctypes) or raises. What bounds the kernels
-and how they are built is noted in the sources.
+for sm_90a, plain C interface, ctypes) or raises, and names the kernel
+(and the view) it ran in its ``last_impl``. What bounds the kernels and how
+they are built is noted in the sources.
 
 Under autograd, K1 and K2 run inside ``torch.autograd.Function``s whose
 backward calls the dx and dW wrappers (kernels on the card, plain versions
@@ -37,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -65,8 +71,12 @@ def _library(name: str):
             lib.muvo_zconv3d_dx.argtypes = [
                 _P, _P, ctypes.c_float, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                 _I, _P]
+            lib.muvo_zconv3d_tc.argtypes = [
+                _P, _P, ctypes.c_float, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                _I, _I, _I, _I, ctypes.c_float, _P]
             lib.muvo_zconv3d_leaky.restype = _I
             lib.muvo_zconv3d_dx.restype = _I
+            lib.muvo_zconv3d_tc.restype = _I
         elif name == "zconv_dw_tc":
             lib.muvo_dw_tc_limits.argtypes = [ctypes.POINTER(_I)] * 2
             lib.muvo_zconv3d_dw_tc.argtypes = [
@@ -209,6 +219,77 @@ def up_fold_weights(weight, adjoint: bool = False):
     return main.contiguous(), edges.contiguous()
 
 
+# K1 on the pair grid: (B, X, Y, Z, C) viewed as (B, X, Y, Z / 2, 2 C),
+# channel q C + c holding big z = 2k + q of slice k, and the output as
+# (B, X, Y, Z / 2, 2 Cout), channel p Cout + co. Output z 2k + p reads input
+# z 2k + p + dz - 1, which is slice k - 1 + t at q for dz = 2t + q - p - 1,
+# so the pair grid's 3x3x3 SAME conv has the weights
+#   W'[kx, ky, t][(q, c), (p, co)] = w[kx, ky, 2t + q - p - 1, c, co],
+# zero where that dz is outside 0..2; SAME zero padding is exact for even Z
+# (a pair is in or out of the volume whole). PAIR_FOLD_DZ[t][q][p] is that
+# dz, 3 where there is none. The nonzero blocks are muvo_tpu's
+# banded_weight(kernel, f=2) (pallas_zconv.py), the TPU kernel's z block.
+PAIR_FOLD_DZ = (((3, 3), (0, 3)), ((1, 0), (2, 1)), ((3, 2), (3, 3)))
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_index(device):
+    """PAIR_FOLD_DZ flattened, on ``device``, made once."""
+    return torch.tensor(PAIR_FOLD_DZ, dtype=torch.long,
+                        device=device).reshape(-1)
+
+
+def pair_fold_weights(w):
+    """(3, 3, 3, C, Cout) weights in (kx, ky, kz, input, output channel)
+    order -> the pair grid's (3, 3, 3, 2 C, 2 Cout), fp32 (see above).
+
+    K1's weights give K1 on the pair grid; K1-dx's flipped, transposed
+    weights give K1-dx there (it is a SAME conv of the masked cotangent)."""
+    w = w.detach().float()
+    c, cout = w.shape[3], w.shape[4]
+    wz = torch.cat([w, w.new_zeros((3, 3, 1, c, cout))], 2)  # dz 3: zero
+    f = wz.index_select(2, _pair_index(w.device))  # (3, 3, (t, q, p), ...)
+    f = f.reshape(3, 3, 3, 2, 2, c, cout).permute(0, 1, 2, 3, 5, 4, 6)
+    return f.reshape(3, 3, 3, 2 * c, 2 * cout)
+
+
+class TcView(NamedTuple):
+    """The volume as the bf16 tensor-core kernel computes on it: input
+    (B, X, Y, zs, kc), output (B, X, Y, zs, n), the same bytes as the
+    channels-last tensors."""
+    name: str  # "plain", "pair" (K1, K1-dx) or "small-z" (K2, K2-dx)
+    zs: int
+    kc: int
+    n: int
+
+
+TC_MAX_CHANNELS = 64  # the kernel's Kc and N (four k16 steps, m64n64)
+
+
+def k1_route(z: int, c: int, cout: int) -> Optional[TcView]:
+    """The view bf16 K1 (and K1-dx, as c -> cout) runs on: the pair view
+    where z is even and 8 channels would leave a k16 x n16 product mostly
+    empty (c or cout below 16), the plain view otherwise; None (the
+    CUDA-core zconv_kernel<bf16, false>) past TC_MAX_CHANNELS."""
+    if z % 2 == 0 and min(c, cout) < 16 and (
+            2 * max(c, cout) <= TC_MAX_CHANNELS):
+        return TcView("pair", z // 2, 2 * c, 2 * cout)
+    if max(c, cout) <= TC_MAX_CHANNELS:
+        return TcView("plain", z, c, cout)
+    return None
+
+
+def _impl(view: Optional[TcView], dtype, up: bool, dx: bool) -> str:
+    """The name ``last_impl`` gives the kernel that ran."""
+    if view is not None:
+        return (f"tc::zconv_tc_kernel, {view.name} view (Zs {view.zs}, "
+                f"Kc {view.kc}, N {view.n})")
+    if up and dx:
+        return "zconv_dxup_kernel<float>"
+    t = "float" if dtype == torch.float32 else "bf16"
+    return f"zconv_kernel<{t}, {'true' if up else 'false'}>"
+
+
 def _dw_plain(xin, g, out, cout_c, slope, with_bias: bool):
     gm = leaky_mask(g, out, slope)
     dw = torch.nn.grad.conv3d_weight(to_nchw(xin), cout_c, to_nchw(gm),
@@ -269,34 +350,73 @@ def _check_device(*tensors):
     return dev.type == "cpu"
 
 
+def _kkkcn(weight, adjoint: bool = False):
+    """(Cout, C, kx, ky, kz) -> (kx, ky, kz, C, Cout), fp32; ``adjoint``:
+    flipped in space, C <-> Cout, (kx, ky, kz, Cout, C)."""
+    w = weight.detach().float()
+    if adjoint:
+        return w.flip(2, 3, 4).permute(2, 3, 4, 0, 1).contiguous()
+    return w.permute(2, 3, 4, 1, 0).contiguous()
+
+
+def _tc_weights(weight, view: TcView, adjoint: bool):
+    """The weights zconv_tc_kernel reads for ``view``, flat, fp32."""
+    if view.name == "small-z":  # main then edges
+        return torch.cat([t.reshape(-1) for t in
+                          up_fold_weights(weight, adjoint=adjoint)])
+    w = _kkkcn(weight, adjoint)
+    return pair_fold_weights(w) if view.name == "pair" else w
+
+
+def _launch_tc(x, mask, mslope, w, bias32, out, view: TcView, cb: int,
+               dx: bool, slope, what: str):
+    b, X, Y = x.shape[:3]
+    with torch.cuda.device(x.device):
+        rc = _library("zconv").muvo_zconv3d_tc(
+            x.data_ptr(), _ptr(mask), float(mslope or 0.0), w.data_ptr(),
+            _ptr(bias32), out.data_ptr(), b, X, Y, view.zs, view.kc, view.n,
+            cb, int(view.name == "small-z"), int(dx), int(slope is not None),
+            float(slope or 0.0), _stream(x))
+    _raise_if(rc, "zconv", what)
+
+
 def _launch(x, weight, bias, slope, up: bool):
+    """The forward kernel; returns the output and the kernel's name."""
     b, X, Y, zin, c = x.shape
     cout = weight.shape[0]
     z = 2 * zin if up else zin
     out = torch.empty((b, X, Y, z, cout), dtype=x.dtype, device=x.device)
-    if up and x.dtype == torch.bfloat16:  # zconv_tc_kernel: the small-z fold
-        w = torch.cat([t.reshape(-1) for t in up_fold_weights(weight)])
-    else:  # (Cout, C, kx, ky, kz) -> (kx, ky, kz, C, Cout), fp32
-        w = weight.detach().float().permute(2, 3, 4, 1, 0).contiguous()
     bias32 = None if bias is None else bias.detach().float().contiguous()
-    with torch.cuda.device(x.device):
-        rc = _library("zconv").muvo_zconv3d_leaky(
-            x.data_ptr(), w.data_ptr(), _ptr(bias32), out.data_ptr(),
-            b, X, Y, zin, c, cout, int(up), int(slope is not None),
-            float(slope or 0.0), _DTYPES[x.dtype], _stream(x))
-    _raise_if(rc, "zconv", "K2" if up else "K1")
-    return out
+    what = "K2" if up else "K1"
+    view = None
+    if x.dtype == torch.bfloat16:
+        view = (TcView("small-z", zin, c, 2 * cout) if up
+                else k1_route(z, c, cout))
+    if view is not None:
+        _launch_tc(x, None, None, _tc_weights(weight, view, False), bias32,
+                   out, view, cout, False, slope, what)
+    else:
+        w = _kkkcn(weight)
+        with torch.cuda.device(x.device):
+            rc = _library("zconv").muvo_zconv3d_leaky(
+                x.data_ptr(), w.data_ptr(), _ptr(bias32), out.data_ptr(),
+                b, X, Y, zin, c, cout, int(up), int(slope is not None),
+                float(slope or 0.0), _DTYPES[x.dtype], _stream(x))
+        _raise_if(rc, "zconv", what)
+    return out, _impl(view, x.dtype, up, False)
 
 
 def _forward(x, weight, bias, slope, up: bool):
     """K1 / K2 with no autograd: the plain version on the CPU, the kernel
-    (counted) on the card."""
+    (counted, named in ``last_impl``) on the card."""
     _check(x, weight, bias)
     if _check_device(x, weight, bias):
         plain = upzconv3d_leaky_plain if up else zconv3d_leaky_plain
         return plain(x, weight, bias, slope)
-    out = _launch(x, weight, bias, slope, up)
-    (upzconv3d_leaky if up else zconv3d_leaky).launches += 1
+    out, impl = _launch(x, weight, bias, slope, up)
+    counted = upzconv3d_leaky if up else zconv3d_leaky
+    counted.launches += 1
+    counted.last_impl = impl
     return out
 
 
@@ -319,20 +439,26 @@ def _dx(g, out, weight, slope, up: bool):
     c = weight.shape[1]
     dx = torch.empty((b, X, Y, z // 2 if up else z, c), dtype=g.dtype,
                      device=g.device)
-    if up and g.dtype == torch.bfloat16:  # zconv_tc_kernel: adjoint fold
-        w_adj = torch.cat([t.reshape(-1) for t in
-                           up_fold_weights(weight, adjoint=True)])
-    else:  # flipped in space, C <-> Cout; (kx, ky, kz, Cout, C)
-        w_adj = weight.detach().float().flip(2, 3, 4).permute(2, 3, 4, 0, 1)
-        w_adj = w_adj.contiguous()
     mask = out if slope is not None else None
-    with torch.cuda.device(g.device):
-        rc = _library("zconv").muvo_zconv3d_dx(
-            g.data_ptr(), _ptr(mask), float(slope or 0.0), w_adj.data_ptr(),
-            dx.data_ptr(), b, X, Y, z, cg, c, int(up), _DTYPES[g.dtype],
-            _stream(g))
-    _raise_if(rc, "zconv", "K2-dx" if up else "K1-dx")
-    (upzconv3d_dx if up else zconv3d_dx).launches += 1
+    what = "K2-dx" if up else "K1-dx"
+    view = None
+    if g.dtype == torch.bfloat16:
+        view = (TcView("small-z", z // 2, 2 * cg, c) if up
+                else k1_route(z, cg, c))
+    if view is not None:
+        _launch_tc(g, mask, slope, _tc_weights(weight, view, True), None, dx,
+                   view, view.n, True, None, what)
+    else:
+        w_adj = _kkkcn(weight, adjoint=True)
+        with torch.cuda.device(g.device):
+            rc = _library("zconv").muvo_zconv3d_dx(
+                g.data_ptr(), _ptr(mask), float(slope or 0.0),
+                w_adj.data_ptr(), dx.data_ptr(), b, X, Y, z, cg, c, int(up),
+                _DTYPES[g.dtype], _stream(g))
+        _raise_if(rc, "zconv", what)
+    counted = upzconv3d_dx if up else zconv3d_dx
+    counted.launches += 1
+    counted.last_impl = _impl(view, g.dtype, up, True)
     return dx
 
 
@@ -617,6 +743,11 @@ zconv3d_dx.launches = 0
 upzconv3d_dx.launches = 0
 zconv3d_dw.launches = 0
 upzconv3d_dw.launches = 0
-# the kernel the last launch of each dW wrapper ran (DW_IMPL's names)
+# the kernel (and view) the last launch of each wrapper ran: _impl's names,
+# DW_IMPL's for dW
+zconv3d_leaky.last_impl = None
+upzconv3d_leaky.last_impl = None
+zconv3d_dx.last_impl = None
+upzconv3d_dx.last_impl = None
 zconv3d_dw.last_impl = None
 upzconv3d_dw.last_impl = None

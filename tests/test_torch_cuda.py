@@ -17,6 +17,8 @@ round p relative to a running maximum where the plain version uses the
 row's).
 """
 
+import re
+
 import pytest
 import torch
 import torch.utils.checkpoint
@@ -361,6 +363,86 @@ def test_bf16_up_launches_the_tensor_core_kernel(dev):
     dx = _kernel_names(lambda: zconv.upzconv3d_dx(out32, out32, w32, 0.2))
     assert any("zconv_kernel<float, true>" in k for k in fwd), fwd
     assert any("zconv_dxup_kernel<float>" in k for k in dx), dx
+
+
+# bf16 K1 and K1-dx run zconv_tc_kernel with no edge terms on the view
+# zconv.k1_route picks: the pair view (z pairs folded into channels) where
+# z is even and C or Cout is below 16, else the plain view; a block covers
+# ceil(128 / Zs) y rows (at most Y) and 16 x rows with two warpgroups
+@pytest.mark.parametrize("shape,cout,act,view", [
+    ((2, 5, 6, 1, 16), 8, True, "plain"),      # Z 1
+    ((1, 4, 9, 2, 8), 8, True, "pair"),        # Z 2: one pair slice
+    ((1, 3, 5, 3, 3), 5, True, "plain"),       # Z 3 (odd), C 3, Cout 5
+    ((1, 20, 13, 16, 16), 16, True, "plain"),  # X and Y end mid block
+    ((1, 19, 11, 32, 8), 8, True, "pair"),     # the same on the pair view
+    ((1, 3, 4, 6, 40), 12, True, "plain"),     # C 40 (2 C past 64), Cout 12
+    ((1, 4, 5, 16, 32), 16, False, "plain"),   # no activation, no bias
+    ((1, 96, 96, 32, 16), 16, True, "plain"),  # conv2.conv2 at full width
+    ((1, 192, 192, 64, 8), 8, True, "pair"),   # conv3.conv2 at full width
+])
+def test_bf16_k1_kernels_on_the_tensor_cores(dev, shape, cout, act, view):
+    """bf16 K1 and K1-dx against their plain versions, each launch counted
+    once, ``last_impl`` naming the tensor-core kernel and the view, and a
+    second launch giving the same bits."""
+    x, w, b = _inputs(dev, shape, cout, torch.bfloat16)
+    slope = 0.2 if act else None
+    bias = b if act else None
+    n = (zconv.zconv3d_leaky.launches, zconv.zconv3d_dx.launches)
+    out = zconv.zconv3d_leaky(x, w, bias, slope)
+    impl = zconv.zconv3d_leaky.last_impl
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1)
+                    ).to(torch.bfloat16)
+    dx = zconv.zconv3d_dx(g, out, w, slope)
+    torch.cuda.synchronize()
+    assert (zconv.zconv3d_leaky.launches - n[0],
+            zconv.zconv3d_dx.launches - n[1]) == (1, 1)
+    for name in (impl, zconv.zconv3d_dx.last_impl):
+        assert name.startswith(f"tc::zconv_tc_kernel, {view} view"), name
+    assert torch.equal(out, zconv.zconv3d_leaky(x, w, bias, slope))
+    assert torch.equal(dx, zconv.zconv3d_dx(g, out, w, slope))
+    assert out.shape == (*shape[:4], cout) and out.dtype == torch.bfloat16
+    assert _rel(out, zconv.zconv3d_leaky_plain(x, w, bias, slope)) <= 2e-2
+    assert dx.shape == x.shape and dx.dtype == torch.bfloat16
+    assert _rel(dx, zconv.zconv3d_dx_plain(g, out, w, slope)) <= 2e-2
+
+
+def test_k1_last_impl_names_the_route(dev):
+    """Past 64 channels bf16 K1 and K1-dx take the CUDA-core kernel, as
+    k1_route says; fp32 keeps it at every width. Both stay right."""
+    x, w, b = _inputs(dev, (1, 3, 4, 6, 72), 8, torch.bfloat16)
+    for t in (torch.bfloat16, torch.float32):
+        x, w, b = x.to(t), w.to(t), b.to(t)
+        out = zconv.zconv3d_leaky(x, w, b, 0.2)
+        dx = zconv.zconv3d_dx(out, out, w, 0.2)
+        name = "bf16" if t == torch.bfloat16 else "float"
+        assert zconv.zconv3d_leaky.last_impl == f"zconv_kernel<{name}, false>"
+        assert zconv.zconv3d_dx.last_impl == f"zconv_kernel<{name}, false>"
+        assert _rel(out, zconv.zconv3d_leaky_plain(x, w, b, 0.2)) <= TOL[t]
+        assert _rel(dx, zconv.zconv3d_dx_plain(out, out, w, 0.2)) <= TOL[t]
+
+
+def test_bf16_k1_launches_the_tensor_core_kernel(dev):
+    """The profile names zconv_tc_kernel<NP, KS, false, false> for bf16 K1
+    and zconv_tc_kernel<NP, KS, false, true> for bf16 K1-dx (no edge
+    terms) on both views, and no CUDA-core kernel; fp32 K1 and K1-dx keep
+    zconv_kernel<float, false>."""
+    for shape, cout in (((1, 6, 7, 32, 16), 16), ((1, 6, 7, 64, 8), 8)):
+        x, w, b = _inputs(dev, shape, cout, torch.bfloat16)
+        out = zconv.zconv3d_leaky(x, w, b, 0.2)
+        fwd = _kernel_names(lambda: zconv.zconv3d_leaky(x, w, b, 0.2))
+        dx = _kernel_names(lambda: zconv.zconv3d_dx(out, out, w, 0.2))
+        assert any(re.search(r"zconv_tc_kernel<\d+, \d+, false, false>", k)
+                   for k in fwd), fwd
+        assert any(re.search(r"zconv_tc_kernel<\d+, \d+, false, true>", k)
+                   for k in dx), dx
+        assert not any("zconv_kernel<" in k for k in fwd + dx)
+        x32, w32, b32, out32 = (t.float() for t in (x, w, b, out))
+        fwd = _kernel_names(lambda: zconv.zconv3d_leaky(x32, w32, b32, 0.2))
+        dx = _kernel_names(lambda: zconv.zconv3d_dx(out32, out32, w32, 0.2))
+        assert any("zconv_kernel<float, false>" in k for k in fwd), fwd
+        assert any("zconv_kernel<float, false>" in k for k in dx), dx
+        assert not any("zconv_tc_kernel" in k for k in fwd + dx)
 
 
 # bf16 K3 and K3-up run tc::dw_tc_kernel (csrc/zconv_dw_tc.cu), the split-K

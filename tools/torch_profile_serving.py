@@ -16,7 +16,7 @@ DeploymentSession up, then measures:
 2. kernels: torch.profiler over --ticks whole sim_forward ticks: the wall
    time, the device's busy time (the union of its kernels' intervals) and
    idle share, and device time summed by kernel name, with the port's own
-   kernels (zconv_kernel: K1 and K2, zconv_tc_kernel: K2 in bf16;
+   kernels (zconv_kernel: K1 and K2, zconv_tc_kernel: both in bf16;
    flash_fwd_f32 and flash_fwd_wgmma: K4) named.
 
 Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU

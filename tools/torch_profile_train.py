@@ -16,10 +16,12 @@ measures:
 2. kernels: torch.profiler over --steps whole train steps: the wall time,
    the device's busy time (the union of its kernels' intervals) and idle
    share, device time summed by kernel name and by group. The port's
-   kernels are named: zconv_kernel<T, false> is K1 and K1-dx (one kernel,
-   launched on the flipped weights for dx), zconv_kernel<T, true> (fp32)
-   and zconv_tc_kernel<N, K, false> (bf16) K2, zconv_dxup_kernel (fp32) and
-   zconv_tc_kernel<N, K, true> (bf16) K2-dx, dw_kernel<T, false, ...>
+   kernels are named: zconv_kernel<T, false> (fp32; bf16 past 64
+   channels) and zconv_tc_kernel<N, K, false, DX> (bf16, no edge terms) are
+   K1 and K1-dx (one kernel, launched on the flipped weights for dx),
+   zconv_kernel<T, true> (fp32) and zconv_tc_kernel<N, K, true, false>
+   (bf16) K2, zconv_dxup_kernel (fp32) and zconv_tc_kernel<N, K, true,
+   true> (bf16) K2-dx, dw_kernel<T, false, ...>
    (fp32) and dw_tc_kernel<N, MT, false> (bf16) K3, dw_kernel<T, true, ...>
    and dw_tc_kernel<N, MT, true> K3-up, sum_rows_kernel K3's second pass,
    flash_fwd_wgmma<D, true> (bf16) and flash_fwd_f32<D, true> K4,
@@ -60,11 +62,13 @@ GROUPS = (
     ("K6-dq (flash_bwd_dq_kernel)", r"flash_bwd_dq_kernel"),
     ("K6-dkv (flash_bwd_kv_kernel<T, D, false>)",
      r"flash_bwd_kv_kernel<[^>]*false>"),
-    ("K1 + K1-dx (zconv_kernel<T, false>)", r"zconv_kernel<.*, false>"),
-    ("K2 (zconv_kernel<T, true>, bf16 zconv_tc_kernel<N, K, false>)",
-     r"zconv_kernel<.*, true>|zconv_tc_kernel<[^>]*false>"),
-    ("K2-dx (zconv_dxup_kernel, bf16 zconv_tc_kernel<N, K, true>)",
-     r"zconv_dxup_kernel|zconv_tc_kernel<[^>]*true>"),
+    ("K1 + K1-dx (zconv_kernel<T, false>, bf16 zconv_tc_kernel<N, K, "
+     "false, DX>)",
+     r"zconv_kernel<.*, false>|zconv_tc_kernel<\d+, \d+, false, "),
+    ("K2 (zconv_kernel<T, true>, bf16 zconv_tc_kernel<N, K, true, false>)",
+     r"zconv_kernel<.*, true>|zconv_tc_kernel<\d+, \d+, true, false>"),
+    ("K2-dx (zconv_dxup_kernel, bf16 zconv_tc_kernel<N, K, true, true>)",
+     r"zconv_dxup_kernel|zconv_tc_kernel<\d+, \d+, true, true>"),
     ("K3 (dw_kernel<T, false, U>, bf16 dw_tc_kernel<N, MT, false>)",
      r"dw_kernel<[^,]*, false|dw_tc_kernel<[^>]*false>"),
     ("K3-up (dw_kernel<T, true, U>, bf16 dw_tc_kernel<N, MT, true>)",

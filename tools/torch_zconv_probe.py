@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""bf16 K2 and K2-dx (the tensor-core kernel on the small-z grid) and bf16 K3
-and K3-up (the split-K weight-gradient GEMM) on one GPU: right at the
+"""bf16 K2 and K2-dx (the tensor-core kernel on the small-z grid), bf16 K3
+and K3-up (the split-K weight-gradient GEMM) and bf16 K1 and K1-dx (the
+tensor-core kernel on the plain or the pair view) on one GPU: right at the
 edges, then timed launch by launch at the voxel decoder's stages beside
 cuDNN.
 
-    python3 tools/torch_zconv_probe.py [--iters 12] [--out PATH]
+    python3 tools/torch_zconv_probe.py [--iters 12] [--parts k2,dw,k1]
+        [--out PATH]
 
 1. edges: K2 (upzconv3d_leaky) and K2-dx (upzconv3d_dx) in bf16 against
    their plain versions, relative to max |plain| (2e-2, as chip_smoke.py),
@@ -31,12 +33,25 @@ cuDNN.
    the same inputs and the bound (x, g and the forward output read once,
    dW and dbias written once, over 3.35 TB/s), and the rate of the
    kernel's m64 x k16 tensor-core products an SM (from its plan).
+5. k1 edges: K1 (zconv3d_leaky) and K1-dx (zconv3d_dx) in bf16 against
+   their plain versions (2e-2) at Z 1-3, X and Y that end mid block on
+   both views, C 3, C 40 with Cout 12, no activation and both full-width
+   stage shapes at batch 1, each with a second launch that must give the
+   same bits and the kernel and view the wrapper names.
+6. k1 timing: K1 at batch 5 (the imagination's decode) and 24 (the
+   flagship step), K1-dx at batch 24, at conv2.conv2 and conv3.conv2, on
+   the view k1_route picks and, at conv3.conv2, also on the plain view
+   (the route's other choice there), each beside one cuDNN call (F.conv3d
+   with bias; aten.convolution_backward's input gradient of the masked
+   cotangent) and the bound (as parts 2 and 4), with the rate of the
+   view's m64 x k16 tensor-core products an SM.
 
 Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
 mode.
 """
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -215,9 +230,140 @@ def dw_timed(dev, iters):
     return timed
 
 
+# (label, input shape (B, X, Y, Z, C), Cout, activation)
+K1_EDGES = (("z1", (2, 5, 6, 1, 16), 8, True),
+            ("z2_pair", (1, 4, 9, 2, 8), 8, True),
+            ("z3_c3", (1, 3, 5, 3, 3), 5, True),
+            ("xy_mid_block", (1, 20, 13, 16, 16), 16, True),
+            ("xy_mid_block_pair", (1, 19, 11, 32, 8), 8, True),
+            ("c40_cout12", (1, 3, 4, 6, 40), 12, True),
+            ("no_act", (1, 4, 5, 16, 32), 16, False),
+            ("conv2.conv2", (1, 96, 96, 32, 16), 16, True),
+            ("conv3.conv2", (1, 192, 192, 64, 8), 8, True))
+# (stage, input shape without batch, Cout)
+K1_STAGES = (("conv2.conv2", (96, 96, 32, 16), 16),
+             ("conv3.conv2", (192, 192, 64, 8), 8))
+
+
+@contextlib.contextmanager
+def k1_view(name):
+    """K1 and K1-dx on the route's view (None) or forced to ``name``."""
+    from muvo_tpu_torch.ops import zconv
+
+    route = zconv.k1_route
+    if name == "plain":
+        zconv.k1_route = lambda z, c, cout: zconv.TcView("plain", z, c, cout)
+    try:
+        yield
+    finally:
+        zconv.k1_route = route
+
+
+def k1_edges(dev):
+    """Part 5: bf16 K1 / K1-dx against their plain versions at the edges."""
+    from muvo_tpu_torch.ops import zconv
+
+    edges, failed = [], []
+    for label, shape, cout, act in K1_EDGES:
+        x, w, b, _ = inputs(dev, shape, cout)
+        slope = 0.2 if act else None
+        bias = b if act else None
+        out = zconv.zconv3d_leaky(x, w, bias, slope)
+        impl = zconv.zconv3d_leaky.last_impl
+        g = torch.randn(out.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(1)).to(torch.bfloat16)
+        dx = zconv.zconv3d_dx(g, out, w, slope)
+        same = (torch.equal(out, zconv.zconv3d_leaky(x, w, bias, slope))
+                and torch.equal(dx, zconv.zconv3d_dx(g, out, w, slope)))
+        want = zconv.zconv3d_leaky_plain(x, w, bias, slope)
+        dx_want = zconv.zconv3d_dx_plain(g, out, w, slope)
+        torch.cuda.synchronize()
+        row = {"case": label, "shape": list(shape), "cout": cout, "act": act,
+               "impl": impl, "dx_impl": zconv.zconv3d_dx.last_impl,
+               "K1": rel(out, want), "K1-dx": rel(dx, dx_want),
+               "repeat_equal": same}
+        if not same:
+            failed.append(f"{label}: a second launch differs")
+        if not all(n.startswith("tc::zconv_tc_kernel")
+                   for n in (row["impl"], row["dx_impl"])):
+            failed.append(f"{label}: ran {row['impl']}, {row['dx_impl']}")
+        for kid in ("K1", "K1-dx"):
+            if not row[kid] <= TOL:
+                failed.append(f"{kid} {label}: {row[kid]}")
+        edges.append(row)
+        print(json.dumps(row), flush=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return edges
+
+
+def k1_timed(dev, iters):
+    """Part 6: bf16 K1 and K1-dx per launch beside cuDNN, on the route's
+    view and, at conv3.conv2, on the plain view."""
+    from muvo_tpu_torch.models.layers import to_nchw
+    from muvo_tpu_torch.ops import zconv
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    timed = []
+    for stage, shape, cout in K1_STAGES:
+        c = shape[-1]
+        views = [None] + (["plain"] if stage == "conv3.conv2" else [])
+        for batch in (FWD_BATCH, BWD_BATCH):
+            x, w, b, _ = inputs(dev, (batch, *shape), cout, seed=4)
+            out = zconv.zconv3d_leaky(x, w, b, 0.2)
+            g = torch.randn(out.shape, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(5)).to(torch.bfloat16)
+            gm = zconv.leaky_mask(g, out, 0.2)
+            flops = 2 * 27 * c * out.numel()
+            runs = {"K1": (lambda: zconv.zconv3d_leaky(x, w, b, 0.2),
+                           2 * (x.numel() + w.numel() + out.numel() + cout),
+                           (shape[2], c, cout)),
+                    "cudnn_K1": (lambda: F.conv3d(to_nchw(x), w, b,
+                                                  padding=1), 0, None)}
+            if batch == BWD_BATCH:
+                runs["K1-dx"] = (lambda: zconv.zconv3d_dx(g, out, w, 0.2),
+                                 2 * (g.numel() + out.numel() + w.numel()
+                                      + x.numel()), (shape[2], cout, c))
+                runs["cudnn_K1-dx"] = (
+                    lambda: torch.ops.aten.convolution_backward(
+                        to_nchw(gm), to_nchw(x), w, None, **CONV,
+                        output_mask=[True, False, False]), 0, None)
+            for view in views:
+                for name, (fn, nbytes, zcc) in runs.items():
+                    if view is not None and zcc is None:
+                        continue  # cuDNN once a batch
+                    with k1_view(view):
+                        ms = per_launch(fn, iters)
+                        kern = (zconv.zconv3d_dx if name == "K1-dx"
+                                else zconv.zconv3d_leaky)
+                        route = (zconv.k1_route(*zcc) if zcc is not None
+                                 else None)
+                    row = {"run": name, "stage": stage, "batch": batch,
+                           "input": [batch, *shape], "cout": cout, "ms": ms,
+                           "ms_median": ms_median(ms)}
+                    if route is not None:
+                        row["impl"] = kern.last_impl
+                        row["view"] = route.name
+                        row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                                              flops / BF16_FLOPS) * 1e3
+                        # the view's m64 x k16 wgmma products an SM a us
+                        rows = batch * shape[0] * shape[1] * route.zs
+                        products = -(-rows // 64) * 27 * (-(-route.kc // 16))
+                        row["products_per_sm_per_us"] = products / sms / (
+                            row["ms_median"] * 1e3)
+                    timed.append(row)
+                    print(json.dumps(row), flush=True)
+            del x, w, b, out, g, gm, runs
+            torch.cuda.empty_cache()
+    return timed
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=12)
+    ap.add_argument("--parts", default="k2,dw,k1",
+                    help="comma-separated: k2 (parts 1-2), dw (3-4), "
+                         "k1 (5-6)")
     ap.add_argument("--out", default=str(ROOT / "build"
                                          / "torch_zconv_probe.json"))
     args = ap.parse_args(argv)
@@ -226,10 +372,16 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    parts = args.parts.split(",")
     result = {"device": torch.cuda.get_device_name(0)}
-    result["edges"], result["timed"] = k2_parts(dev, args.iters)
-    result["dw_edges"] = dw_edges(dev)
-    result["dw_timed"] = dw_timed(dev, args.iters)
+    if "k2" in parts:
+        result["edges"], result["timed"] = k2_parts(dev, args.iters)
+    if "dw" in parts:
+        result["dw_edges"] = dw_edges(dev)
+        result["dw_timed"] = dw_timed(dev, args.iters)
+    if "k1" in parts:
+        result["k1_edges"] = k1_edges(dev)
+        result["k1_timed"] = k1_timed(dev, args.iters)
     result["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
