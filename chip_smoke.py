@@ -34,7 +34,13 @@ exits nonzero (there is no CPU fallback):
    (TF32 off) and bf16, each held against its plain version and timed
    beside it (FLASH_ITERS launches), one library call
    (scaled_dot_product_attention, or its backward alone) and the bound;
-   K4-mb (the microbenchmark's kernel) once.
+   K4-mb (the microbenchmark's kernel) once. K6 in every case: each kernel
+   named in ``last_impl`` as the dispatch picks it (bf16: the hopper
+   kernels, flash_bwd_dq_wgmma and flash_bwd_wgmma<D, false>), the same
+   bits on a second launch; in bf16 K6-dkv's dk and dv equal to K5's (one
+   kernel, the same products in the same order) and K6-dq's dq reported
+   against K5's; in fp32 K6's outputs and K5's dk, dv equal to the plain
+   version's.
 6. serving: muvo.yml at full width with seeded random weights, driven
    through DeploymentSession (deployment_forward, then sim_forward with a
    5-step imagination); K1 and K2 must be launched and K4 not (648 tokens
@@ -722,6 +728,37 @@ def flash_bound(kid, q, seq_len, inputs, outputs):
                     "exp_ms": exps / EXP_PER_S * 1e3}
 
 
+def check_k6(fa, label, dtype, d, got, want, again):
+    """The K6 checks of one flash case (see the module docstring); emits
+    one row and raises on a failed check. ``again``: (dq, dk, dv) from a
+    second launch of K6-dq and K6-dkv."""
+    impl = {kid: _wrapper(kid).last_impl for kid in ("K6-dq", "K6-dkv")}
+    k6 = (*got["K6-dq"], *got["K6-dkv"])
+    row = {"phase": "flash_k6", "case": label,
+           "dtype": str(dtype).replace("torch.", ""), "impl": impl,
+           "repeat_equal": all(torch.equal(a, b) for a, b in zip(k6, again))}
+    bad = [f"{kid} ran {name}" for kid, name in impl.items()
+           if name != fa.kernel_name(kid, dtype, d)]
+    if not row["repeat_equal"]:
+        bad.append("a second launch gave other bits")
+    if dtype == torch.bfloat16:
+        row["dkv_equals_k5"] = all(
+            torch.equal(a, b) for a, b in zip(got["K6-dkv"], got["K5"][1:]))
+        row["dq_vs_k5_norm_rel"] = norm_rel(got["K6-dq"][0], got["K5"][0])
+        if not row["dkv_equals_k5"]:
+            bad.append("K6-dkv's dk, dv differ from K5's")
+    else:
+        row["k6_equals_plain"] = all(
+            torch.equal(a, b) for a, b in zip(k6, want["K5"]))
+        row["k5_dkv_equals_plain"] = all(
+            torch.equal(a, b) for a, b in zip(got["K5"][1:], want["K5"][1:]))
+        if not (row["k6_equals_plain"] and row["k5_dkv_equals_plain"]):
+            bad.append("fp32 K6 or K5's dk, dv differ from the plain version")
+    emit(row)
+    if bad:
+        raise AssertionError(f"K6 {label} {dtype}: {bad}")
+
+
 def flash_kernel_phase(dev):
     """K4, K5, K6-dq and K6-dkv against their plain versions on the same
     inputs (the backward ones on K4's o and lse), norm-relative per output;
@@ -740,11 +777,14 @@ def flash_kernel_phase(dev):
                    "K5": fa.flash_bwd(q, k, v, o, lse, do, seq_len),
                    "K6-dq": (fa.flash_bwd_dq(q, k, v, o, lse, do, seq_len),),
                    "K6-dkv": fa.flash_bwd_dkv(q, k, v, o, lse, do, seq_len)}
+            again = (fa.flash_bwd_dq(q, k, v, o, lse, do, seq_len),
+                     *fa.flash_bwd_dkv(q, k, v, o, lse, do, seq_len))
             torch.cuda.synchronize()
             want_bwd = fa.flash_bwd_plain(q, k, v, o, lse, do, seq_len)
             want = {"K4": fa.flash_fwd_plain(q, k, v, seq_len),
                     "K5": want_bwd, "K6-dq": want_bwd[:1],
                     "K6-dkv": want_bwd[1:]}
+            check_k6(fa, label, dtype, d, got, want, again)
             # the yardstick: one library call on (1, bh, n, d), and its
             # backward alone
             q4, k4, v4 = (t[None].detach().requires_grad_()
@@ -794,7 +834,7 @@ def flash_kernel_phase(dev):
                     raise AssertionError(f"{kid} {label} {dtype}: "
                                          f"norm-relative error {rel} > {tol}")
                 results[(kid, label, dtype)] = row
-            del q, k, v, do, o, lse, got, want, want_bwd, runs, lib_out
+            del q, k, v, do, o, lse, got, want, want_bwd, runs, lib_out, again
             del q4, k4, v4
             torch.cuda.empty_cache()
     # K4-mb: the microbenchmark's shape, bf16
@@ -1040,7 +1080,8 @@ def main() -> int:
                     for name in ("zconv", "zconv_dw", "zconv_dw_tc",
                                  "flash_attention")
                     for ln in build_log(name).splitlines()
-                    if "registers" in ln or "Compiling entry" in ln]})
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln]})
 
     results = kernel_phase(dev)
     backward = backward_kernel_phase(dev)

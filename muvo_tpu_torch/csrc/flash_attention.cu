@@ -26,29 +26,36 @@
 // _FUSED_DQ_VMEM_BUDGET: K5 accumulates dq in an fp32 (bh, n, d) workspace
 // in device memory with atomics, which has no length limit, and a last
 // pass scales and casts it. The atomics make dq's summation order vary
-// from run to run (K6 is deterministic).
+// from run to run (K6 is deterministic: a second launch gives the same
+// bits).
 //
 // Bound on the card (bh 48, n 5184, d 48, bf16, the LARGE training step):
 // K4 does 4 n^2 d bh = 2.5e11 flops on the tensor cores (0.25 ms at 989
 // TFLOP/s) and n^2 bh = 1.3e9 exponentials on the SFUs (16 a clock per SM,
-// 0.31 ms), so the exponentials bound it; K5 does 10 n^2 d bh flops and
-// K6 14 n^2 d bh (s and dp twice) with one and two exps per score. In fp32
-// the products run on the CUDA cores (67 TFLOP/s, 3.7 ms for K4): TF32
-// would not hold the fp32 tolerance.
+// 0.31 ms), so the exponentials bound it; K5 does 10 n^2 d bh flops, K6-dq
+// 6 and K6-dkv 8 (s and dp recomputed in both), each with one exponential
+// per score: the products bound them (0.63, 0.38 and 0.50 ms). In fp32 the
+// products run on the CUDA cores (67 TFLOP/s, 3.7 ms for K4): TF32 would
+// not hold the fp32 tolerance.
 //
-// Designs. bf16 K4, K4-mb and K5 (namespace hopper) are warp-specialised:
-// one producer thread keeps tiles in flight by TMA into a two-stage ring of
-// shared memory with mbarriers, two consumer warpgroups run wgmma with the
-// fp32 accumulators in registers, and the softmax (K4) or p and ds (K5)
-// are formed in registers and fed to the next product as its register A
-// operand; dq goes into the workspace by vector atomics, one per two
-// columns of a 64 x d tile. What bounds them now is the serial chain
-// inside each consumer (product, wait, softmax, product): no softmax
-// overlaps a product, and K5 adds the atomics' L2 traffic. fp32 K4 and
-// K4-mb (namespace fp32) hold register micro-tiles of S and O on the CUDA
-// cores, FMA-bound. K5 in fp32 and both K6 kernels keep the first design:
-// every tile in shared memory, each product one pass of a shared-memory
-// GEMM (bf16 mma.sync.m16n8k16, fp32 FMAs) accumulating in shared memory.
+// Designs. bf16 K4, K4-mb, K5, K6-dq and K6-dkv (namespace hopper) are
+// warp-specialised: one producer thread keeps tiles in flight by TMA into
+// a two-stage ring of shared memory with mbarriers, two consumer
+// warpgroups run wgmma with the fp32 accumulators in registers, and the
+// softmax (K4) or p and ds (K5, K6) are formed in registers and fed to the
+// next product as its register A operand. K5 and K6-dkv are one kernel,
+// flash_bwd_wgmma<D, DQ>, key-major: K5 (DQ) adds each tile's dq share by
+// a third product and vector atomics into an fp32 workspace, one per two
+// columns of a 64 x d tile; K6-dkv (no DQ) does K5's dk and dv products in
+// K5's order, so its dk and dv equal K5's bit for bit. K6-dq,
+// flash_bwd_dq_wgmma<D>, is q-major on K4's skeleton and keeps dq in
+// registers. What bounds them now is the serial chain inside each consumer
+// (product, wait, softmax or ds, product): no elementwise work overlaps a
+// product, and K5 adds the atomics' L2 traffic. fp32 K4 and K4-mb
+// (namespace fp32) hold register micro-tiles of S and O on the CUDA cores,
+// FMA-bound. fp32 K5 and fp32 K6 keep the first design: every tile in
+// shared memory, each product one pass of a scalar shared-memory GEMM
+// (fp32 FMAs) accumulating in shared memory.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
@@ -67,9 +74,6 @@ constexpr int kSS = kTile + 4;  // fp32 score tile stride
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
 template <>
@@ -82,131 +86,59 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 template <typename T>
 __host__ __device__ constexpr bool is_f32() { return std::is_same<T, float>::value; }
 
-// strides of the staged tiles: odd in fp32 (the scalar GEMM reads columns
-// of (rows, d) tiles across threads), even in bf16 (32-bit fragment loads)
-// and offset by 8 so a fragment's 8 rows fall on distinct banks
-template <typename T, int D>
-__host__ __device__ constexpr int tile_stride() { return is_f32<T>() ? D + 1 : D + 8; }
-template <typename T>
-__host__ __device__ constexpr int p_stride() { return is_f32<T>() ? kTile + 1 : kTile + 8; }
+// The first design (fp32 K5 and fp32 K6). Strides of the staged tiles are
+// odd, since the scalar GEMM reads columns of (rows, d) tiles across
+// threads.
+template <int D>
+__host__ __device__ constexpr int tile_stride() { return D + 1; }
+constexpr int kPStride = kTile + 1;  // p and ds tiles
 template <int D>
 __host__ __device__ constexpr int acc_stride() { return D + 4; }
 
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Two consecutive-k elements (k, k + 1) of row m of A, packed low first.
-// A[m][k] lies at a[m * lda + k], or at a[k * lda + m] when A_T.
-template <bool A_T>
-__device__ __forceinline__ uint32_t frag_a(const __nv_bfloat16* a, int lda,
-                                           int m, int k) {
-  if (A_T) return pack2(a[k * lda + m], a[(k + 1) * lda + m]);
-  return *reinterpret_cast<const uint32_t*>(a + m * lda + k);
-}
-// Two consecutive-k elements of column n of B. B[k][n] lies at
-// b[n * ldb + k] when B_NK (a (rows, d) tile used as its transpose), else at
-// b[k * ldb + n].
-template <bool B_NK>
-__device__ __forceinline__ uint32_t frag_b(const __nv_bfloat16* b, int ldb,
-                                           int k, int n) {
-  if (B_NK) return *reinterpret_cast<const uint32_t*>(b + n * ldb + k);
-  return pack2(b[k * ldb + n], b[(k + 1) * ldb + n]);
-}
-
 // C[64 x N] = (accumulate ? C : 0) + A[64 x K] B[K x N], C fp32 in shared
-// memory (row stride ldc), A and B staged tiles of T (layouts as frag_a /
-// frag_b). All threads take part; the caller synchronises before and after.
+// memory (row stride ldc), A and B staged fp32 tiles: A[m][k] at
+// a[m * lda + k] (a[k * lda + m] when A_T), B[k][n] at b[k * ldb + n]
+// (b[n * ldb + k] when B_NK, a (rows, d) tile used as its transpose). All
+// threads take part; the caller synchronises before and after. Each thread
+// holds rows 4 rg .. 4 rg + 3, columns cc + 16 j.
 template <typename T, int N, int K, bool A_T, bool B_NK>
 __device__ __forceinline__ void gemm(float* c, int ldc, const T* a, int lda,
                                      const T* b, int ldb, bool accumulate) {
-  static_assert(N % 16 == 0 && K % 16 == 0, "tile widths are multiples of 16");
+  static_assert(is_f32<T>(), "bf16 runs the hopper kernels");
+  static_assert(N % 16 == 0, "tile widths are multiples of 16");
+  constexpr int NJ = N / 16;
   const int tid = threadIdx.x;
-  if constexpr (is_f32<T>()) {
-    // each thread: rows 4 rg .. 4 rg + 3, columns cc + 16 j
-    constexpr int NJ = N / 16;
-    const int rg = tid >> 4, cc = tid & 15;
-    float acc[4][NJ];
+  const int rg = tid >> 4, cc = tid & 15;
+  float acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = 4 * rg + i;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      acc[i][j] = accumulate ? c[m * ldc + cc + 16 * j] : 0.f;
+  }
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float av[4], bv[NJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = 4 * rg + i;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        acc[i][j] = accumulate ? c[m * ldc + cc + 16 * j] : 0.f;
+      av[i] = A_T ? a[k * lda + m] : a[m * lda + k];
     }
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float av[4], bv[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = 4 * rg + i;
-        av[i] = A_T ? a[k * lda + m] : a[m * lda + k];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = cc + 16 * j;
-        bv[j] = B_NK ? b[n * ldb + k] : b[k * ldb + n];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int j = 0; j < NJ; ++j) {
+      const int n = cc + 16 * j;
+      bv[j] = B_NK ? b[n * ldb + k] : b[k * ldb + n];
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) c[(4 * rg + i) * ldc + cc + 16 * j] = acc[i][j];
-  } else {
-    // each warp: rows m0 .. m0 + 15, columns n0 .. n0 + N / 2 - 1 in
-    // N / 16 mma tiles of 8 (fragment layouts of PTX's m16n8k16)
-    constexpr int NJ = N / 16;
-    const int lane = tid & 31, w = tid >> 5;
-    const int g = lane >> 2, t = lane & 3;
-    const int m0 = (w & 3) * 16, n0 = (w >> 2) * (N / 2);
-    const int r0 = m0 + g, r1 = m0 + g + 8;
-    float acc[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = n0 + 8 * j + 2 * t;
-      acc[j][0] = accumulate ? c[r0 * ldc + n] : 0.f;
-      acc[j][1] = accumulate ? c[r0 * ldc + n + 1] : 0.f;
-      acc[j][2] = accumulate ? c[r1 * ldc + n] : 0.f;
-      acc[j][3] = accumulate ? c[r1 * ldc + n + 1] : 0.f;
-    }
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      const uint32_t a0 = frag_a<A_T>(a, lda, r0, k0 + 2 * t);
-      const uint32_t a1 = frag_a<A_T>(a, lda, r1, k0 + 2 * t);
-      const uint32_t a2 = frag_a<A_T>(a, lda, r0, k0 + 8 + 2 * t);
-      const uint32_t a3 = frag_a<A_T>(a, lda, r1, k0 + 8 + 2 * t);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = n0 + 8 * j + g;
-        const uint32_t b0 = frag_b<B_NK>(b, ldb, k0 + 2 * t, n);
-        const uint32_t b1 = frag_b<B_NK>(b, ldb, k0 + 8 + 2 * t, n);
-        mma_bf16(acc[j], a0, a1, a2, a3, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = n0 + 8 * j + 2 * t;
-      c[r0 * ldc + n] = acc[j][0];
-      c[r0 * ldc + n + 1] = acc[j][1];
-      c[r1 * ldc + n] = acc[j][2];
-      c[r1 * ldc + n + 1] = acc[j][3];
-    }
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) c[(4 * rg + i) * ldc + cc + 16 * j] = acc[i][j];
 }
 
 // rows row0 .. row0 + 63 of a (bh, n, D) tensor into a staged tile, zero
@@ -214,7 +146,7 @@ __device__ __forceinline__ void gemm(float* c, int ldc, const T* a, int lda,
 template <typename T, int D, bool SCALE>
 __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
                                       int row0, int n, float scale) {
-  constexpr int TS = tile_stride<T, D>();
+  constexpr int TS = tile_stride<D>();
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, c = i - r * D;
     const int row = row0 + r;
@@ -232,8 +164,7 @@ __device__ __forceinline__ float typed_scale(float scale) {
 
 template <typename T, int D>
 struct BwdSmem {
-  static constexpr int TS = tile_stride<T, D>(), PS = p_stride<T>(),
-                       OS = acc_stride<D>();
+  static constexpr int TS = tile_stride<D>(), PS = kPStride, OS = acc_stride<D>();
   static constexpr size_t tile = (sizeof(T) * kTile * TS + 15) & ~15;
   static constexpr size_t ptile = (sizeof(T) * kTile * PS + 15) & ~15;
   static constexpr size_t s_off = 0;  // scores, then p (and K5's dq tile)
@@ -300,9 +231,9 @@ __device__ __forceinline__ void stage_q_side(unsigned char* smem, const T* q,
   }
 }
 
-// K5 (FUSED) and K6-dkv: one block per (64-key tile, bh), holding k, v and
-// the dk, dv accumulators while it walks every q tile. K5 adds each q tile's
-// share of dq, ds k, into the fp32 workspace dq_acc with atomics.
+// fp32 K5 (FUSED) and fp32 K6-dkv: one block per (64-key tile, bh), holding
+// k, v and the dk, dv accumulators while it walks every q tile. K5 adds each
+// q tile's share of dq, ds k, into the fp32 workspace dq_acc with atomics.
 template <typename T, int D, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -363,7 +294,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K6-dq: one block per (64-row q tile, bh), walking the key tiles.
+// fp32 K6-dq: one block per (64-row q tile, bh), walking the key tiles.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -411,7 +342,7 @@ __global__ void flash_dq_flush_kernel(const float* __restrict__ dq_acc,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 K4, K4-mb and K5 on Hopper: TMA staging into a shared-memory ring
+// bf16 K4, K4-mb, K5 and K6 on Hopper: TMA staging into a shared-memory ring
 // fed by one producer thread, wgmma with fp32 accumulators in registers,
 // the softmax in registers. Tiles are 64 bf16 (128 bytes) wide in the 128-
 // byte swizzle that TMA writes and wgmma reads; the tensor maps zero-fill
@@ -688,15 +619,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// K5: one block per (128 keys, bh), consumer c holding keys 64 c .. 64 c +
-// 63 with dk, dv in registers, walking 64-row q tiles that TMA streams
-// through the ring (q^, dO; lse and delta stored by the producer warp).
-// S^T = k q^T and dP^T = v dO^T (m64n64); P^T and dS^T are formed in
-// registers and feed dv += P^T dO and dk += dS^T q^ as register A
-// operands; dS^T also goes to shared memory for this tile's dq share,
-// dS k (m64nD, both operands M/N-major). Consumer 1 hands its share to
-// consumer 0 through shared memory, which adds both and accumulates the
-// tile into the fp32 workspace with vector atomics (one per two columns).
+// K5 (DQ) and K6-dkv: one block per (128 keys, bh), consumer c holding keys
+// 64 c .. 64 c + 63 with dk, dv in registers, walking 64-row q tiles that
+// TMA streams through the ring (q^, dO; lse and delta stored by the
+// producer warp). S^T = k q^T and dP^T = v dO^T (m64n64); P^T and dS^T are
+// formed in registers and feed dv += P^T dO and dk += dS^T q^ as register
+// A operands. With DQ, dS^T also goes to shared memory for this tile's dq
+// share, dS k (m64nD, both operands M/N-major); consumer 1 hands its share
+// to consumer 0 through shared memory (named barriers 3 and 4), which adds
+// both and accumulates the tile into the fp32 workspace with vector
+// atomics (one per two columns). Without DQ all of that is compiled out
+// and dk, dv come from the same products in the same order. The layout
+// keeps ds and x for both: one block an SM either way (384 threads of 168
+// registers fill the register file), so the 32 KB K6-dkv leaves unused
+// cost nothing.
 struct BwdLayout {
   static constexpr int k = 0;                        // 128 keys
   static constexpr int v = k + 128 * kRowBytes;
@@ -709,7 +645,7 @@ struct BwdLayout {
   static constexpr int bytes = bars + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int D>
+template <int D, bool DQ>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -781,11 +717,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(kv_full, 0);
     const uint64_t dk_desc = desc(smem + L::k + c * 64 * kRowBytes);
     const uint64_t dv_desc = desc(smem + L::v + c * 64 * kRowBytes);
-    unsigned char* ds_tile = smem + L::ds + c * 64 * kRowBytes;
-    const uint64_t ds_desc = desc(ds_tile);
+    [[maybe_unused]] unsigned char* ds_tile = smem + L::ds + c * 64 * kRowBytes;
+    [[maybe_unused]] const uint64_t ds_desc = desc(ds_tile);
     const bool masked[2] = {k0 + 64 * c + r0 >= seq_len,
                             k0 + 64 * c + r0 + 8 >= seq_len};
-    float* x = reinterpret_cast<float*>(smem + L::x) + lt * (D / 2);
+    [[maybe_unused]] float* x = reinterpret_cast<float*>(smem + L::x) + lt * (D / 2);
     for (int t = 0; t < tiles; ++t) {
       const int s = t % kStages, q0 = t * 64;
       mbar_wait(&full[s], (t / kStages) & 1);
@@ -819,9 +755,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float p1 = masked[r] ? 0.f : ex2((sacc[i + 1] - ls.y) * kLog2e);
           pa[kk][j] = bf16x2(p0, p1);
           da[kk][j] = bf16x2(p0 * (dpacc[i] - dl.x), p1 * (dpacc[i + 1] - dl.y));
-          *reinterpret_cast<uint32_t*>(ds_tile + swz(r0 + 8 * r, col)) = da[kk][j];
+          if constexpr (DQ)
+            *reinterpret_cast<uint32_t*>(ds_tile + swz(r0 + 8 * r, col)) = da[kk][j];
         }
-      fence_proxy_async();
+      if constexpr (DQ) fence_proxy_async();
       wgmma::fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -830,48 +767,53 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int kk = 0; kk < 4; ++kk)
         wgmma::wgmma_rs<D, 1>(dka, da[kk], q_desc + kk * kStepRows, 1);
       wgmma::commit();
-      named_sync(1 + c, 128);  // this consumer's dS^T is in shared memory
-      float dqa[D / 2];
-      wgmma::fence();
+      [[maybe_unused]] float dqa[D / 2];
+      if constexpr (DQ) {
+        named_sync(1 + c, 128);  // this consumer's dS^T is in shared memory
+        wgmma::fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma::wgmma_ss<D, 1, 1>(dqa, ds_desc + kk * kStepRows,
-                                 dk_desc + kk * kStepRows, kk);
-      wgmma::commit();
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma::wgmma_ss<D, 1, 1>(dqa, ds_desc + kk * kStepRows,
+                                   dk_desc + kk * kStepRows, kk);
+        wgmma::commit();
+      }
       wgmma::wait<0>();
       wgmma::fence_operands(dva);
       wgmma::fence_operands(dka);
-      wgmma::fence_operands(dqa);
+      if constexpr (DQ) wgmma::fence_operands(dqa);
       wgmma::fence_operands(pa);
       wgmma::fence_operands(da);
       if (lane == 0) mbar_arrive(&empty[s]);
-      if (c == 1) {
-        if (t > 0) named_sync(4, 256);  // consumer 0 has read the last share
+      // the hand-over: both consumers or neither pass named barriers 3 and 4
+      if constexpr (DQ) {
+        if (c == 1) {
+          if (t > 0) named_sync(4, 256);  // consumer 0 has read the last share
 #pragma unroll
-        for (int i = 0; i < D / 2; i += 4)
-          *reinterpret_cast<float4*>(x + i) =
-              make_float4(dqa[i], dqa[i + 1], dqa[i + 2], dqa[i + 3]);
-        named_arrive(3, 256);
-      } else {
-        named_sync(3, 256);
+          for (int i = 0; i < D / 2; i += 4)
+            *reinterpret_cast<float4*>(x + i) =
+                make_float4(dqa[i], dqa[i + 1], dqa[i + 2], dqa[i + 3]);
+          named_arrive(3, 256);
+        } else {
+          named_sync(3, 256);
 #pragma unroll
-        for (int i = 0; i < D / 2; i += 4) {
-          const float4 y = *reinterpret_cast<const float4*>(x + i);
-          dqa[i] += y.x;
-          dqa[i + 1] += y.y;
-          dqa[i + 2] += y.z;
-          dqa[i + 3] += y.w;
-        }
-        if (t + 1 < tiles) named_arrive(4, 256);
+          for (int i = 0; i < D / 2; i += 4) {
+            const float4 y = *reinterpret_cast<const float4*>(x + i);
+            dqa[i] += y.x;
+            dqa[i + 1] += y.y;
+            dqa[i + 2] += y.z;
+            dqa[i + 3] += y.w;
+          }
+          if (t + 1 < tiles) named_arrive(4, 256);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = q0 + r0 + 8 * r;
-          if (row < n) {
-            float* dst = dq_acc + base + (size_t)row * D + 2 * t4;
+          for (int r = 0; r < 2; ++r) {
+            const int row = q0 + r0 + 8 * r;
+            if (row < n) {
+              float* dst = dq_acc + base + (size_t)row * D + 2 * t4;
 #pragma unroll
-            for (int i = 0; i < D / 8; ++i)
-              atomicAdd(reinterpret_cast<float2*>(dst + 8 * i),
-                        make_float2(dqa[4 * i + 2 * r], dqa[4 * i + 2 * r + 1]));
+              for (int i = 0; i < D / 8; ++i)
+                atomicAdd(reinterpret_cast<float2*>(dst + 8 * i),
+                          make_float2(dqa[4 * i + 2 * r], dqa[4 * i + 2 * r + 1]));
+            }
           }
         }
       }
@@ -893,7 +835,163 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// q^ = q * scale rounded to bf16 (the scale itself in bf16), for K5's TMA
+// K6-dq: one block per (128 q rows, bh), K4's skeleton. The producer loads
+// q and dO for the block's rows once and streams 128-key tiles of k and v
+// through the ring. Consumer c owns q rows 64 c .. 64 c + 63, forms q^ in
+// shared memory as K4 does (so neither dq nor a scratch holds it), reads
+// the lse and delta of its two rows a thread once, and takes each key tile
+// in two halves of 64 keys: S = q^ k^T and dP = dO v^T (m64n64, both
+// operands K-major), P = exp(S - lse) (zero at keys past seq_len, not
+// rounded), dS = P (dP - delta) rounded to bf16 as register A fragments
+// (K5's packing), and dq += dS k (m64nD, k M/N-major, as K4's O += P V
+// takes v). Halves, since S and dP at m64n128 (64 + 64 accumulators a
+// thread) spill at the 168 registers ptxas gives a thread of 384. The
+// second half of a last tile past seq_len is computed all the same, its
+// P all zero: a branch around a wgmma would serialise them. At the end dq
+// = dq_acc * scale in bf16, stored from registers: no atomics and no
+// workspace, and each row sums its keys in one order, so a second launch
+// gives the same bits.
+struct DqLayout {
+  static constexpr int q = 0;                            // 128 rows of q^
+  static constexpr int dout = q + 128 * kRowBytes;       // 128 rows of dO
+  static constexpr int k = dout + 128 * kRowBytes;       // kStages x 128
+  static constexpr int v = k + kStages * 128 * kRowBytes;
+  static constexpr int bars = v + kStages * 128 * kRowBytes;
+  static constexpr int bytes = bars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int n, int seq_len, float scale) {
+  using L = DqLayout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+  const int bh = blockIdx.y, q0 = blockIdx.x * 128;
+  const int tiles = (seq_len + 127) / 128;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    set_max_regs<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * 128 * kRowBytes);
+      tma_load(smem + L::q, &tm_q, q_full, q0, bh);
+      tma_load(smem + L::dout, &tm_do, q_full, q0, bh);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % kStages;
+        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * 128 * kRowBytes);
+        tma_load(smem + L::k + s * 128 * kRowBytes, &tm_k, &full[s], t * 128, bh);
+        tma_load(smem + L::v + s * 128 * kRowBytes, &tm_v, &full[s], t * 128, bh);
+      }
+    }
+    return;
+  }
+  set_max_regs<240>();
+  const int c = wg - 1, lt = threadIdx.x - 128 * wg;
+  const int warp = lt >> 5, lane = lt & 31, g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + 64 * c + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  float ls[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    ls[r] = row < n ? lse[(size_t)bh * n + row] : 0.f;
+    dl[r] = row < n ? delta[(size_t)bh * n + row] : 0.f;
+  }
+  unsigned char* qs = smem + L::q + c * 64 * kRowBytes;
+  // q^ = q * scale rounded to bf16, in place, once
+  mbar_wait(q_full, 0);
+  {
+    const float sc = __bfloat162float(__float2bfloat16(scale));
+    uint32_t* p = reinterpret_cast<uint32_t*>(qs);
+    for (int i = lt; i < 64 * kRowBytes / 4; i += 128) {
+      const float2 f = unpack(p[i]);
+      p[i] = bf16x2(f.x * sc, f.y * sc);
+    }
+    fence_proxy_async();
+    named_sync(1 + c, 128);
+  }
+  const uint64_t q_desc = desc(qs);
+  const uint64_t do_desc = desc(smem + L::dout + c * 64 * kRowBytes);
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % kStages;
+    mbar_wait(&full[s], (t / kStages) & 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k0 = t * 128 + 64 * h;
+      const uint64_t k_desc = desc(smem + L::k + (2 * s + h) * 64 * kRowBytes);
+      const uint64_t v_desc = desc(smem + L::v + (2 * s + h) * 64 * kRowBytes);
+      float sacc[32], dpacc[32];
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma::wgmma_ss<64, 0, 0>(sacc, q_desc + kk * kStepK, k_desc + kk * kStepK, kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma::wgmma_ss<64, 0, 0>(dpacc, do_desc + kk * kStepK, v_desc + kk * kStepK, kk);
+      wgmma::commit();
+      wgmma::wait<0>();
+      wgmma::fence_operands(sacc);
+      wgmma::fence_operands(dpacc);
+      const bool edge = k0 + 64 > seq_len;  // keys past seq_len in this half
+      uint32_t da[4][4];  // dS as four k16 A fragments (k: keys)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 8 * kk + 2 * j, r = j & 1;
+          const int key = k0 + 16 * kk + 8 * (j >> 1) + 2 * t4;
+          const bool m0 = edge && key >= seq_len, m1 = edge && key + 1 >= seq_len;
+          const float p0 = m0 ? 0.f : ex2((sacc[i] - ls[r]) * kLog2e);
+          const float p1 = m1 ? 0.f : ex2((sacc[i + 1] - ls[r]) * kLog2e);
+          da[kk][j] = bf16x2(p0 * (dpacc[i] - dl[r]), p1 * (dpacc[i + 1] - dl[r]));
+        }
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma::wgmma_rs<D, 1>(dqa, da[kk], k_desc + kk * kStepRows, 1);
+      wgmma::commit();
+      wgmma::wait<0>();
+      wgmma::fence_operands(dqa);
+      wgmma::fence_operands(da);
+    }
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  const size_t base = (size_t)bh * n * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < n) {
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(dq + base + (size_t)row * D + 8 * i + 2 * t4) =
+            bf16x2(dqa[4 * i + 2 * r] * scale, dqa[4 * i + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// q^ = q * scale rounded to bf16 (the scale itself in bf16), for K5's and
+// K6-dkv's TMA
 __global__ void scale_q_kernel(const __nv_bfloat162* __restrict__ q,
                                __nv_bfloat162* __restrict__ out, size_t pairs,
                                float scale) {
@@ -964,6 +1062,39 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// K5 (DQ) and K6-dkv: q^ into q_hat, then the kernel
+template <int D, bool DQ>
+cudaError_t bwd_wgmma(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* q_hat, void* dk, void* dv, float* dq_acc, int bh,
+                      int n, int seq_len, float scale, cudaStream_t st) {
+  const size_t count = (size_t)bh * n * D;
+  if (reinterpret_cast<uintptr_t>(q) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(dk) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(dv) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(dq_acc) % 8 != 0)
+    return cudaErrorMisalignedAddress;
+  const size_t blocks = (count / 2 + 255) / 256;
+  scale_q_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(
+      static_cast<const __nv_bfloat162*>(q), static_cast<__nv_bfloat162*>(q_hat),
+      count / 2, scale);
+  cudaError_t err = cudaGetLastError();
+  CUtensorMap mq, mk, mv, mdo;
+  if (err == cudaSuccess) err = tensor_map(&mq, q_hat, bh, n, D, 64);
+  if (err == cudaSuccess) err = tensor_map(&mk, k, bh, n, D, 128);
+  if (err == cudaSuccess) err = tensor_map(&mv, v, bh, n, D, 128);
+  if (err == cudaSuccess) err = tensor_map(&mdo, dout, bh, n, D, 64);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_bwd_wgmma<D, DQ>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             BwdLayout::bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((n + 127) / 128, bh), kThreads, BwdLayout::bytes, st>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), dq_acc, n, seq_len);
+  return cudaGetLastError();
+}
+
 // K5 in bf16: zero the workspace, q^ into dq (free until the last pass),
 // the kernel, then dq = dq_acc * scale
 template <int D>
@@ -973,35 +1104,35 @@ cudaError_t bwd_fused(const void* q, const void* k, const void* v,
                       int n, int seq_len, float scale, cudaStream_t st) {
   const size_t count = (size_t)bh * n * D;
   cudaError_t err = cudaMemsetAsync(dq_acc, 0, count * sizeof(float), st);
-  if (err != cudaSuccess) return err;
-  if (reinterpret_cast<uintptr_t>(q) % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(dk) % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(dv) % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(dq_acc) % 8 != 0)
-    return cudaErrorMisalignedAddress;
-  const size_t blocks = (count / 2 + 255) / 256;
-  scale_q_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(
-      static_cast<const __nv_bfloat162*>(q), static_cast<__nv_bfloat162*>(dq),
-      count / 2, scale);
-  err = cudaGetLastError();
-  CUtensorMap mq, mk, mv, mdo;
-  if (err == cudaSuccess) err = tensor_map(&mq, dq, bh, n, D, 64);
-  if (err == cudaSuccess) err = tensor_map(&mk, k, bh, n, D, 128);
-  if (err == cudaSuccess) err = tensor_map(&mv, v, bh, n, D, 128);
-  if (err == cudaSuccess) err = tensor_map(&mdo, dout, bh, n, D, 64);
-  if (err != cudaSuccess) return err;
-  auto kernel = flash_bwd_wgmma<D>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             BwdLayout::bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((n + 127) / 128, bh), kThreads, BwdLayout::bytes, st>>>(
-      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), dq_acc, n, seq_len);
-  err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = bwd_wgmma<D, true>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, bh,
+                             n, seq_len, scale, st);
   if (err != cudaSuccess) return err;
   const size_t fblocks = (count + 255) / 256;
   flash_dq_flush_kernel<bf16><<<(int)(fblocks < 4096 ? fblocks : 4096), 256, 0, st>>>(
       dq_acc, static_cast<bf16*>(dq), count, scale);
+  return cudaGetLastError();
+}
+
+// K6-dq in bf16
+template <int D>
+cudaError_t bwd_dq(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int bh, int n, int seq_len, float scale,
+                   cudaStream_t st) {
+  if (reinterpret_cast<uintptr_t>(dq) % 4 != 0) return cudaErrorMisalignedAddress;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = tensor_map(&mq, q, bh, n, D, 128);
+  if (err == cudaSuccess) err = tensor_map(&mk, k, bh, n, D, 128);
+  if (err == cudaSuccess) err = tensor_map(&mv, v, bh, n, D, 128);
+  if (err == cudaSuccess) err = tensor_map(&mdo, dout, bh, n, D, 128);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_bwd_dq_wgmma<D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DqLayout::bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((n + 127) / 128, bh), kThreads, DqLayout::bytes, st>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dq), n, seq_len, scale);
   return cudaGetLastError();
 }
 
@@ -1222,37 +1353,62 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
     return hopper::fwd<D>(q, k, v, o, lse, bh, n, seq_len, scale, softmax, st);
 }
 
-template <typename T, int D>
-cudaError_t bwd_kv(const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   void* dk, void* dv, float* dq_acc, int bh, int n,
-                   int seq_len, float scale, cudaStream_t st) {
-  const size_t bytes = BwdSmem<T, D>::bytes;
-  auto kernel = dq_acc != nullptr ? flash_bwd_kv_kernel<T, D, true>
-                                  : flash_bwd_kv_kernel<T, D, false>;
+// fp32 K5's kernel (dq_acc given) or fp32 K6-dkv (dq_acc null): the first
+// design
+template <int D>
+cudaError_t first_bwd_kv(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* delta, void* dk, void* dv, float* dq_acc,
+                         int bh, int n, int seq_len, float scale,
+                         cudaStream_t st) {
+  const size_t bytes = BwdSmem<float, D>::bytes;
+  auto kernel = dq_acc != nullptr ? flash_bwd_kv_kernel<float, D, true>
+                                  : flash_bwd_kv_kernel<float, D, false>;
   cudaError_t err = prepare(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<grid_of(bh, n), kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), dq_acc, n, seq_len, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), dq_acc, n,
+      seq_len, scale);
   return cudaGetLastError();
 }
 
+// K6-dkv: bf16 flash_bwd_wgmma<D, false> on q^ in q_hat, fp32 the first
+// design (q_hat unused)
+template <typename T, int D>
+cudaError_t bwd_kv(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* q_hat, void* dk, void* dv, int bh, int n,
+                   int seq_len, float scale, cudaStream_t st) {
+  if constexpr (is_f32<T>())
+    return first_bwd_kv<D>(q, k, v, dout, lse, delta, dk, dv, nullptr, bh, n,
+                           seq_len, scale, st);
+  else
+    return hopper::bwd_wgmma<D, false>(q, k, v, dout, lse, delta, q_hat, dk,
+                                       dv, nullptr, bh, n, seq_len, scale, st);
+}
+
+// K6-dq: bf16 flash_bwd_dq_wgmma<D>, fp32 the first design
 template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, int bh, int n, int seq_len, float scale,
                    cudaStream_t st) {
-  const size_t bytes = BwdSmem<T, D>::bytes;
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err = prepare(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid_of(bh, n), kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), n, seq_len, scale);
-  return cudaGetLastError();
+  if constexpr (!is_f32<T>()) {
+    return hopper::bwd_dq<D>(q, k, v, dout, lse, delta, dq, bh, n, seq_len,
+                             scale, st);
+  } else {
+    const size_t bytes = BwdSmem<float, D>::bytes;
+    auto kernel = flash_bwd_dq_kernel<float, D>;
+    cudaError_t err = prepare(kernel, bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid_of(bh, n), kThreads, bytes, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, static_cast<float*>(dq), n, seq_len, scale);
+    return cudaGetLastError();
+  }
 }
 
 // K5: zero the dq workspace, the fused kernel, then dq = dq_acc * scale
@@ -1268,8 +1424,8 @@ cudaError_t bwd_fused(const void* q, const void* k, const void* v,
     const size_t count = (size_t)bh * n * D;
     cudaError_t err = cudaMemsetAsync(dq_acc, 0, count * sizeof(float), st);
     if (err != cudaSuccess) return err;
-    err = bwd_kv<T, D>(q, k, v, dout, lse, delta, dk, dv, dq_acc, bh, n,
-                       seq_len, scale, st);
+    err = first_bwd_kv<D>(q, k, v, dout, lse, delta, dk, dv, dq_acc, bh, n,
+                          seq_len, scale, st);
     if (err != cudaSuccess) return err;
     const size_t blocks = (count + 255) / 256;
     flash_dq_flush_kernel<T><<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(
@@ -1339,16 +1495,18 @@ extern "C" int muvo_flash_bwd_dq(const void* q, const void* k, const void* v,
                       scale, st);
 }
 
-// K6-dkv: dk and dv.
+// K6-dkv: dk and dv. In bf16 q_hat is a (bh, n, d) scratch that takes q^
+// (16-byte aligned, for TMA); in fp32 it is unused and may be null.
 extern "C" int muvo_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse,
-                                  const float* delta, void* dk, void* dv,
-                                  int bh, int n, int d, int seq_len,
+                                  const float* delta, void* q_hat, void* dk,
+                                  void* dv, int bh, int n, int d, int seq_len,
                                   float scale, int dtype, void* stream) {
-  if (bad_args(bh, n, d, seq_len, dtype)) return (int)cudaErrorInvalidValue;
+  if (bad_args(bh, n, d, seq_len, dtype) || (dtype == 1 && q_hat == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  MUVO_FLASH_DISPATCH(bwd_kv, q, k, v, dout, lse, delta, dk, dv,
-                      static_cast<float*>(nullptr), bh, n, seq_len, scale, st);
+  MUVO_FLASH_DISPATCH(bwd_kv, q, k, v, dout, lse, delta, q_hat, dk, dv, bh, n,
+                      seq_len, scale, st);
 }
 
 extern "C" const char* muvo_cuda_error_string(int code) {

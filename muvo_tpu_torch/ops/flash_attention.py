@@ -18,11 +18,21 @@ q, k, v are (bh, n, d) with d in {32, 48, 64} on the card; keys at or past
 ``seq_len`` are masked, and no caller pads n (the kernels mask the ragged
 tail). On a CPU tensor each wrapper runs its plain PyTorch version; on a
 CUDA tensor it launches the hand-written kernel in csrc/flash_attention.cu
-(CUDA C++ for sm_90a, plain C interface, ctypes) or raises: in bf16 K4,
-K4-mb and K5 stage tiles by TMA and multiply with wgmma, which need the
-tensors' data 16-byte aligned (a misaligned view is copied first). The
-source notes what bounds the kernels. muvo_tpu's _FUSED_DQ_VMEM_BUDGET
-limits the TPU's VMEM and has no counterpart: K5's dq workspace lies in
+(CUDA C++ for sm_90a, plain C interface, ctypes) or raises, and names the
+kernel in its ``last_impl`` ("plain" on the CPU; ``kernel_name`` gives
+the name by dtype, as the source's dispatch picks). In bf16 every flash
+kernel stages tiles by TMA and multiplies with wgmma (namespace hopper),
+which needs the tensors' data 16-byte aligned (a misaligned view is
+copied first): K4 and K4-mb are flash_fwd_wgmma, K5 and K6-dkv one
+key-major kernel, flash_bwd_wgmma<D, DQ> (K6-dkv without K5's dq work,
+so its dk and dv equal K5's bit for bit), on q^ = q * scale in bf16 from
+scale_q_kernel (K5 writes it into dq, K6-dkv into a (bh, n, d) scratch
+the wrapper allocates), and K6-dq the q-major flash_bwd_dq_wgmma<D> on
+K4's skeleton (q^ formed in shared memory, dq kept in registers). fp32 K4
+and K4-mb are register-tiled CUDA-core kernels; fp32 K5 and K6 the first,
+shared-memory design. The products bound the bf16 backward kernels, the
+exponentials bound K4; the source gives the numbers. muvo_tpu's
+_FUSED_DQ_VMEM_BUDGET limits the TPU's VMEM and has no counterpart: K5's dq workspace lies in
 device memory, so K5 serves every length, and ``split`` is the port's
 form of muvo_tpu's MUVO_FLASH_FUSED_BWD switch, an argument and not an
 environment variable.
@@ -64,8 +74,8 @@ def _library():
                                              _P]
         lib.muvo_flash_bwd_dq.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                           _I, _I, _F, _I, _P]
-        lib.muvo_flash_bwd_dkv.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                           _I, _I, _I, _F, _I, _P]
+        lib.muvo_flash_bwd_dkv.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                           _I, _I, _I, _I, _F, _I, _P]
         for fn in (lib.muvo_flash_fwd, lib.muvo_flash_bwd_fused,
                    lib.muvo_flash_bwd_dq, lib.muvo_flash_bwd_dkv):
             fn.restype = _I
@@ -81,6 +91,29 @@ def _raise_if(rc: int, what: str):
 
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# the kernel each wrapper launches on the card, by type (the dispatch in
+# csrc/flash_attention.cu), named as in the source, with its namespace
+# where it has one
+_KERNELS = {
+    "K4": {torch.bfloat16: "hopper::flash_fwd_wgmma<{d}, true>",
+           torch.float32: "fp32::flash_fwd_f32<{d}, true>"},
+    "K4-mb": {torch.bfloat16: "hopper::flash_fwd_wgmma<{d}, false>",
+              torch.float32: "fp32::flash_fwd_f32<{d}, false>"},
+    "K5": {torch.bfloat16: "hopper::flash_bwd_wgmma<{d}, true>",
+           torch.float32: "flash_bwd_kv_kernel<float, {d}, true>"},
+    "K6-dq": {torch.bfloat16: "hopper::flash_bwd_dq_wgmma<{d}>",
+              torch.float32: "flash_bwd_dq_kernel<float, {d}>"},
+    "K6-dkv": {torch.bfloat16: "hopper::flash_bwd_wgmma<{d}, false>",
+               torch.float32: "flash_bwd_kv_kernel<float, {d}, false>"},
+}
+
+
+def kernel_name(kid: str, dtype, d: int) -> str:
+    """The kernel that flash kernel ``kid`` ("K4", "K4-mb", "K5", "K6-dq",
+    "K6-dkv") runs on the card for ``dtype`` and head dim ``d``."""
+    return _KERNELS[kid][dtype].format(d=d)
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +227,7 @@ def _aligned(*tensors):
 
 
 def _forward_launch(q, k, v, seq_len, softmax: bool):
+    """K4 or K4-mb on the card: (o, lse)."""
     q, k, v = _aligned(q, k, v)
     bh, n, d = q.shape
     o = torch.empty_like(q)
@@ -212,9 +246,11 @@ def flash_fwd(q, k, v, seq_len: Optional[int] = None):
     ``seq_len`` masked; o in q's type, lse fp32 (bh, n)."""
     on_host, seq_len = _check(q, k, v, seq_len=seq_len)
     if on_host:
+        flash_fwd.last_impl = "plain"
         return flash_fwd_plain(q, k, v, seq_len)
     out = _forward_launch(q, k, v, seq_len, softmax=True)
     flash_fwd.launches += 1
+    flash_fwd.last_impl = kernel_name("K4", q.dtype, q.shape[-1])
     return out
 
 
@@ -223,9 +259,11 @@ def flash_matmul(q, k, v):
     key counted."""
     on_host, n = _check(q, k, v, seq_len=None)
     if on_host:
+        flash_matmul.last_impl = "plain"
         return flash_matmul_plain(q, k, v)
     out, _ = _forward_launch(q, k, v, n, softmax=False)
     flash_matmul.launches += 1
+    flash_matmul.last_impl = kernel_name("K4-mb", q.dtype, q.shape[-1])
     return out
 
 
@@ -251,6 +289,7 @@ def flash_bwd_dq(q, k, v, o, lse, do, seq_len: Optional[int] = None):
     q's type)."""
     on_host, seq_len, args = _backward_args(q, k, v, o, lse, do, seq_len)
     if on_host:
+        flash_bwd_dq.last_impl = "plain"
         return flash_bwd_plain(q, k, v, o, lse, do, seq_len)[0]
     _, head, tail = args
     dq = torch.empty_like(q)
@@ -258,21 +297,27 @@ def flash_bwd_dq(q, k, v, o, lse, do, seq_len: Optional[int] = None):
         rc = _library().muvo_flash_bwd_dq(*head, dq.data_ptr(), *tail)
     _raise_if(rc, "K6-dq")
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.last_impl = kernel_name("K6-dq", q.dtype, q.shape[-1])
     return dq
 
 
 def flash_bwd_dkv(q, k, v, o, lse, do, seq_len: Optional[int] = None):
-    """K6-dkv: (dk, dv) of K4, inputs as flash_bwd_dq."""
+    """K6-dkv: (dk, dv) of K4, inputs as flash_bwd_dq. In bf16 the kernel
+    reads q^ from a scratch allocated here."""
     on_host, seq_len, args = _backward_args(q, k, v, o, lse, do, seq_len)
     if on_host:
+        flash_bwd_dkv.last_impl = "plain"
         return flash_bwd_plain(q, k, v, o, lse, do, seq_len)[1:]
     _, head, tail = args
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    q_hat = torch.empty_like(q) if q.dtype == torch.bfloat16 else None
     with torch.cuda.device(q.device):
-        rc = _library().muvo_flash_bwd_dkv(*head, dk.data_ptr(),
-                                           dv.data_ptr(), *tail)
+        rc = _library().muvo_flash_bwd_dkv(
+            *head, None if q_hat is None else q_hat.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *tail)
     _raise_if(rc, "K6-dkv")
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.last_impl = kernel_name("K6-dkv", q.dtype, q.shape[-1])
     return dk, dv
 
 
@@ -285,6 +330,7 @@ def flash_bwd(q, k, v, o, lse, do, seq_len: Optional[int] = None,
                 *flash_bwd_dkv(q, k, v, o, lse, do, seq_len))
     on_host, seq_len, args = _backward_args(q, k, v, o, lse, do, seq_len)
     if on_host:
+        flash_bwd.last_impl = "plain"
         return flash_bwd_plain(q, k, v, o, lse, do, seq_len)
     _, head, tail = args
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -295,15 +341,17 @@ def flash_bwd(q, k, v, o, lse, do, seq_len: Optional[int] = None,
             work.data_ptr(), *tail)
     _raise_if(rc, "K5")
     flash_bwd.launches += 1
+    flash_bwd.last_impl = kernel_name("K5", q.dtype, q.shape[-1])
     return dq, dk, dv
 
 
-# launch counts: each wrapper adds one per kernel launch, nowhere else
-flash_fwd.launches = 0
-flash_bwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
-flash_matmul.launches = 0
+# launch counts: each wrapper adds one per kernel launch, nowhere else; the
+# kernel (or "plain") each ran last
+for _wrapper in (flash_fwd, flash_bwd, flash_bwd_dq, flash_bwd_dkv,
+                 flash_matmul):
+    _wrapper.launches = 0
+    _wrapper.last_impl = None
+del _wrapper
 
 
 # ---------------------------------------------------------------------------

@@ -255,6 +255,90 @@ def test_flash_autograd_on_card_matches_host(dev, bwd):
         assert _norm_rel(got, want) <= 1e-4
 
 
+# bf16 K6 on the Hopper kernels: K6-dq is hopper::flash_bwd_dq_wgmma (128 q
+# rows a block, 128-key tiles taken in halves of 64 keys), K6-dkv
+# hopper::flash_bwd_wgmma<D, false> (K5's kernel without dq: 128 keys a
+# block, 64-row q tiles). (bh, n, seq_len): tools/torch_flash_probe.py's
+# edges, n just under, on and past 128, seq_len on and past a 128-key tile
+K6_EDGES = [(1, 128, None), (2, 127, None), (3, 129, None), (2, 257, 128),
+            (2, 257, 129), (2, 300, 200), (2, 200, 60), (1, 64, None)]
+
+
+@pytest.mark.parametrize("d", [32, 48, 64])
+@pytest.mark.parametrize("bh,n,seq_len", K6_EDGES)
+def test_bf16_k6_runs_the_hopper_kernels(dev, d, bh, n, seq_len):
+    """bf16 K6-dq and K6-dkv against the plain version, each launch counted
+    once and named in ``last_impl``, a second launch giving the same bits,
+    K6-dkv's dk and dv equal to K5's (the same kernel, products and order),
+    and K6-dq's dq within one bf16 rounding of K5's, norm-relative (both
+    sum the same bf16 products in fp32, in other orders, then round)."""
+    q, k, v, do = _qkv(dev, bh, n, d, torch.bfloat16, count=4)
+    o, lse = fa.flash_fwd(q, k, v, seq_len)
+    n0 = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    dq = fa.flash_bwd_dq(q, k, v, o, lse, do, seq_len)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, o, lse, do, seq_len)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches - n0[0],
+            fa.flash_bwd_dkv.launches - n0[1]) == (1, 1)
+    assert fa.flash_bwd_dq.last_impl == f"hopper::flash_bwd_dq_wgmma<{d}>"
+    assert fa.flash_bwd_dkv.last_impl == f"hopper::flash_bwd_wgmma<{d}, false>"
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, seq_len)
+    for g, w in zip((dq, dk, dv), want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert _norm_rel(g, w) <= TOL[torch.bfloat16]
+    again = (fa.flash_bwd_dq(q, k, v, o, lse, do, seq_len),
+             *fa.flash_bwd_dkv(q, k, v, o, lse, do, seq_len))
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+    fused = fa.flash_bwd(q, k, v, o, lse, do, seq_len)
+    assert fa.flash_bwd.last_impl == f"hopper::flash_bwd_wgmma<{d}, true>"
+    assert torch.equal(dk, fused[1]) and torch.equal(dv, fused[2])
+    assert _norm_rel(dq, fused[0]) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("d", [32, 48, 64])
+@pytest.mark.parametrize("bh,n,seq_len", [(3, 300, None), (2, 257, 129)])
+def test_fp32_k6_keeps_the_first_design(dev, d, bh, n, seq_len):
+    """fp32 K6 and K5 stay on the first, shared-memory design and equal the
+    plain version bit for bit (K5's dq, summed by atomics, aside)."""
+    q, k, v, do = _qkv(dev, bh, n, d, torch.float32, count=4)
+    o, lse = fa.flash_fwd(q, k, v, seq_len)
+    got = (fa.flash_bwd_dq(q, k, v, o, lse, do, seq_len),
+           *fa.flash_bwd_dkv(q, k, v, o, lse, do, seq_len))
+    fused = fa.flash_bwd(q, k, v, o, lse, do, seq_len)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq.last_impl == f"flash_bwd_dq_kernel<float, {d}>"
+    assert fa.flash_bwd_dkv.last_impl == (
+        f"flash_bwd_kv_kernel<float, {d}, false>")
+    assert fa.flash_bwd.last_impl == f"flash_bwd_kv_kernel<float, {d}, true>"
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, seq_len)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(fused[1:], want[1:]))
+
+
+def test_k6_profile_names_the_kernels(dev):
+    """The profiler sees flash_bwd_dq_wgmma and flash_bwd_wgmma<48, false>
+    for bf16 K6 (and no kernel of the first design), the first design's
+    flash_bwd_dq_kernel and flash_bwd_kv_kernel<float, 48, false> for
+    fp32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = _qkv(dev, 2, 300, 48, dtype, count=4)
+        o, lse = fa.flash_fwd(q, k, v)
+        names = _kernel_names(lambda: fa.flash_bwd(q, k, v, o, lse, do,
+                                                   split=True))
+        first = [k for k in names
+                 if "flash_bwd_dq_kernel" in k or "flash_bwd_kv_kernel" in k]
+        if dtype == torch.bfloat16:
+            assert any("flash_bwd_dq_wgmma<48>" in k for k in names), names
+            assert any("flash_bwd_wgmma<48, false>" in k for k in names), names
+            assert not first, names
+        else:
+            assert any("flash_bwd_dq_kernel<float, 48>" in k
+                       for k in names), names
+            assert any("flash_bwd_kv_kernel<float, 48, false>" in k
+                       for k in names), names
+            assert not any("wgmma" in k for k in names), names
+
+
 def test_flash_wrapper_raises_on_what_the_kernels_do_not_take(dev):
     q, k, v = _qkv(dev, 2, 100, 48, torch.float32)
     n = fa.flash_fwd.launches

@@ -8,8 +8,10 @@ _flash_bwd_fused and _flash_bwd on muvo_tpu's own o and lse, and the
 port's autograd Function (flash_attention, both backward schemes) against
 jax.vjp of muvo_tpu's flash_attention. Shapes: (bh 2, n 300, d 48), a
 ragged n inside one block, (bh 2, n 640, seq_len 600, d 32), keys
-masked past seq_len across two blocks, and two at the edges of the card's
-bf16 tiles: n 129 (d 48) and seq_len 128 of n 200 (d 64).
+masked past seq_len across two blocks, and three at the edges of the
+card's bf16 tiles: n 129 (d 48), seq_len 128 of n 200 (d 64), and n 257
+with seq_len 129 (d 32), one past the 128-row and 128-key tiles of K4 and
+K6-dq and of K5's and K6-dkv's 128-key blocks.
 test_zero_padded_head_dim_changes_nothing holds what those kernels rely
 on: zero columns past d leave every product, and so the results, as they
 are.
@@ -20,9 +22,16 @@ q^, p and the outputs to bf16, but muvo_tpu rounds p relative to its
 blocks' running maximum and the plain version to the row's).
 test_checks_fail_on_a_wrong_kernel shows that each comparison fails for
 a flipped key mask, a missing 1/sqrt(d) and a dq without its scale.
+
+On CPU tensors every wrapper runs its plain version and says so in
+``last_impl``; ``kernel_name`` names, by type and head dim, a kernel that
+csrc/flash_attention.cu defines, in namespace hopper for bf16 and outside
+it for fp32, as the source's dispatch picks.
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +47,8 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SHAPES = {"n300_d48": (2, 300, 48, None), "n640_d32_seq600": (2, 640, 32, 600),
           # the bf16 kernels' tile edges: n one past a 128-row block, and
           # seq_len on a 128-key tile boundary
-          "n129_d48": (2, 129, 48, None), "n200_d64_seq128": (2, 200, 64, 128)}
+          "n129_d48": (2, 129, 48, None), "n200_d64_seq128": (2, 200, 64, 128),
+          "n257_d32_seq129": (2, 257, 32, 129)}
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -249,3 +259,73 @@ def test_zero_padded_head_dim_changes_nothing(monkeypatch, part, seq_len):
         for g, w in zip(got, want):
             assert torch.equal(g[..., :48], w)
             assert not g[..., 48:].any()
+
+
+WRAPPERS = ("flash_fwd", "flash_matmul", "flash_bwd", "flash_bwd_dq",
+            "flash_bwd_dkv")
+
+
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+def test_last_impl_is_plain_on_the_cpu(wrapper):
+    """A CPU tensor runs the plain version, counts no launch and sets
+    ``last_impl`` to "plain", in both types."""
+    fn = getattr(fa, wrapper)
+    rs = np.random.RandomState(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.from_numpy(rs.randn(2, 40, 32).astype(
+            np.float32)).to(dtype) for _ in range(4))
+        o, lse = fa.flash_fwd_plain(q, k, v, 30)
+        args = {"flash_fwd": (q, k, v, 30), "flash_matmul": (q, k, v)}.get(
+            wrapper, (q, k, v, o, lse, do, 30))
+        fn.last_impl = None
+        launches = fn.launches
+        fn(*args)
+        assert fn.last_impl == "plain" and fn.launches == launches
+
+
+_SOURCE = (Path(fa.__file__).resolve().parents[1] / "csrc"
+           / "flash_attention.cu").read_text()
+
+
+def _kernel_template(name):
+    """(namespace, template parameter count) of the __global__ template
+    ``name`` in csrc/flash_attention.cu."""
+    hopper = _SOURCE.index("namespace hopper {")
+    hopper_end = _SOURCE.index("}  // namespace hopper")
+    fp32 = _SOURCE.index("namespace fp32 {")
+    fp32_end = _SOURCE.index("}  // namespace fp32")
+    m = re.search(r"template <([^>]*)>\s*__global__ void __launch_bounds__"
+                  r"\([^)]*\)\s*" + name + r"\(", _SOURCE)
+    assert m, name
+    at = m.start()
+    space = ("hopper" if hopper < at < hopper_end else
+             "fp32" if fp32 < at < fp32_end else "")
+    return space, len(m.group(1).split(","))
+
+
+@pytest.mark.parametrize("kid", ["K4", "K4-mb", "K5", "K6-dq", "K6-dkv"])
+def test_kernel_name_follows_the_dispatch(kid):
+    """The name ``last_impl`` gives on the card: a kernel template of the
+    source, with as many arguments as it has parameters and d among them,
+    in namespace hopper for bf16 (K5 and K6-dkv one kernel, K6-dq its own)
+    and not for fp32."""
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in fa.HEAD_DIMS:
+            name = fa.kernel_name(kid, dtype, d)
+            m = re.fullmatch(r"(?:(\w+)::)?(\w+)<([^>]*)>", name)
+            assert m, name
+            space, base, args = m.groups()
+            args = [a.strip() for a in args.split(",")]
+            assert str(d) in args
+            assert _kernel_template(base) == (space or "", len(args))
+            assert (space == "hopper") == (dtype == torch.bfloat16)
+            names[dtype] = base, args
+    bf16 = names[torch.bfloat16]
+    want = {"K4": ("flash_fwd_wgmma", "true"),
+            "K4-mb": ("flash_fwd_wgmma", "false"),
+            "K5": ("flash_bwd_wgmma", "true"),
+            "K6-dkv": ("flash_bwd_wgmma", "false"),
+            "K6-dq": ("flash_bwd_dq_wgmma", None)}[kid]
+    assert bf16[0] == want[0]
+    assert want[1] is None or bf16[1][-1] == want[1]

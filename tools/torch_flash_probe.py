@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
-"""K4, K4-mb and K5 on one GPU: right at the tile edges, then timed launch by
-launch at the LARGE path's shape beside the library's attention.
+"""K4, K4-mb, K5, K6-dq and K6-dkv on one GPU: right at the tile edges, then
+timed launch by launch at the LARGE path's shape beside the library's
+attention.
 
     python3 tools/torch_flash_probe.py [--iters 12] [--out PATH]
 
-1. edges: bf16 and fp32, K4 (o, lse), K4-mb and K5 (dq, dk, dv) against
-   their plain versions at the shapes where the kernels' tiles end (n
-   just under, on and past 128, seq_len on and past a 128-key tile, d 32,
-   48 and 64), norm-relative (bf16 2e-2, fp32 1e-4, as chip_smoke.py).
+1. edges: bf16 and fp32, K4 (o, lse), K4-mb, K5 (dq, dk, dv) and K6
+   (K6-dq's dq, K6-dkv's dk, dv) against their plain versions at the
+   shapes where the kernels' tiles end (n just under, on and past 128,
+   seq_len on and past a 128-key tile, d 32, 48 and 64), norm-relative
+   (bf16 2e-2, fp32 1e-4, as chip_smoke.py). K6 must give the same bits on
+   a second launch and name its kernel in ``last_impl`` as
+   ``kernel_name`` does; in bf16 K6-dkv's dk and dv must equal K5's (one
+   kernel, the same products in the same order), and K6-dq's dq is
+   reported against K5's.
 2. timing: each kernel --iters times in a row, one CUDA event between
-   launches, so a slow launch shows on its own: bf16 K4, K4-mb and K5 at
-   bh 48, n 5184, d 48 and 32, fp32 K4 at bh 48 and 8 (the LARGE training
-   and serving shapes), each beside scaled_dot_product_attention (and its
-   backward alone for K5) on the same inputs.
+   launches, so a slow launch shows on its own: bf16 K4, K4-mb, K5, K6-dq
+   and K6-dkv at bh 48, n 5184, d 48 and 32, fp32 K4 at bh 48 and 8 (the
+   LARGE training and serving shapes), each beside
+   scaled_dot_product_attention (and its backward alone for the backward
+   kernels) on the same inputs.
 
-Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
+The result also holds flash_attention.cu's ptxas lines (registers and
+spills a kernel). Prints one JSON object and writes it to --out; exits 1
+if an edge case failed (listed under "failed"). Needs CUDA; it has no CPU
 mode.
 """
 
@@ -74,10 +83,11 @@ def main(argv=None) -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     from muvo_tpu_torch.ops import flash_attention as fa
+    from muvo_tpu_torch.ops._build import build_log
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    edges = []
+    edges, failed = [], []
     for dtype in (torch.bfloat16, torch.float32):
         for bh, n, d, seq_len in EDGES:
             q, k, v, do = inputs(dev, bh, n, d, dtype)
@@ -85,17 +95,40 @@ def main(argv=None) -> int:
             got = {"o": o, "lse": lse, "mb": fa.flash_matmul(q, k, v)}
             got.update(zip(("dq", "dk", "dv"),
                            fa.flash_bwd(q, k, v, o, lse, do, seq_len)))
+            got["k6_dq"] = fa.flash_bwd_dq(q, k, v, o, lse, do, seq_len)
+            got["k6_dk"], got["k6_dv"] = fa.flash_bwd_dkv(q, k, v, o, lse, do,
+                                                          seq_len)
+            again = (fa.flash_bwd_dq(q, k, v, o, lse, do, seq_len),
+                     *fa.flash_bwd_dkv(q, k, v, o, lse, do, seq_len))
             torch.cuda.synchronize()
             want = dict(zip(("o", "lse"), fa.flash_fwd_plain(q, k, v, seq_len)))
             want["mb"] = fa.flash_matmul_plain(q, k, v)
             want.update(zip(("dq", "dk", "dv"),
                             fa.flash_bwd_plain(q, k, v, o, lse, do, seq_len)))
+            want.update(k6_dq=want["dq"], k6_dk=want["dk"], k6_dv=want["dv"])
             rel = {key: norm_rel(got[key], want[key]) for key in got}
-            edges.append({"dtype": str(dtype).replace("torch.", ""), "bh": bh,
-                          "n": n, "d": d, "seq_len": seq_len, "rel": rel})
+            k6 = (got["k6_dq"], got["k6_dk"], got["k6_dv"])
+            row = {"dtype": str(dtype).replace("torch.", ""), "bh": bh, "n": n,
+                   "d": d, "seq_len": seq_len, "rel": rel,
+                   "k6_repeat_equal": all(torch.equal(a, b)
+                                          for a, b in zip(k6, again)),
+                   "k6_impl": [fa.flash_bwd_dq.last_impl,
+                               fa.flash_bwd_dkv.last_impl]}
+            if dtype == torch.bfloat16:
+                row["k6_dkv_equals_k5"] = (torch.equal(got["k6_dk"], got["dk"])
+                                           and torch.equal(got["k6_dv"],
+                                                           got["dv"]))
+                row["k6_dq_vs_k5"] = norm_rel(got["k6_dq"], got["dq"])
+            edges.append(row)
             bad = {key: r for key, r in rel.items() if not r <= TOL[dtype]}
+            if row["k6_impl"] != [fa.kernel_name(kid, dtype, d)
+                                  for kid in ("K6-dq", "K6-dkv")]:
+                bad["k6_impl"] = row["k6_impl"]
+            for key in ("k6_repeat_equal", "k6_dkv_equals_k5"):
+                if row.get(key) is False:
+                    bad[key] = False
             if bad:
-                raise AssertionError(f"{dtype} {(bh, n, d, seq_len)}: {bad}")
+                failed.append(f"{dtype} {(bh, n, d, seq_len)}: {bad}")
     timed = []
     for dtype, bh, d in TIMED:
         q, k, v, do = inputs(dev, bh, N, d, dtype)
@@ -107,6 +140,8 @@ def main(argv=None) -> int:
         if dtype == torch.bfloat16:
             lib = F.scaled_dot_product_attention(q4, k4, v4)
             runs["K5"] = lambda: fa.flash_bwd(q, k, v, o, lse, do)
+            runs["K6-dq"] = lambda: fa.flash_bwd_dq(q, k, v, o, lse, do)
+            runs["K6-dkv"] = lambda: fa.flash_bwd_dkv(q, k, v, o, lse, do)
             runs["sdpa_bwd"] = lambda: torch.autograd.grad(
                 lib, (q4, k4, v4), do[None], retain_graph=True)
         for name, fn in runs.items():
@@ -121,11 +156,14 @@ def main(argv=None) -> int:
                          capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[0]
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "edges": edges, "timed": timed}
+              "edges": edges, "timed": timed, "failed": failed}
+    result["ptxas"] = [ln.strip() for ln in build_log(
+        "flash_attention").splitlines() if "registers" in ln
+        or "spill" in ln or "Compiling entry" in ln or "warning" in ln]
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
