@@ -14,9 +14,11 @@ exits nonzero (there is no CPU fallback):
    the plain version, one library call and the bound. In bf16 both are the
    tensor-core kernel (zconv_tc_kernel): K2 on the small-z grid, K1 on the
    view zconv.k1_route picks (z pairs folded into channels at conv3.conv2);
-   fp32 K2 and K1 are the CUDA-core one. Each row names the kernel that
-   ran in ``impl``; a bf16 row must name the tensor-core kernel and a
-   second launch must give the same bits.
+   fp32 K1 is the CUDA-core zconv_kernel, fp32 K2 the register-tiled
+   f32up::zconv_up_f32_kernel (zconv_f32.cu). Each row names the kernel
+   that ran in ``impl``; a bf16 row must name the tensor-core kernel, an
+   fp32 K2 row zconv_up_f32_kernel, and for both a second launch must give
+   the same bits.
 4. backward_kernels: K1-dx, K2-dx, K3 and K3-up at the four training shapes
    (batch 24 = 4 sequences of 6 frames), bf16 and fp32, held against their
    plain versions and timed beside them, one library call
@@ -43,9 +45,10 @@ exits nonzero (there is no CPU fallback):
    version's.
 6. serving: muvo.yml at full width with seeded random weights, driven
    through DeploymentSession (deployment_forward, then sim_forward with a
-   5-step imagination); K1 and K2 must be launched and K4 not (648 tokens
-   a frame), outputs must be finite with muvo_tpu's shapes, and one decode
-   on the card must match the same decode run by the port on the host CPU.
+   5-step imagination); K1 and K2 must be launched (K2 on
+   zconv_up_f32_kernel) and K4 not (648 tokens a frame), outputs must be
+   finite with muvo_tpu's shapes, and one decode on the card must match the
+   same decode run by the port on the host CPU.
 7. training: build_flagship_step (muvo.yml at full width, 4 x 6 frames, bf16
    autocast, decoder remat, AdamW + OneCycle), 3 warm-up steps, then timed
    steps; every kernel's launches must rise by what the model predicts and
@@ -67,7 +70,10 @@ exits nonzero (there is no CPU fallback):
 10. microbench: tools/torch_flash_microbench.py, K4-mb and K4 at bh 16.
 
 Each main path's launch counts are set to 0 just before it runs and read
-just after; the kernels line sums them by path.
+just after; each wrapper counts its launches by the tensors' type. The
+kernels line has one entry for each kernel and type that a main path
+launched, with that type's counts by path, and every kernel must have been
+launched on some main path.
 The last three lines are the kernels summary, nvidia-smi's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -116,7 +122,11 @@ SHAPES = (
     ("K2", "conv3.conv1", (192, 192, 32, 16), 8),
     ("K1", "conv3.conv2", (192, 192, 64, 8), 8),
 )
-MAIN_SHAPE = {"K1": "conv3.conv2", "K2": "conv3.conv1"}  # summary entries
+# the stage each voxel kernel's kernels-line entry reports (fp32 K2 at
+# conv2.conv1, where its kernel has the least room)
+MAIN_SHAPE = {"K1": "conv3.conv2", "K2": "conv3.conv1", "K1-dx": "conv3.conv2",
+              "K2-dx": "conv3.conv1", "K3": "conv3.conv2",
+              "K3-up": "conv3.conv1"}
 MAIN_BATCH = 5  # the imagination rollout decodes 5 states at once
 TRAIN_BATCH = 24  # the flagship train step decodes 4 x 6 frames
 TRAIN_STEPS = 5   # timed flagship steps
@@ -128,14 +138,15 @@ KERNEL_NAMES = {"K1": "zconv3d_leaky", "K2": "upzconv3d_leaky",
                 "K3": "zconv3d_dw", "K3-up": "upzconv3d_dw",
                 "K4": "flash_fwd", "K5": "flash_bwd", "K6-dq": "flash_bwd_dq",
                 "K6-dkv": "flash_bwd_dkv", "K4-mb": "flash_matmul"}
-# K3 and K3-up in bf16, the type of the training path and of the kernels
-# line (fp32: zconv_dw.cu's dw_kernel)
+# each kernel's source; where fp32 has its own, in F32_SOURCES
 SOURCES = {"K1": "zconv.cu", "K2": "zconv.cu", "K1-dx": "zconv.cu",
            "K2-dx": "zconv.cu", "K3": "zconv_dw_tc.cu",
            "K3-up": "zconv_dw_tc.cu",
            "K4": "flash_attention.cu", "K5": "flash_attention.cu",
            "K6-dq": "flash_attention.cu", "K6-dkv": "flash_attention.cu",
            "K4-mb": "flash_attention.cu"}
+F32_SOURCES = {"K2": "zconv_f32.cu", "K3": "zconv_dw.cu",
+               "K3-up": "zconv_dw.cu"}
 REPLACES = {"K1": "muvo_tpu/ops/pallas_zconv.py:171",
             "K2": "muvo_tpu/ops/pallas_zconv.py:171",
             "K1-dx": "muvo_tpu/ops/pallas_zconv.py:171",
@@ -214,12 +225,15 @@ def bound(x, w, out, z_out: int, up: bool):
                       x.dtype)
 
 
-def require_tensor_cores(what, impl, got, again):
-    """A bf16 K1, K2, K1-dx or K2-dx launch must have run the tensor-core
-    kernel, and a second launch on the same inputs must give the same
+TC_IMPL = "tc::zconv_tc_kernel"  # bf16 K1, K2, K1-dx and K2-dx
+
+
+def require_kernel(what, impl, want, got, again):
+    """A launch must have run the kernel whose name ``impl`` starts with
+    ``want``, and a second launch on the same inputs must give the same
     bits."""
-    if not impl.startswith("tc::zconv_tc_kernel"):
-        raise AssertionError(f"{what}: ran {impl}, not zconv_tc_kernel")
+    if not impl.startswith(want):
+        raise AssertionError(f"{what}: ran {impl}, not {want}")
     if not torch.equal(got, again):
         raise AssertionError(f"{what}: a second launch gave other bits")
 
@@ -247,9 +261,11 @@ def kernel_phase(dev):
                 with torch.no_grad():
                     out = kernel(x, w, bias, 0.2)
                     impl = kernel.last_impl
-                    if dtype == torch.bfloat16:
-                        require_tensor_cores(f"{kid} {stage} B={b}", impl,
-                                             out, kernel(x, w, bias, 0.2))
+                    want = (TC_IMPL if dtype == torch.bfloat16
+                            else zconv.K2_F32_IMPL if up else None)
+                    if want is not None:
+                        require_kernel(f"{kid} {stage} B={b} {dtype}", impl,
+                                       want, out, kernel(x, w, bias, 0.2))
                     ref = plain(x, w, bias, 0.2)
                     torch.cuda.synchronize()
                     err = (out.float() - ref.float()).abs().max().item()
@@ -273,7 +289,7 @@ def kernel_phase(dev):
                     "phase": "kernel", "kernel": kid, "stage": stage,
                     "shape": [b, *shape], "cout": cout,
                     "dtype": str(dtype).replace("torch.", ""),
-                    "impl": impl, "repeat_equal": dtype == torch.bfloat16,
+                    "impl": impl, "repeat_equal": want is not None,
                     "max_abs_err": err, "rel_err": rel, "tol": tol,
                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
@@ -325,8 +341,8 @@ def backward_kernel_phase(dev):
                 got, want = dx_k(g, out, w, 0.2), dx_p(g, out, w, 0.2)
                 dx_impl = dx_k.last_impl
                 if dtype == torch.bfloat16:
-                    require_tensor_cores(f"{dx_id} {stage}", dx_impl, got,
-                                         dx_k(g, out, w, 0.2))
+                    require_kernel(f"{dx_id} {stage}", dx_impl, TC_IMPL,
+                                   got, dx_k(g, out, w, 0.2))
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 rel = err / want.float().abs().max().item()
@@ -408,10 +424,18 @@ def _wrapper(kid):
 def reset_launches():
     for kid in KERNEL_NAMES:
         _wrapper(kid).launches = 0
+        _wrapper(kid).launches_by_type = {}
 
 
 def read_launches():
     return {kid: _wrapper(kid).launches for kid in KERNEL_NAMES}
+
+
+def read_typed_launches():
+    """{kernel: {type: launches}} for every kernel launched since the
+    counts were set to 0, as its wrapper counted them by type."""
+    return {kid: dict(_wrapper(kid).launches_by_type) for kid in KERNEL_NAMES
+            if _wrapper(kid).launches}
 
 
 def predicted_launches(cfg):
@@ -506,7 +530,7 @@ def run_train_steps(fs, dev, phase: str, config: str):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         steps.append({k: v.item() for k, v in metrics.items()})
-    launches = read_launches()
+    launches, typed = read_launches(), read_typed_launches()
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     per_step = predicted_launches(cfg)
     median = statistics.median(step_ms)
@@ -515,7 +539,7 @@ def run_train_steps(fs, dev, phase: str, config: str):
           "remat": bool(cfg.MODEL.REMAT), "warmup_step_ms": warm_ms,
           "step_ms": step_ms, "step_ms_median": median,
           "frames_per_s": frames / (median / 1e3), "peak_mib": peak_mib,
-          "launches": launches,
+          "launches": launches, "launches_by_type": typed,
           "launches_per_step": {k: n // TRAIN_STEPS
                                 for k, n in launches.items()},
           "launches_per_step_predicted": per_step,
@@ -529,7 +553,7 @@ def run_train_steps(fs, dev, phase: str, config: str):
         bad = [k for k, v in losses.items() if not math.isfinite(v)]
         if bad:
             raise AssertionError(f"step {i}: non-finite losses {bad}")
-    return launches
+    return typed
 
 
 def training_phase(dev):
@@ -643,12 +667,15 @@ def serving_phase(dev, cfg):
         sim_ms.append((time.perf_counter() - t0) * 1e3)
         sim_launches = {"K1": zconv.zconv3d_leaky.launches - before[0],
                         "K2": zconv.upzconv3d_leaky.launches - before[1]}
-    launches = read_launches()
+    launches, typed = read_launches(), read_typed_launches()
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
 
     if not (launches["K1"] and launches["K2"]):
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{launches}")
+    if zconv.upzconv3d_leaky.last_impl != zconv.K2_F32_IMPL:
+        raise AssertionError(f"serving's K2 ran "
+                             f"{zconv.upzconv3d_leaky.last_impl}")
     if launches["K4"]:  # 648 tokens a frame take the math path
         raise AssertionError(f"flash attention ran on muvo.yml's 648 tokens: "
                              f"{launches}")
@@ -674,12 +701,13 @@ def serving_phase(dev, cfg):
           "sim_tick_ms_median": statistics.median(sim_ms),
           "deployment_tick_ms_median": statistics.median(deploy_ms),
           "peak_mib": peak_mib, "launches": launches,
-          "launches_per_sim_tick": sim_launches,
+          "launches_by_type": typed, "launches_per_sim_tick": sim_launches,
+          "K2_impl": zconv.upzconv3d_leaky.last_impl,
           "decode_vs_host_norm_rel": decode_err,
           "decode_tol": DECODE_TOL, "host_decode_s": host_s})
     if not worst <= DECODE_TOL:
         raise AssertionError(f"card decode differs from host decode: {worst}")
-    return launches
+    return typed
 
 
 def check_serving_outputs(cfg, out, sim_out, imagined):
@@ -869,12 +897,13 @@ def microbench_phase():
     reset_launches()
     out = Path(__file__).resolve().parent / "build" / "flash_microbench.json"
     rc = torch_flash_microbench.main(["--iters", "5", "--out", str(out)])
-    launches = read_launches()
-    emit({"phase": "microbench", "rc": rc, "launches": launches})
+    launches, typed = read_launches(), read_typed_launches()
+    emit({"phase": "microbench", "rc": rc, "launches": launches,
+          "launches_by_type": typed})
     if rc != 0 or not launches["K4-mb"]:
         raise AssertionError(f"the flash microbenchmark failed: rc {rc}, "
                              f"{launches}")
-    return launches
+    return typed
 
 
 def serving_large_phase(dev):
@@ -915,7 +944,7 @@ def serving_large_phase(dev):
         sim_out, imagined = session.sim_forward(batch, is_dreaming=False)
         torch.cuda.synchronize()
         sim_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = read_launches()
+    launches, typed = read_launches(), read_typed_launches()
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     predicted_k4 = cfg.MODEL.TRANSFORMER.N_LAYERS * encodes
     check_serving_outputs(cfg, out, sim_out, imagined)
@@ -942,7 +971,8 @@ def serving_large_phase(dev):
           "deployment_tick_ms": deploy_ms, "sim_tick_ms": sim_ms,
           "sim_tick_ms_median": statistics.median(sim_ms),
           "deployment_tick_ms_median": statistics.median(deploy_ms),
-          "peak_mib": peak_mib, "launches": launches, "encodes": encodes,
+          "peak_mib": peak_mib, "launches": launches,
+          "launches_by_type": typed, "encodes": encodes,
           "K4_predicted": predicted_k4, "frame_K4_launches": frame_k4,
           "embedding_vs_host_norm_rel": err, "tol": DECODE_TOL,
           "host_encode_s": host_s})
@@ -955,7 +985,7 @@ def serving_large_phase(dev):
         raise AssertionError(f"a backward kernel ran in serving: {launches}")
     if not err <= DECODE_TOL:
         raise AssertionError(f"card embedding differs from host: {err}")
-    return launches
+    return typed
 
 
 def training_large_phase(dev):
@@ -993,7 +1023,7 @@ def training_large_phase(dev):
     fused, fused_ms, _ = grads("fused")
     reset_launches()  # the split step's path
     split, split_ms, _ = grads("split")
-    split_launches = read_launches()
+    split_launches, split_typed = read_launches(), read_typed_launches()
     split2_ms = grads("split")[1]
     fused2, fused2_ms, _ = grads("fused")
     rerun = {k: norm_rel(fused2[k], g) for k, g in fused.items()}
@@ -1006,6 +1036,7 @@ def training_large_phase(dev):
            if not rel[k] <= limit[k]}
     tightest = sorted(rel, key=lambda k: rel[k] / limit[k])[-5:]
     emit({"phase": "training_large_split", "launches": split_launches,
+          "launches_by_type": split_typed,
           "grads_ms_fused": [fused_ms, fused2_ms],
           "grads_ms_split": [split_ms, split2_ms],
           "max_grad_norm_rel": max(rel.values()),
@@ -1030,30 +1061,65 @@ def training_large_phase(dev):
                              f"(rel, rerun, seed): {bad}")
     del fs, model, fused, fused2, split
     torch.cuda.empty_cache()
-    return launches, split_launches
+    return launches, split_typed
 
 
-def summary_row(kid, row, paths):
+def measured_row(kid, dtype, results, backward, flash):
+    """The row that the kernels line reports for ``kid`` in ``dtype``
+    ("float32" or "bfloat16"): a voxel kernel at its MAIN_SHAPE stage (the
+    forward ones at batch MAIN_BATCH, fp32 K2 at conv2.conv1), a flash
+    kernel at the training case."""
+    t = getattr(torch, dtype)
+    if kid in ("K1", "K2"):
+        stage = ("conv2.conv1" if (kid, dtype) == ("K2", "float32")
+                 else MAIN_SHAPE[kid])
+        return results[(kid, stage, MAIN_BATCH, t)]
+    if kid in ZCONV_KERNELS:
+        return backward[(kid, MAIN_SHAPE[kid], t)]
+    return flash[(kid, "microbench" if kid == "K4-mb" else "training", t)]
+
+
+def summary_row(kid, dtype, row, paths):
     """One entry of the kernels line: ``launches`` sums the main paths'
-    counts (``paths``: {path: {kernel: launches}}, each read from the
-    counters just after its run)."""
-    by_path = {name: counts[kid] for name, counts in paths.items()
-               if counts[kid]}
+    counts of ``kid`` in ``dtype`` (``paths``: {path: {kernel: {type:
+    launches}}}, each read from the counters just after its run)."""
+    by_path = {name: counts[kid][dtype] for name, counts in paths.items()
+               if counts.get(kid, {}).get(dtype)}
     shape = row.get("shape", row.get("input"))
+    source = (F32_SOURCES.get(kid, SOURCES[kid]) if dtype == "float32"
+              else SOURCES[kid])
+    per_step = {cfg: paths[path].get(kid, {}).get(dtype, 0) // TRAIN_STEPS
+                for cfg, path in (("muvo.yml", "training"),
+                                  ("muvo.yml LARGE", "training_large"))}
     return {
         "name": KERNEL_NAMES[kid], "id": kid, "route": "cuda",
-        "source": f"muvo_tpu_torch/csrc/{SOURCES[kid]}",
+        "source": f"muvo_tpu_torch/csrc/{source}",
         "replaces": REPLACES[kid],
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        "launches_per_train_step": {
-            "muvo.yml": paths["training"][kid] // TRAIN_STEPS,
-            "muvo.yml LARGE": paths["training_large"][kid] // TRAIN_STEPS},
+        "launches_per_train_step": per_step,
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": shape or [row["bh"], row["n"], row["d"]],
-        "stage": row.get("stage", row.get("case")), "dtype": row["dtype"],
+        "stage": row.get("stage", row.get("case")), "dtype": dtype,
     }
+
+
+def kernel_entries(paths, results, backward, flash):
+    """The kernels line: one entry for each kernel and type that a main
+    path launched (``paths``: {path: {kernel: {type: launches}}}); raises
+    if a kernel was launched on no main path."""
+    kernels = [summary_row(kid, dtype,
+                           measured_row(kid, dtype, results, backward, flash),
+                           paths)
+               for kid in KERNEL_NAMES for dtype in ("float32", "bfloat16")
+               if any(counts.get(kid, {}).get(dtype)
+                      for counts in paths.values())]
+    idle = [kid for kid in KERNEL_NAMES
+            if not any(k["id"] == kid for k in kernels)]
+    if idle:
+        raise AssertionError(f"not launched on any main path: {idle}")
+    return kernels
 
 
 def main() -> int:
@@ -1077,8 +1143,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built,
           "ptxas": [ln.strip()
-                    for name in ("zconv", "zconv_dw", "zconv_dw_tc",
-                                 "flash_attention")
+                    for name in ("zconv", "zconv_f32", "zconv_dw",
+                                 "zconv_dw_tc", "flash_attention")
                     for ln in build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln
                     or "Compiling entry" in ln]})
@@ -1093,19 +1159,7 @@ def main() -> int:
         training_large_phase(dev))
     paths["microbench"] = microbench_phase()
 
-    # K1 in fp32 (serving's type); K2 in bf16 (training's), the type its
-    # tensor-core kernel serves
-    rows = {kid: results[(kid, MAIN_SHAPE[kid], MAIN_BATCH, dtype)]
-            for kid, dtype in (("K1", torch.float32),
-                               ("K2", torch.bfloat16))}
-    for kid, stage in (("K1-dx", "conv3.conv2"), ("K2-dx", "conv3.conv1"),
-                       ("K3", "conv3.conv2"), ("K3-up", "conv3.conv1")):
-        rows[kid] = backward[(kid, stage, torch.bfloat16)]
-    for kid in ("K4", "K5", "K6-dq", "K6-dkv"):
-        rows[kid] = flash[(kid, "training", torch.bfloat16)]
-    rows["K4-mb"] = flash[("K4-mb", "microbench", torch.bfloat16)]
-    emit({"kernels": [summary_row(kid, row, paths)
-                      for kid, row in rows.items()]})
+    emit({"kernels": kernel_entries(paths, results, backward, flash)})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

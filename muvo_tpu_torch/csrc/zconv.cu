@@ -1,14 +1,15 @@
 // K1, K2 and their input gradients K1-dx, K2-dx: the voxel decoder's 3x3x3
-// convolutions on Hopper (sm_90a).
+// convolutions on Hopper (sm_90a); fp32 K2 is in zconv_f32.cu.
 //
 //   K1     out = LeakyReLU(conv3d_same(x) + bias)
 //   K2     out = LeakyReLU(conv3d_same(up2_z(x)) + bias)
 //   K1-dx  dx  = conv3d_same(m(g), flip(w)^T)
 //   K2-dx  dx  = up2_z^T(conv3d_same(m(g), flip(w)^T))
 //
-// x and out are channels-last NDHWC, (B, X, Y, Zin, C) -> (B, X, Y, Z, Cout),
-// in fp32 or bf16; weights and bias arrive as fp32, weights in
-// (kx, ky, kz, C, Cout) order (for dx the wrapper passes the spatially
+// x and out are channels-last NDHWC, (B, X, Y, Zin, C) -> (B, X, Y, Z, Cout)
+// (Z = 2 Zin for K2, else Z = Zin), in fp32 or bf16; weights and bias
+// arrive as fp32, weights in (kx, ky, kz, C, Cout) order (for dx the
+// wrapper passes the spatially
 // flipped kernel with C and Cout swapped). up2_z is the 2x linear
 // z-upsample with half-pixel centres and clamped edges (torch
 // align_corners=False), see zconv_common.cuh. m(g) is the LeakyReLU
@@ -26,23 +27,20 @@
 // Bound on the card: at the decoder's shapes (C, Cout <= 32) the function
 // does 27*C*2 flops per output element against ~(C + Cout) * 4 bytes of
 // traffic, so in fp32 it is bound by operations (the CUDA cores' fp32 rate)
-// and in bf16 by bytes. Design, simple first: one block per (b, x, y-tile)
-// stages a haloed tile of 3 x-rows * (ty+2) y * (Z+2) z * C in shared
-// memory (K2 interpolates z while staging, so the upsampled tensor never
-// exists in device memory; the dx kernels apply the leaky mask while
-// staging, reading the forward output and g once), keeps all 27*C*Cout
-// weights in shared memory, and each thread accumulates 8 output channels
-// of one (y, z) voxel in fp32 registers; bias and the leaky slope are
-// applied in the epilogue and the result is stored in the input type.
-// K2-dx keeps the big-z dx of its tile in shared memory and contracts
-// pairs of big-z slices into small z with the upsample's transposed
-// weights (0.25 / 0.75, the clamped ends taking the taps that fall off)
-// while writing, so the big-z dx never exists in device memory either.
-// The channel stride of the tile is odd, so neighbouring threads
-// (neighbouring z) read distinct banks. That CUDA-core design stays for
-// fp32 (K1, K2, K1-dx, K2-dx), the serving path's type, and for bf16 K1 and
-// K1-dx past 64 channels (ops/zconv.py::k1_route), which no model shape
-// reaches.
+// and in bf16 by bytes. The CUDA-core kernels (fp32 K1, K1-dx and K2-dx,
+// and bf16 K1 and K1-dx past 64 channels, ops/zconv.py::k1_route, which no
+// model shape reaches), simple first: one block per (b, x, y-tile) stages a
+// haloed tile of 3 x-rows * (ty+2) y * (Z+2) z * C in shared memory (the
+// dx kernels apply the leaky mask while staging, reading the forward
+// output and g once), keeps all 27*C*Cout weights in shared memory, and
+// each thread accumulates 8 output channels of one (y, z) voxel in fp32
+// registers; bias and the leaky slope are applied in the epilogue and the
+// result is stored in the input type. K2-dx keeps the big-z dx of its tile
+// in shared memory and contracts pairs of big-z slices into small z with
+// the upsample's transposed weights (0.25 / 0.75, the clamped ends taking
+// the taps that fall off) while writing, so the big-z dx never exists in
+// device memory. The channel stride of the tile is odd, so neighbouring
+// threads (neighbouring z) read distinct banks.
 //
 // bf16 K1, K2, K1-dx and K2-dx: zconv_tc_kernel<NP, KS, EDGES, DX>, an
 // implicit GEMM on the tensor cores (wgmma) over a view of the volume with
@@ -99,7 +97,7 @@ constexpr int kCoChunk = 8;  // output channels per thread
 constexpr size_t kSmemSoftCap = 100 * 1024;
 
 struct Shape {
-  int B, X, Y, Zin, Z, C, Cout;
+  int B, X, Y, Z, C, Cout;  // the staged input's z is the output's
   int ty;     // y rows per block
   int cs;     // channel stride of the staged tile (odd)
   int coutp;  // Cout rounded up to kCoChunk
@@ -119,7 +117,7 @@ inline size_t smem_bytes(const Shape& s) {
 
 // weights to shared memory, output channels zero-padded to coutp, and the
 // haloed input tile (zero outside the volume)
-template <typename T, bool UP>
+template <typename T>
 __device__ __forceinline__ void stage(const T* __restrict__ x,
                                       const T* __restrict__ mask,
                                       float mslope,
@@ -141,9 +139,9 @@ __device__ __forceinline__ void stage(const T* __restrict__ x,
     r /= ZH;
     const int yy = r % TYH;
     const int dx = r / TYH;
-    tile[((dx * TYH + yy) * ZH + zz) * s.cs + c] = load_voxel<T, UP>(
+    tile[((dx * TYH + yy) * ZH + zz) * s.cs + c] = load_voxel<T, false>(
         x, mask, mslope, b, xi + dx - 1, y0 + yy - 1, zz - 1, c, s.X, s.Y,
-        s.Zin, s.Z, s.C);
+        s.Z, s.Z, s.C);
   }
 }
 
@@ -182,8 +180,8 @@ __device__ __forceinline__ void conv_point(const float* tile,
   }
 }
 
-// K1 and K2 (and K1-dx: K1 on the masked cotangent, no bias, no activation)
-template <typename T, bool UP>
+// K1 (and K1-dx: K1 on the masked cotangent, no bias, no activation)
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 zconv_kernel(const T* __restrict__ x, const T* __restrict__ mask,
              float mslope, const float* __restrict__ w,
@@ -195,7 +193,7 @@ zconv_kernel(const T* __restrict__ x, const T* __restrict__ mask,
   const int y0 = blockIdx.x * s.ty;
   const int xi = blockIdx.y;
   const int b = blockIdx.z;
-  stage<T, UP>(x, mask, mslope, w, tile, wsm, s, b, xi, y0);
+  stage<T>(x, mask, mslope, w, tile, wsm, s, b, xi, y0);
   __syncthreads();
 
   // one work item = 8 output channels of one (y, z) voxel; z fastest so a
@@ -251,7 +249,7 @@ zconv_dxup_kernel(const T* __restrict__ g, const T* __restrict__ mask,
   const int y0 = blockIdx.x * s.ty;
   const int xi = blockIdx.y;
   const int b = blockIdx.z;
-  stage<T, false>(g, mask, mslope, w, tile, wsm, s, b, xi, y0);
+  stage<T>(g, mask, mslope, w, tile, wsm, s, b, xi, y0);
   __syncthreads();
 
   const int nchunks = s.coutp / kCoChunk;
@@ -309,11 +307,11 @@ bool pick_ty(Shape& s) {
   return smem_bytes(s) <= (size_t)optin;
 }
 
-template <typename T, bool UP>
+template <typename T>
 cudaError_t launch(const void* x, const void* mask, float mslope,
                    const float* w, const float* bias, void* out, Shape s,
                    int has_act, float slope, cudaStream_t stream) {
-  auto kernel = zconv_kernel<T, UP>;
+  auto kernel = zconv_kernel<T>;
   const size_t smem = smem_bytes(s);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -741,27 +739,22 @@ bool bad_dims(int B, int X, int Y, int Z, int C, int Cout, int dtype) {
 // Plain C interface, called through ctypes. dtype: 0 = fp32, 1 = bf16.
 // Each returns a cudaError_t; nonzero means the kernel did not launch.
 
-// K1 / K2 on the CUDA cores: fp32 K1 and K2, and bf16 K1 (up 0) past 64
-// channels. up: 0 = K1 (Z = Zin), 1 = K2 (Z = 2 * Zin). w is (kx, ky, kz,
-// C, Cout) in fp32; bias may be null.
+// K1 on the CUDA cores: fp32 K1, and bf16 K1 past 64 channels. w is (kx, ky, kz, C, Cout) in fp32; bias may be null. K2 is elsewhere:
+// bf16 muvo_zconv3d_tc, fp32 zconv_f32.cu's muvo_zconv3d_up_f32.
 extern "C" int muvo_zconv3d_leaky(const void* x, const float* w,
                                   const float* bias, void* out, int B, int X,
-                                  int Y, int Zin, int C, int Cout, int up,
-                                  int has_act, float slope, int dtype,
-                                  void* stream) {
-  if (bad_dims(B, X, Y, Zin, C, Cout, dtype) || (up && dtype == 1))
-    return (int)cudaErrorInvalidValue;  // bf16 K2: muvo_zconv3d_tc
+                                  int Y, int Z, int C, int Cout, int has_act,
+                                  float slope, int dtype, void* stream) {
+  if (bad_dims(B, X, Y, Z, C, Cout, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Shape s{B, X, Y, Zin, up ? 2 * Zin : Zin, C, Cout, 16,
-          (C % 2 == 0) ? C + 1 : C, round_up(Cout, kCoChunk), 0};
+  Shape s{B, X, Y, Z, C, Cout, 16, (C % 2 == 0) ? C + 1 : C,
+          round_up(Cout, kCoChunk), 0};
   if (!pick_ty(s)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)(up ? launch<float, true>(x, nullptr, 0.f, w, bias, out, s,
-                                          has_act, slope, st)
-                    : launch<float, false>(x, nullptr, 0.f, w, bias, out, s,
-                                           has_act, slope, st));
-  return (int)launch<__nv_bfloat16, false>(x, nullptr, 0.f, w, bias, out, s,
-                                           has_act, slope, st);
+    return (int)launch<float>(x, nullptr, 0.f, w, bias, out, s, has_act,
+                              slope, st);
+  return (int)launch<__nv_bfloat16>(x, nullptr, 0.f, w, bias, out, s,
+                                    has_act, slope, st);
 }
 
 // K1-dx / K2-dx on the CUDA cores: fp32 K1-dx and K2-dx, and bf16 K1-dx
@@ -777,15 +770,15 @@ extern "C" int muvo_zconv3d_dx(const void* g, const void* mask, float slope,
       (up && dtype == 1))
     return (int)cudaErrorInvalidValue;  // bf16 K2-dx: muvo_zconv3d_tc
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Shape s{B, X, Y, Z, Z, Cg, C, 16, (Cg % 2 == 0) ? Cg + 1 : Cg,
+  Shape s{B, X, Y, Z, Cg, C, 16, (Cg % 2 == 0) ? Cg + 1 : Cg,
           round_up(C, kCoChunk), up};
   if (!pick_ty(s)) return (int)cudaErrorInvalidValue;
   if (up) return (int)launch_dxup<float>(g, mask, slope, w_adj, dx, s, st);
-  return (int)(dtype == 0 ? launch<float, false>(g, mask, slope, w_adj,
-                                                 nullptr, dx, s, 0, 0.f, st)
-                          : launch<__nv_bfloat16, false>(
-                                g, mask, slope, w_adj, nullptr, dx, s, 0, 0.f,
-                                st));
+  return (int)(dtype == 0 ? launch<float>(g, mask, slope, w_adj, nullptr, dx,
+                                          s, 0, 0.f, st)
+                          : launch<__nv_bfloat16>(g, mask, slope, w_adj,
+                                                  nullptr, dx, s, 0, 0.f,
+                                                  st));
 }
 
 // bf16 K1, K2, K1-dx and K2-dx on the tensor cores (zconv_tc_kernel): the

@@ -83,6 +83,15 @@ def _library():
     return _lib
 
 
+def _count(wrapper, dtype, impl):
+    """One launch of ``wrapper``'s kernel on ``dtype`` tensors: adds one to
+    its count and to its count for that type, and names the kernel run."""
+    wrapper.launches += 1
+    key = str(dtype).removeprefix("torch.")
+    wrapper.launches_by_type[key] = wrapper.launches_by_type.get(key, 0) + 1
+    wrapper.last_impl = impl
+
+
 def _raise_if(rc: int, what: str):
     if rc != 0:
         msg = _library().muvo_cuda_error_string(rc).decode()
@@ -249,8 +258,7 @@ def flash_fwd(q, k, v, seq_len: Optional[int] = None):
         flash_fwd.last_impl = "plain"
         return flash_fwd_plain(q, k, v, seq_len)
     out = _forward_launch(q, k, v, seq_len, softmax=True)
-    flash_fwd.launches += 1
-    flash_fwd.last_impl = kernel_name("K4", q.dtype, q.shape[-1])
+    _count(flash_fwd, q.dtype, kernel_name("K4", q.dtype, q.shape[-1]))
     return out
 
 
@@ -262,8 +270,8 @@ def flash_matmul(q, k, v):
         flash_matmul.last_impl = "plain"
         return flash_matmul_plain(q, k, v)
     out, _ = _forward_launch(q, k, v, n, softmax=False)
-    flash_matmul.launches += 1
-    flash_matmul.last_impl = kernel_name("K4-mb", q.dtype, q.shape[-1])
+    _count(flash_matmul, q.dtype,
+           kernel_name("K4-mb", q.dtype, q.shape[-1]))
     return out
 
 
@@ -296,8 +304,8 @@ def flash_bwd_dq(q, k, v, o, lse, do, seq_len: Optional[int] = None):
     with torch.cuda.device(q.device):
         rc = _library().muvo_flash_bwd_dq(*head, dq.data_ptr(), *tail)
     _raise_if(rc, "K6-dq")
-    flash_bwd_dq.launches += 1
-    flash_bwd_dq.last_impl = kernel_name("K6-dq", q.dtype, q.shape[-1])
+    _count(flash_bwd_dq, q.dtype,
+           kernel_name("K6-dq", q.dtype, q.shape[-1]))
     return dq
 
 
@@ -316,8 +324,8 @@ def flash_bwd_dkv(q, k, v, o, lse, do, seq_len: Optional[int] = None):
             *head, None if q_hat is None else q_hat.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), *tail)
     _raise_if(rc, "K6-dkv")
-    flash_bwd_dkv.launches += 1
-    flash_bwd_dkv.last_impl = kernel_name("K6-dkv", q.dtype, q.shape[-1])
+    _count(flash_bwd_dkv, q.dtype,
+           kernel_name("K6-dkv", q.dtype, q.shape[-1]))
     return dk, dv
 
 
@@ -340,16 +348,17 @@ def flash_bwd(q, k, v, o, lse, do, seq_len: Optional[int] = None,
             *head, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             work.data_ptr(), *tail)
     _raise_if(rc, "K5")
-    flash_bwd.launches += 1
-    flash_bwd.last_impl = kernel_name("K5", q.dtype, q.shape[-1])
+    _count(flash_bwd, q.dtype, kernel_name("K5", q.dtype, q.shape[-1]))
     return dq, dk, dv
 
 
-# launch counts: each wrapper adds one per kernel launch, nowhere else; the
-# kernel (or "plain") each ran last
+# launch counts: each wrapper adds one per kernel launch, nowhere else, to
+# its total and to its count for the tensors' type ("float32", "bfloat16");
+# the kernel (or "plain") each ran last
 for _wrapper in (flash_fwd, flash_bwd, flash_bwd_dq, flash_bwd_dkv,
                  flash_matmul):
     _wrapper.launches = 0
+    _wrapper.launches_by_type = {}
     _wrapper.last_impl = None
 del _wrapper
 

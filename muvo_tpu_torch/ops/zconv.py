@@ -10,9 +10,11 @@ K1 ``zconv3d_leaky``: LeakyReLU(conv3d 3x3x3 SAME stride 1 + bias).
 K2 ``upzconv3d_leaky``: LeakyReLU(conv3d(2x linear z-upsample of x) + bias),
     x already upsampled in X and Y. Replaces the same Pallas kernel via
     upzconv3d_leaky_folded; like it, the upsampled tensor never exists in
-    device memory: in fp32 the CUDA kernel interpolates z while staging its
-    tile; in bf16 a tensor-core kernel computes on the small-z grid with
-    the upsample folded into the weights (``up_fold_weights``).
+    device memory: in fp32 a register-tiled CUDA-core kernel
+    (csrc/zconv_f32.cu, planned by ``k2_f32_plan``) interpolates z while
+    staging the x planes it walks; in bf16 a tensor-core kernel computes on
+    the small-z grid with the upsample folded into the weights
+    (``up_fold_weights``).
 K1-dx ``zconv3d_dx``: K1's input gradient, the conv of the leaky-masked
     cotangent with the flipped, transposed kernel (_vjp_bwd's dx); routed
     as K1, on the flipped, transposed kernel.
@@ -28,9 +30,9 @@ K3 ``zconv3d_dw`` / ``upzconv3d_dw`` (K3-up): the weight and bias
 Tensors are channels-last NDHWC; weights are upstream's Conv3d layout
 (Cout, C, 3, 3, 3). On a CPU tensor each wrapper runs its plain PyTorch
 version; on a CUDA tensor it launches the hand-written kernel in
-csrc/zconv.cu, csrc/zconv_dw.cu or csrc/zconv_dw_tc.cu (route: CUDA C++
-for sm_90a, plain C interface, ctypes) or raises, and names the kernel
-(and the view) it ran in its ``last_impl``. What bounds the kernels and how
+csrc/zconv.cu, csrc/zconv_f32.cu, csrc/zconv_dw.cu or csrc/zconv_dw_tc.cu
+(route: CUDA C++ for sm_90a, plain C interface, ctypes) or raises, and
+names the kernel (and the view) it ran in its ``last_impl``. What bounds the kernels and how
 they are built is noted in the sources.
 
 Under autograd, K1 and K2 run inside ``torch.autograd.Function``s whose
@@ -66,7 +68,7 @@ def _library(name: str):
         lib.muvo_cuda_error_string.restype = ctypes.c_char_p
         if name == "zconv":
             lib.muvo_zconv3d_leaky.argtypes = [
-                _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                 ctypes.c_float, _I, _P]
             lib.muvo_zconv3d_dx.argtypes = [
                 _P, _P, ctypes.c_float, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -77,6 +79,13 @@ def _library(name: str):
             lib.muvo_zconv3d_leaky.restype = _I
             lib.muvo_zconv3d_dx.restype = _I
             lib.muvo_zconv3d_tc.restype = _I
+        elif name == "zconv_f32":
+            lib.muvo_zconv_f32_limits.argtypes = [ctypes.POINTER(_I)] * 2
+            lib.muvo_zconv3d_up_f32.argtypes = [
+                _P, _P, _P, _P, ctypes.POINTER(_K2f32Shape), _I,
+                ctypes.c_float, _P]
+            lib.muvo_zconv_f32_limits.restype = _I
+            lib.muvo_zconv3d_up_f32.restype = _I
         elif name == "zconv_dw_tc":
             lib.muvo_dw_tc_limits.argtypes = [ctypes.POINTER(_I)] * 2
             lib.muvo_zconv3d_dw_tc.argtypes = [
@@ -270,13 +279,16 @@ def k1_route(z: int, c: int, cout: int) -> Optional[TcView]:
     """The view bf16 K1 (and K1-dx, as c -> cout) runs on: the pair view
     where z is even and 8 channels would leave a k16 x n16 product mostly
     empty (c or cout below 16), the plain view otherwise; None (the
-    CUDA-core zconv_kernel<bf16, false>) past TC_MAX_CHANNELS."""
+    CUDA-core zconv_kernel<bf16>) past TC_MAX_CHANNELS."""
     if z % 2 == 0 and min(c, cout) < 16 and (
             2 * max(c, cout) <= TC_MAX_CHANNELS):
         return TcView("pair", z // 2, 2 * c, 2 * cout)
     if max(c, cout) <= TC_MAX_CHANNELS:
         return TcView("plain", z, c, cout)
     return None
+
+
+K2_F32_IMPL = "f32up::zconv_up_f32_kernel (csrc/zconv_f32.cu)"
 
 
 def _impl(view: Optional[TcView], dtype, up: bool, dx: bool) -> str:
@@ -286,8 +298,126 @@ def _impl(view: Optional[TcView], dtype, up: bool, dx: bool) -> str:
                 f"Kc {view.kc}, N {view.n})")
     if up and dx:
         return "zconv_dxup_kernel<float>"
+    if up:
+        return K2_F32_IMPL
     t = "float" if dtype == torch.float32 else "bf16"
-    return f"zconv_kernel<{t}, {'true' if up else 'false'}>"
+    return f"zconv_kernel<{t}>"
+
+
+# fp32 K2: f32up::zconv_up_f32_kernel<CO> in csrc/zconv_f32.cu, register
+# tiles of K2F32_RZ output z x CO output channels a thread over a ring of
+# K2F32_PLANES z-upsampled x planes. Its plan is made here and passed in as
+# the kernel's K2f32Shape, whose fields are these, in this order; the
+# constants are the kernel's (kRZ, kRun, kPlanes, kMaxThreads).
+K2F32_FIELDS = (
+    "B", "X", "Y", "Zin", "Z", "C", "Cout", "rz", "co", "coutp", "nchunks",
+    "ngz", "ty", "nyt", "zs", "ys", "plane", "wfloats", "threads", "runs",
+    "items", "rows", "grid", "xs", "smem_bytes")
+K2F32_RZ = 4
+K2F32_RUN = 4
+K2F32_PLANES = 3
+K2F32_MAX_THREADS = 512
+K2F32_MIN_ROWS = 4     # rows a block walks at least, where there are enough
+SMEM_PER_SM = 233472   # H100: 228 KB of shared memory an SM
+
+
+class _K2f32Shape(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in K2F32_FIELDS]
+
+
+def k2_f32_plan(B: int, X: int, Y: int, Zin: int, C: int, Cout: int,
+                sms: int, smem_optin: int) -> dict:
+    """The split of an fp32 K2 call over the card, as the kernel reads it
+    (see the source note of csrc/zconv_f32.cu).
+
+    A thread owns K2F32_RZ output z x ``co`` output channels of one (x, y):
+    ``ngz`` z groups, then ``ty`` y rows, then ``nchunks`` channel chunks
+    make the block's ``threads``. Its shared memory holds the weights
+    (``wfloats``, channels padded to ``coutp``) and K2F32_PLANES planes of
+    (ty + 2) y rows x C channels x ``zs`` padded big z. ``ty`` is the most y
+    rows the threads (at most K2F32_MAX_THREADS) and ``smem_optin`` allow,
+    or a little fewer where that divides Y; ``co`` (4 or 8) the one that
+    allows more rows, 4 at a tie. ``rows`` = B x ``nyt`` y tiles x X are
+    dealt to ``grid`` blocks, block i taking rows i * rows // grid ..
+    (i + 1) * rows // grid - 1 (x innermost, at most ``xs``), as many
+    blocks as fit the card at once but at least K2F32_MIN_ROWS rows a
+    block. Raises ValueError for a shape whose block does not fit."""
+    return _k2_f32_plan(B, X, Y, Zin, C, Cout, sms, smem_optin)
+
+
+def _k2_f32_plan(B, X, Y, Zin, C, Cout, sms, smem_optin,
+                 co: Optional[int] = None, ty: Optional[int] = None) -> dict:
+    """k2_f32_plan with ``co`` and ``ty`` forced where given, for
+    tools/torch_zconv_probe.py to time the plans it did not choose."""
+    if min(B, X, Y, Zin, C, Cout) <= 0:
+        raise ValueError(f"empty shape {(B, X, Y, Zin, C, Cout)}")
+    Z = 2 * Zin
+    ngz = -(-Z // K2F32_RZ)
+    zs = ngz * K2F32_RZ + 4  # big z -1 .. Z, and the last group's reads
+    ys = C * zs
+
+    def smem(coutp, t):
+        return 4 * (27 * C * coutp + K2F32_PLANES * (t + 2) * ys)
+
+    def most_rows(co_):
+        coutp = _round_up(Cout, co_)
+        t = min(Y, K2F32_MAX_THREADS // (ngz * (coutp // co_)))
+        while t >= 1 and smem(coutp, t) > smem_optin:
+            t -= 1
+        return t
+
+    if co is None:
+        co = max((4, 8), key=lambda c_: (most_rows(c_), -c_))
+    if co not in (4, 8):
+        raise ValueError(f"fp32 K2 kernel: co {co} is not 4 or 8")
+    t_max = most_rows(co)
+    coutp = _round_up(Cout, co)
+    if t_max < 1:
+        raise ValueError(f"fp32 K2 kernel: z {Z} x {C} -> {Cout} channels "
+                         f"needs {smem(coutp, 1)} bytes of shared memory "
+                         f"and {ngz * (coutp // co)} threads a y row, the "
+                         f"card allows {smem_optin} and {K2F32_MAX_THREADS}")
+    if ty is None:
+        ty = next((t for t in range(t_max, -(-3 * t_max // 4) - 1, -1)
+                   if Y % t == 0), -(-Y // -(-Y // t_max)))
+    elif not 1 <= ty <= t_max:
+        raise ValueError(f"fp32 K2 kernel: ty {ty} outside 1..{t_max}")
+    nchunks = coutp // co
+    threads = _round_up(ty * ngz * nchunks, 32)
+    nyt = -(-Y // ty)
+    runs = -(-Zin // K2F32_RUN)
+    rows = B * nyt * X
+    if rows >= 2 ** 31:
+        raise ValueError(f"fp32 K2 kernel: {rows} rows")
+    nbytes = smem(coutp, ty)
+    per_sm = max(1, min(SMEM_PER_SM // (nbytes + 1024), 2048 // threads))
+    grid = max(1, min(per_sm * sms, rows // K2F32_MIN_ROWS))
+    return dict(B=B, X=X, Y=Y, Zin=Zin, Z=Z, C=C, Cout=Cout, rz=K2F32_RZ,
+                co=co, coutp=coutp, nchunks=nchunks, ngz=ngz, ty=ty, nyt=nyt,
+                zs=zs, ys=ys, plane=(ty + 2) * ys, wfloats=27 * C * coutp,
+                threads=threads, runs=runs, items=(ty + 2) * runs * C,
+                rows=rows, grid=grid, xs=-(-rows // grid), smem_bytes=nbytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_f32_limits(index: int):
+    sms, optin = _I(), _I()
+    with torch.cuda.device(index):
+        rc = _library("zconv_f32").muvo_zconv_f32_limits(ctypes.byref(sms),
+                                                        ctypes.byref(optin))
+    _raise_if(rc, "zconv_f32", "K2")
+    return sms.value, optin.value
+
+
+def _launch_up_f32(x, w, bias32, out, slope, plan: dict):
+    """fp32 K2 on ``plan`` (k2_f32_plan of x's shape); w is (kx, ky, kz, C,
+    Cout) fp32, bias32 fp32 or None."""
+    with torch.cuda.device(x.device):
+        rc = _library("zconv_f32").muvo_zconv3d_up_f32(
+            x.data_ptr(), w.data_ptr(), _ptr(bias32), out.data_ptr(),
+            ctypes.byref(_K2f32Shape(**plan)), int(slope is not None),
+            float(slope or 0.0), _stream(x))
+    _raise_if(rc, "zconv_f32", "K2")
 
 
 def _dw_plain(xin, g, out, cout_c, slope, with_bias: bool):
@@ -329,6 +459,15 @@ def _check(x, weight, bias):
         if t is not None and (t.dtype != x.dtype or t.device != x.device):
             raise ValueError(f"{name} is {t.dtype} on {t.device}, x is "
                              f"{x.dtype} on {x.device}")
+
+
+def _count(wrapper, dtype, impl):
+    """One launch of ``wrapper``'s kernel on ``dtype`` tensors: adds one to
+    its count and to its count for that type, and names the kernel run."""
+    wrapper.launches += 1
+    key = str(dtype).removeprefix("torch.")
+    wrapper.launches_by_type[key] = wrapper.launches_by_type.get(key, 0) + 1
+    wrapper.last_impl = impl
 
 
 def _check_device(*tensors):
@@ -395,12 +534,16 @@ def _launch(x, weight, bias, slope, up: bool):
     if view is not None:
         _launch_tc(x, None, None, _tc_weights(weight, view, False), bias32,
                    out, view, cout, False, slope, what)
+    elif up:
+        sms, optin = _k2_f32_limits(x.device.index or 0)
+        _launch_up_f32(x, _kkkcn(weight), bias32, out, slope,
+                       k2_f32_plan(b, X, Y, zin, c, cout, sms, optin))
     else:
         w = _kkkcn(weight)
         with torch.cuda.device(x.device):
             rc = _library("zconv").muvo_zconv3d_leaky(
                 x.data_ptr(), w.data_ptr(), _ptr(bias32), out.data_ptr(),
-                b, X, Y, zin, c, cout, int(up), int(slope is not None),
+                b, X, Y, zin, c, cout, int(slope is not None),
                 float(slope or 0.0), _DTYPES[x.dtype], _stream(x))
         _raise_if(rc, "zconv", what)
     return out, _impl(view, x.dtype, up, False)
@@ -414,9 +557,7 @@ def _forward(x, weight, bias, slope, up: bool):
         plain = upzconv3d_leaky_plain if up else zconv3d_leaky_plain
         return plain(x, weight, bias, slope)
     out, impl = _launch(x, weight, bias, slope, up)
-    counted = upzconv3d_leaky if up else zconv3d_leaky
-    counted.launches += 1
-    counted.last_impl = impl
+    _count(upzconv3d_leaky if up else zconv3d_leaky, x.dtype, impl)
     return out
 
 
@@ -456,9 +597,8 @@ def _dx(g, out, weight, slope, up: bool):
                 w_adj.data_ptr(), dx.data_ptr(), b, X, Y, z, cg, c, int(up),
                 _DTYPES[g.dtype], _stream(g))
         _raise_if(rc, "zconv", what)
-    counted = upzconv3d_dx if up else zconv3d_dx
-    counted.launches += 1
-    counted.last_impl = _impl(view, g.dtype, up, True)
+    _count(upzconv3d_dx if up else zconv3d_dx, g.dtype,
+           _impl(view, g.dtype, up, True))
     return dx
 
 
@@ -637,8 +777,7 @@ def _dw(x, g, out, slope, with_bias: bool, up: bool):
     counted = upzconv3d_dw if up else zconv3d_dw
     if x.dtype == torch.bfloat16:
         result = _dw_tc(x, g, mask, slope, with_bias, up)
-        counted.launches += 1
-        counted.last_impl = DW_IMPL[x.dtype]
+        _count(counted, x.dtype, DW_IMPL[x.dtype])
         return result
     b, X, Y, zin, c = x.shape
     cout = g.shape[-1]
@@ -659,8 +798,7 @@ def _dw(x, g, out, slope, with_bias: bool, up: bool):
             work.data_ptr(), dw.data_ptr(), _ptr(db), b, X, Y, zin, c, cout,
             int(up), _DTYPES[x.dtype], _stream(x))
     _raise_if(rc, "zconv_dw", "K3-up" if up else "K3")
-    counted.launches += 1
-    counted.last_impl = DW_IMPL[x.dtype]
+    _count(counted, x.dtype, DW_IMPL[x.dtype])
     # (kx, ky, kz, C, Cout) -> upstream's (Cout, C, kx, ky, kz)
     dw = dw[..., :c, :cout].permute(4, 3, 0, 1, 2).contiguous()
     return dw, None if db is None else db[:cout].contiguous()
@@ -736,18 +874,12 @@ def upzconv3d_leaky(x, weight, bias=None, slope: Optional[float] = 0.2):
     return _apply(x, weight, bias, slope, up=True)
 
 
-# launch counts: each wrapper adds one per kernel launch, nowhere else
-zconv3d_leaky.launches = 0
-upzconv3d_leaky.launches = 0
-zconv3d_dx.launches = 0
-upzconv3d_dx.launches = 0
-zconv3d_dw.launches = 0
-upzconv3d_dw.launches = 0
-# the kernel (and view) the last launch of each wrapper ran: _impl's names,
-# DW_IMPL's for dW
-zconv3d_leaky.last_impl = None
-upzconv3d_leaky.last_impl = None
-zconv3d_dx.last_impl = None
-upzconv3d_dx.last_impl = None
-zconv3d_dw.last_impl = None
-upzconv3d_dw.last_impl = None
+# launch counts: each wrapper adds one per kernel launch, nowhere else, to
+# its total and to its count for the tensors' type ("float32", "bfloat16");
+# the kernel (and view) the last launch ran: _impl's names, DW_IMPL's for dW
+for _wrapper in (zconv3d_leaky, upzconv3d_leaky, zconv3d_dx, upzconv3d_dx,
+                 zconv3d_dw, upzconv3d_dw):
+    _wrapper.launches = 0
+    _wrapper.launches_by_type = {}
+    _wrapper.last_impl = None
+del _wrapper

@@ -68,11 +68,13 @@ def test_kernel_matches_plain(dev, kid, dtype, shape, cout, act):
     x, w, b = _inputs(dev, shape, cout, dtype)
     slope = 0.2 if act else None
     bias = b if act else None  # no-bias with no activation, as K1 allows
-    n = kernel.launches
+    key = str(dtype).removeprefix("torch.")
+    n, typed = kernel.launches, kernel.launches_by_type.get(key, 0)
     got = kernel(x, w, bias, slope)
     want = plain(x, w, bias, slope)
     torch.cuda.synchronize()
     assert kernel.launches == n + 1
+    assert kernel.launches_by_type[key] == typed + 1  # counted by type
     assert got.dtype == dtype and got.is_contiguous()
     assert got.shape == want.shape
     rel = (got.float() - want.float()).abs().max() / want.float().abs().max()
@@ -208,8 +210,11 @@ def test_flash_kernels_match_plain(dev, d, dtype, bh, n, seq_len):
     """K4, K5 and K6 (dq, dkv) against their plain versions on the same
     inputs, norm-relative (K5's dq sums by atomics in a varying order)."""
     q, k, v, do = _qkv(dev, bh, n, d, dtype, count=4)
+    key = str(dtype).removeprefix("torch.")
+    wrappers = (fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     n0 = (fa.flash_fwd.launches, fa.flash_bwd.launches,
           fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    typed = [f.launches_by_type.get(key, 0) for f in wrappers]
     o, lse = fa.flash_fwd(q, k, v, seq_len)
     fused = fa.flash_bwd(q, k, v, o, lse, do, seq_len)
     split = fa.flash_bwd(q, k, v, o, lse, do, seq_len, split=True)
@@ -217,6 +222,8 @@ def test_flash_kernels_match_plain(dev, d, dtype, bh, n, seq_len):
     assert (fa.flash_fwd.launches, fa.flash_bwd.launches,
             fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == tuple(
                 c + 1 for c in n0)
+    assert [f.launches_by_type[key] for f in wrappers] == [
+        c + 1 for c in typed]  # counted by type
     o_want, lse_want = fa.flash_fwd_plain(q, k, v, seq_len)
     assert o.dtype == dtype and lse.dtype == torch.float32
     assert _norm_rel(o, o_want) <= TOL[dtype]
@@ -432,7 +439,8 @@ def _kernel_names(fn):
 def test_bf16_up_launches_the_tensor_core_kernel(dev):
     """The profile names zconv_tc_kernel<..., false> for bf16 K2 and
     zconv_tc_kernel<..., true> for bf16 K2-dx, and neither CUDA-core
-    kernel; fp32 K2 and K2-dx keep theirs."""
+    kernel; fp32 K2 runs zconv_up_f32_kernel (and not zconv_kernel<float,
+    true>), fp32 K2-dx keeps zconv_dxup_kernel<float>."""
     x, w, b = _inputs(dev, (1, 6, 7, 16, 32), 16, torch.bfloat16)
     out = zconv.upzconv3d_leaky(x, w, b, 0.2)
     fwd = _kernel_names(lambda: zconv.upzconv3d_leaky(x, w, b, 0.2))
@@ -445,8 +453,36 @@ def test_bf16_up_launches_the_tensor_core_kernel(dev):
     out32 = zconv.upzconv3d_leaky(x32, w32, b32, 0.2)
     fwd = _kernel_names(lambda: zconv.upzconv3d_leaky(x32, w32, b32, 0.2))
     dx = _kernel_names(lambda: zconv.upzconv3d_dx(out32, out32, w32, 0.2))
-    assert any("zconv_kernel<float, true>" in k for k in fwd), fwd
+    assert any("zconv_up_f32_kernel" in k for k in fwd), fwd
+    assert not any("zconv_kernel<float, true>" in k for k in fwd), fwd
     assert any("zconv_dxup_kernel<float>" in k for k in dx), dx
+
+
+# fp32 K2 runs f32up::zconv_up_f32_kernel (csrc/zconv_f32.cu): 4 output z x
+# 4 or 8 channels a thread, blocks walking runs of x rows over a ring of
+# three planes, the plan from zconv.k2_f32_plan
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 5, 6, 1, 16), 8),        # Zs 1: both z edges on one slice
+    ((1, 4, 9, 2, 8), 8),         # Zs 2
+    ((1, 3, 5, 3, 3), 5),         # Zs 3, C 3, Cout 5
+    ((1, 7, 37, 16, 4), 16),      # Y ends mid tile (19 + 18), a run mid X
+    ((2, 40, 6, 5, 6), 12),       # Zs 5, runs across (b, y tile) ends
+    ((1, 96, 96, 16, 32), 16),    # conv2.conv1 at full width, batch 1
+    ((1, 192, 192, 32, 16), 8),   # conv3.conv1 at full width, batch 1
+])
+def test_fp32_up_kernel_matches_plain_and_repeats(dev, shape, cout):
+    """fp32 K2 against its plain version (1e-4 of max |plain|), the
+    launch counted and named, a second launch giving the same bits."""
+    x, w, b = _inputs(dev, shape, cout, torch.float32)
+    n = zconv.upzconv3d_leaky.launches
+    out = zconv.upzconv3d_leaky(x, w, b, 0.2)
+    assert zconv.upzconv3d_leaky.last_impl == zconv.K2_F32_IMPL
+    again = zconv.upzconv3d_leaky(x, w, b, 0.2)
+    torch.cuda.synchronize()
+    assert zconv.upzconv3d_leaky.launches == n + 2
+    assert out.shape == (*shape[:3], 2 * shape[3], cout)
+    assert torch.equal(out, again)
+    assert _rel(out, zconv.upzconv3d_leaky_plain(x, w, b, 0.2)) <= 1e-4
 
 
 # bf16 K1 and K1-dx run zconv_tc_kernel with no edge terms on the view
@@ -500,8 +536,8 @@ def test_k1_last_impl_names_the_route(dev):
         out = zconv.zconv3d_leaky(x, w, b, 0.2)
         dx = zconv.zconv3d_dx(out, out, w, 0.2)
         name = "bf16" if t == torch.bfloat16 else "float"
-        assert zconv.zconv3d_leaky.last_impl == f"zconv_kernel<{name}, false>"
-        assert zconv.zconv3d_dx.last_impl == f"zconv_kernel<{name}, false>"
+        assert zconv.zconv3d_leaky.last_impl == f"zconv_kernel<{name}>"
+        assert zconv.zconv3d_dx.last_impl == f"zconv_kernel<{name}>"
         assert _rel(out, zconv.zconv3d_leaky_plain(x, w, b, 0.2)) <= TOL[t]
         assert _rel(dx, zconv.zconv3d_dx_plain(out, out, w, 0.2)) <= TOL[t]
 
@@ -510,7 +546,7 @@ def test_bf16_k1_launches_the_tensor_core_kernel(dev):
     """The profile names zconv_tc_kernel<NP, KS, false, false> for bf16 K1
     and zconv_tc_kernel<NP, KS, false, true> for bf16 K1-dx (no edge
     terms) on both views, and no CUDA-core kernel; fp32 K1 and K1-dx keep
-    zconv_kernel<float, false>."""
+    zconv_kernel<float>."""
     for shape, cout in (((1, 6, 7, 32, 16), 16), ((1, 6, 7, 64, 8), 8)):
         x, w, b = _inputs(dev, shape, cout, torch.bfloat16)
         out = zconv.zconv3d_leaky(x, w, b, 0.2)
@@ -524,8 +560,8 @@ def test_bf16_k1_launches_the_tensor_core_kernel(dev):
         x32, w32, b32, out32 = (t.float() for t in (x, w, b, out))
         fwd = _kernel_names(lambda: zconv.zconv3d_leaky(x32, w32, b32, 0.2))
         dx = _kernel_names(lambda: zconv.zconv3d_dx(out32, out32, w32, 0.2))
-        assert any("zconv_kernel<float, false>" in k for k in fwd), fwd
-        assert any("zconv_kernel<float, false>" in k for k in dx), dx
+        assert any("zconv_kernel<float>" in k for k in fwd), fwd
+        assert any("zconv_kernel<float>" in k for k in dx), dx
         assert not any("zconv_tc_kernel" in k for k in fwd + dx)
 
 

@@ -16,10 +16,10 @@ measures:
 2. kernels: torch.profiler over --steps whole train steps: the wall time,
    the device's busy time (the union of its kernels' intervals) and idle
    share, device time summed by kernel name and by group. The port's
-   kernels are named: zconv_kernel<T, false> (fp32; bf16 past 64
-   channels) and zconv_tc_kernel<N, K, false, DX> (bf16, no edge terms) are
-   K1 and K1-dx (one kernel, launched on the flipped weights for dx),
-   zconv_kernel<T, true> (fp32) and zconv_tc_kernel<N, K, true, false>
+   kernels are named: zconv_kernel<T> (fp32; bf16 past 64 channels) and
+   zconv_tc_kernel<N, K, false, DX> (bf16, no edge terms) are K1 and K1-dx
+   (one kernel, launched on the flipped weights for dx),
+   zconv_up_f32_kernel<CO> (fp32) and zconv_tc_kernel<N, K, true, false>
    (bf16) K2, zconv_dxup_kernel (fp32) and zconv_tc_kernel<N, K, true,
    true> (bf16) K2-dx, dw_kernel<T, false, ...>
    (fp32) and dw_tc_kernel<N, MT, false> (bf16) K3, dw_kernel<T, true, ...>
@@ -66,11 +66,10 @@ GROUPS = (
     ("K6-dkv (flash_bwd_wgmma<D, false>, fp32 flash_bwd_kv_kernel<T, D, "
      "false>)", r"flash_bwd_wgmma<\d+, false>|flash_bwd_kv_kernel<[^>]*false>"),
     ("q^ for K5 and K6-dkv (scale_q_kernel)", r"scale_q_kernel"),
-    ("K1 + K1-dx (zconv_kernel<T, false>, bf16 zconv_tc_kernel<N, K, "
-     "false, DX>)",
-     r"zconv_kernel<.*, false>|zconv_tc_kernel<\d+, \d+, false, "),
-    ("K2 (zconv_kernel<T, true>, bf16 zconv_tc_kernel<N, K, true, false>)",
-     r"zconv_kernel<.*, true>|zconv_tc_kernel<\d+, \d+, true, false>"),
+    ("K1 + K1-dx (zconv_kernel<T>, bf16 zconv_tc_kernel<N, K, false, DX>)",
+     r"zconv_kernel<[^>]*>|zconv_tc_kernel<\d+, \d+, false, "),
+    ("K2 (zconv_up_f32_kernel<CO>, bf16 zconv_tc_kernel<N, K, true, "
+     "false>)", r"zconv_up_f32_kernel|zconv_tc_kernel<\d+, \d+, true, false>"),
     ("K2-dx (zconv_dxup_kernel, bf16 zconv_tc_kernel<N, K, true, true>)",
      r"zconv_dxup_kernel|zconv_tc_kernel<\d+, \d+, true, true>"),
     ("K3 (dw_kernel<T, false, U>, bf16 dw_tc_kernel<N, MT, false>)",

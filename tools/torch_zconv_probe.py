@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """bf16 K2 and K2-dx (the tensor-core kernel on the small-z grid), bf16 K3
-and K3-up (the split-K weight-gradient GEMM) and bf16 K1 and K1-dx (the
-tensor-core kernel on the plain or the pair view) on one GPU: right at the
-edges, then timed launch by launch at the voxel decoder's stages beside
-cuDNN.
+and K3-up (the split-K weight-gradient GEMM), bf16 K1 and K1-dx (the
+tensor-core kernel on the plain or the pair view) and fp32 K2 (the
+register-tiled CUDA-core kernel) on one GPU: right at the edges, then timed
+launch by launch at the voxel decoder's stages beside cuDNN.
 
-    python3 tools/torch_zconv_probe.py [--iters 12] [--parts k2,dw,k1]
-        [--out PATH]
+    python3 tools/torch_zconv_probe.py [--iters 12]
+        [--parts k2,dw,k1,k2f32] [--out PATH]
 
 1. edges: K2 (upzconv3d_leaky) and K2-dx (upzconv3d_dx) in bf16 against
    their plain versions, relative to max |plain| (2e-2, as chip_smoke.py),
@@ -46,6 +46,19 @@ cuDNN.
    cotangent) and the bound (as parts 2 and 4), with the rate of the
    view's m64 x k16 tensor-core products an SM.
 
+7. k2f32 edges: fp32 K2 (upzconv3d_leaky on fp32 tensors) against its
+   plain version, relative to max |plain| (1e-4, TF32 off), at Zs 1-3, C
+   3 with Cout 5, a y tile and a run that end mid volume, no activation and
+   both full-width stages at batch 1; a second launch must give the same
+   bits and ``last_impl`` must name f32up::zconv_up_f32_kernel.
+8. k2f32 timing: fp32 K2 at conv2.conv1 and conv3.conv1, batch 1 and 5,
+   --iters launches one event apart, on zconv.k2_f32_plan's plan and on
+   the other channel tile (co 4 <-> 8) and on fewer y rows, beside one
+   cuDNN call (F.interpolate over z, then F.conv3d with bias, TF32 off)
+   and the bound (2 * 27 * C * Cout flops an output voxel over 67 TFLOP/s,
+   or x, the weights and the output over 3.35 TB/s, the larger), with
+   zconv_f32.cu's ptxas lines (registers and spills).
+
 Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
 mode.
 """
@@ -64,8 +77,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 TOL = 2e-2
+FP32_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 # (label, input shape (B, X, Y, Zs, C), Cout, activation)
 EDGES = (("Zs1", (2, 5, 6, 1, 16), 8, True),
          ("Zs2", (1, 4, 9, 2, 32), 16, True),
@@ -358,12 +373,119 @@ def k1_timed(dev, iters):
     return timed
 
 
+# (label, input shape (B, X, Y, Zs, C), Cout, activation)
+K2F32_EDGES = (("Zs1", (2, 5, 6, 1, 16), 8, True),
+               ("Zs2", (1, 4, 9, 2, 8), 8, True),
+               ("Zs3_c3_cout5", (1, 3, 5, 3, 3), 5, True),
+               ("y_mid_tile_run_mid_x", (1, 7, 37, 16, 4), 16, True),
+               ("runs_across_tiles", (2, 40, 6, 5, 6), 12, True),
+               ("no_act", (1, 4, 5, 16, 32), 16, False),
+               ("conv2.conv1", (1, 96, 96, 16, 32), 16, True),
+               ("conv3.conv1", (1, 192, 192, 32, 16), 8, True))
+
+
+def fp32_inputs(dev, shape, cout, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device=dev)
+    w = torch.randn((cout, c, 3, 3, 3), generator=gen, device=dev) / (
+        27 * c) ** 0.5
+    b = torch.randn((cout,), generator=gen, device=dev)
+    return x, w, b
+
+
+def k2f32_edges(dev):
+    """Part 7: fp32 K2 against its plain version at the edges."""
+    from muvo_tpu_torch.ops import zconv
+
+    edges, failed = [], []
+    for label, shape, cout, act in K2F32_EDGES:
+        x, w, b = fp32_inputs(dev, shape, cout)
+        slope = 0.2 if act else None
+        bias = b if act else None
+        out = zconv.upzconv3d_leaky(x, w, bias, slope)
+        impl = zconv.upzconv3d_leaky.last_impl
+        same = torch.equal(out, zconv.upzconv3d_leaky(x, w, bias, slope))
+        want = zconv.upzconv3d_leaky_plain(x, w, bias, slope)
+        torch.cuda.synchronize()
+        plan = zconv.k2_f32_plan(*shape, cout,
+                                 *zconv._k2_f32_limits(dev.index or 0))
+        row = {"case": label, "shape": list(shape), "cout": cout, "act": act,
+               "impl": impl, "K2": rel(out, want), "repeat_equal": same,
+               "plan": {k: plan[k] for k in ("co", "ty", "threads", "grid",
+                                             "xs", "smem_bytes")}}
+        if not same:
+            failed.append(f"{label}: a second launch differs")
+        if impl != zconv.K2_F32_IMPL:
+            failed.append(f"{label}: ran {impl}")
+        if not row["K2"] <= FP32_TOL:
+            row["K2_where"] = where(out, want, 2 * shape[3])
+            failed.append(f"{label}: {row['K2']}")
+        edges.append(row)
+        print(json.dumps(row), flush=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return edges
+
+
+def k2f32_timed(dev, iters):
+    """Part 8: fp32 K2 per launch on the plan and its alternatives, beside
+    cuDNN and the bound."""
+    from muvo_tpu_torch.models.layers import to_nchw
+    from muvo_tpu_torch.ops import _build, zconv
+
+    sms, optin = zconv._k2_f32_limits(dev.index or 0)
+    timed = []
+    for stage, shape, cout in STAGES:
+        c = shape[-1]
+        big = (shape[0], shape[1], 2 * shape[2])
+        for batch in (1, FWD_BATCH):
+            x, w, b = fp32_inputs(dev, (batch, *shape), cout, seed=6)
+            out = torch.empty((batch, *big, cout), device=dev)
+            wk = zconv._kkkcn(w)
+            plan = zconv.k2_f32_plan(batch, *shape, cout, sms, optin)
+            other = zconv._k2_f32_plan(batch, *shape, cout, sms, optin,
+                                       co=12 - plan["co"])
+            fewer = zconv._k2_f32_plan(batch, *shape, cout, sms, optin,
+                                       ty=max(1, plan["ty"] // 2))
+            flops = 2 * 27 * c * cout * batch * big[0] * big[1] * big[2]
+            nbytes = 4 * (x.numel() + w.numel() + out.numel() + cout)
+            bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+            runs = {"K2": (lambda: zconv.upzconv3d_leaky(x, w, b, 0.2), plan)}
+            for name, p in (("K2_other_co", other), ("K2_half_ty", fewer)):
+                runs[name] = (lambda p=p: zconv._launch_up_f32(
+                    x, wk, b, out, 0.2, p), p)
+            runs["cudnn_K2"] = (lambda: F.conv3d(F.interpolate(
+                to_nchw(x), size=big, mode="trilinear", align_corners=False),
+                w, b, padding=1), None)
+            for name, (fn, p) in runs.items():
+                ms = per_launch(fn, iters)
+                row = {"run": name, "stage": stage, "batch": batch,
+                       "input": [batch, *shape], "cout": cout, "ms": ms,
+                       "ms_median": ms_median(ms)}
+                if p is not None:
+                    row["bound_ms"] = bound_ms
+                    row["x_bound"] = row["ms_median"] / bound_ms
+                    row["plan"] = {k: p[k] for k in ("co", "ty", "threads",
+                                                     "grid", "xs",
+                                                     "smem_bytes")}
+                timed.append(row)
+                print(json.dumps(row), flush=True)
+            del x, w, b, out, wk, runs
+            torch.cuda.empty_cache()
+    ptxas = [ln.strip() for ln in _build.build_log("zconv_f32").splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    timed.append({"ptxas": ptxas})
+    print(json.dumps({"ptxas": ptxas}), flush=True)
+    return timed
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=12)
-    ap.add_argument("--parts", default="k2,dw,k1",
+    ap.add_argument("--parts", default="k2,dw,k1,k2f32",
                     help="comma-separated: k2 (parts 1-2), dw (3-4), "
-                         "k1 (5-6)")
+                         "k1 (5-6), k2f32 (7-8)")
     ap.add_argument("--out", default=str(ROOT / "build"
                                          / "torch_zconv_probe.json"))
     args = ap.parse_args(argv)
@@ -382,6 +504,9 @@ def main(argv=None) -> int:
     if "k1" in parts:
         result["k1_edges"] = k1_edges(dev)
         result["k1_timed"] = k1_timed(dev, args.iters)
+    if "k2f32" in parts:
+        result["k2f32_edges"] = k2f32_edges(dev)
+        result["k2f32_timed"] = k2f32_timed(dev, args.iters)
     result["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
