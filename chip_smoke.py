@@ -1147,7 +1147,7 @@ def main() -> int:
                                  "zconv_dw_tc", "flash_attention")
                     for ln in build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln
-                    or "Compiling entry" in ln]})
+                    or "Compiling entry" in ln or "Performance Loss" in ln]})
 
     results = kernel_phase(dev)
     backward = backward_kernel_phase(dev)

@@ -44,14 +44,20 @@
 // warpgroups run wgmma with the fp32 accumulators in registers, and the
 // softmax (K4) or p and ds (K5, K6) are formed in registers and fed to the
 // next product as its register A operand. K5 and K6-dkv are one kernel,
-// flash_bwd_wgmma<D, DQ>, key-major: K5 (DQ) adds each tile's dq share by
-// a third product and vector atomics into an fp32 workspace, one per two
-// columns of a 64 x d tile; K6-dkv (no DQ) does K5's dk and dv products in
-// K5's order, so its dk and dv equal K5's bit for bit. K6-dq,
+// flash_bwd_wgmma<D, DQ>, key-major: in K5 (DQ) both consumers put their
+// halves of a q tile's dS^T into one of two shared buffers, and the q
+// tiles' dq alternate between the consumers: tile t's owner, consumer
+// t % 2, computes its dq over all 128 keys of the block by a third product
+// and adds it to an fp32 workspace by vector atomics, one per two columns
+// of a 64 x d tile, while the other consumer only arrives on a barrier and
+// goes on to its next tile. No partial dq is handed over, and the
+// consumers are not held in lockstep. K6-dkv (no DQ) does K5's dk and dv
+// products in K5's order, so its dk and dv equal K5's bit for bit. K6-dq,
 // flash_bwd_dq_wgmma<D>, is q-major on K4's skeleton and keeps dq in
 // registers. What bounds them now is the serial chain inside each consumer
-// (product, wait, softmax or ds, product): no elementwise work overlaps a
-// product, and K5 adds the atomics' L2 traffic. fp32 K4 and K4-mb
+// (product, wait, softmax or ds, product): no elementwise work of a
+// consumer overlaps its own products, and K5 adds the atomics' L2 traffic
+// and the owner's wait for the other half of dS^T. fp32 K4 and K4-mb
 // (namespace fp32) hold register micro-tiles of S and O on the CUDA cores,
 // FMA-bound. fp32 K5 and fp32 K6 keep the first design: every tile in
 // shared memory, each product one pass of a scalar shared-memory GEMM
@@ -624,26 +630,46 @@ __global__ void __launch_bounds__(kThreads, 1)
 // TMA streams through the ring (q^, dO; lse and delta stored by the
 // producer warp). S^T = k q^T and dP^T = v dO^T (m64n64); P^T and dS^T are
 // formed in registers and feed dv += P^T dO and dk += dS^T q^ as register
-// A operands. With DQ, dS^T also goes to shared memory for this tile's dq
-// share, dS k (m64nD, both operands M/N-major); consumer 1 hands its share
-// to consumer 0 through shared memory (named barriers 3 and 4), which adds
-// both and accumulates the tile into the fp32 workspace with vector
-// atomics (one per two columns). Without DQ all of that is compiled out
-// and dk, dv come from the same products in the same order. The layout
-// keeps ds and x for both: one block an SM either way (384 threads of 168
-// registers fill the register file), so the 32 KB K6-dkv leaves unused
-// cost nothing.
+// A operands. With DQ, each consumer also writes its 64-key half of dS^T
+// into buffer t % 2 of shared memory, and consumer t % 2 owns q tile t's
+// dq: over all 128 keys, dS k (m64nD, K 128, both operands M/N-major, B
+// the block's whole k tile), added to the fp32 workspace by vector atomics
+// (one per two columns). Only the other consumer gives way, by named
+// barriers of 256: it arrives on kDsFull + b when its half of buffer b is
+// written, and before writing buffer b again two tiles later it waits on
+// kDsFree + b, which the owner arrives on once its product has read the
+// buffer; the owner waits on kDsFull + b alone. So buffer b always belongs
+// to consumer b, and the TMA ring bounds how far the two drift apart.
+// Without DQ all of that is compiled out and dk, dv come from the same
+// products in the same order. The layout keeps both buffers either way:
+// one block an SM (384 threads of 168 registers fill the register file),
+// so the 32 KB K6-dkv leaves unused cost nothing.
 struct BwdLayout {
   static constexpr int k = 0;                        // 128 keys
   static constexpr int v = k + 128 * kRowBytes;
-  static constexpr int ds = v + 128 * kRowBytes;     // dS^T, 128 keys x 64 q
-  static constexpr int q = ds + 128 * kRowBytes;     // kStages x 64 rows
+  static constexpr int ds = v + 128 * kRowBytes;     // 2 x dS^T, 128 keys x 64 q
+  static constexpr int q = ds + 2 * 128 * kRowBytes; // kStages x 64 rows
   static constexpr int dout = q + kStages * 64 * kRowBytes;
-  static constexpr int x = dout + kStages * 64 * kRowBytes;  // dq hand-over
-  static constexpr int stats = x + 128 * 32 * 4;     // kStages x (lse, delta)
+  static constexpr int stats = dout + kStages * 64 * kRowBytes;  // kStages x (lse, delta)
   static constexpr int bars = stats + kStages * 128 * 4;
   static constexpr int bytes = bars + 8 * (1 + 2 * kStages) + 1024;
 };
+// named barriers of K5's dS^T buffers (b = 0, 1; barrier 0 is
+// __syncthreads): kDsFull + b, both halves of buffer b written;
+// kDsFree + b, the owner's product has read buffer b
+constexpr int kDsFull = 5, kDsFree = 7;
+// the registers of the owner's dq tile: at d 64 those of S^T, free once
+// P^T and dS^T are formed and the same 32 floats a thread. With a block of
+// its own, ptxas spills dk at the 168 registers a thread of 384 gets and
+// serializes every wgmma of the kernel (C7512): 4.3 ms against 2.9 on an
+// H100 at (48, 5184, 64)
+template <int D>
+__device__ __forceinline__ float (&dq_regs(float (&s)[32], float (&own)[D / 2]))[D / 2] {
+  if constexpr (D == 64)
+    return s;
+  else
+    return own;
+}
 
 template <int D, bool DQ>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -717,13 +743,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(kv_full, 0);
     const uint64_t dk_desc = desc(smem + L::k + c * 64 * kRowBytes);
     const uint64_t dv_desc = desc(smem + L::v + c * 64 * kRowBytes);
-    [[maybe_unused]] unsigned char* ds_tile = smem + L::ds + c * 64 * kRowBytes;
-    [[maybe_unused]] const uint64_t ds_desc = desc(ds_tile);
+    [[maybe_unused]] const uint64_t k_desc = desc(smem + L::k);  // all 128 keys
     const bool masked[2] = {k0 + 64 * c + r0 >= seq_len,
                             k0 + 64 * c + r0 + 8 >= seq_len};
-    [[maybe_unused]] float* x = reinterpret_cast<float*>(smem + L::x) + lt * (D / 2);
     for (int t = 0; t < tiles; ++t) {
       const int s = t % kStages, q0 = t * 64;
+      // DQ: tile t's dS^T goes to buffer b, and consumer b owns its dq
+      [[maybe_unused]] const int b = t & 1;
+      [[maybe_unused]] const bool own = b == c;
+      [[maybe_unused]] unsigned char* ds_buf = smem + L::ds + b * 128 * kRowBytes;
       mbar_wait(&full[s], (t / kStages) & 1);
       const uint64_t q_desc = desc(smem + L::q + s * 64 * kRowBytes);
       const uint64_t do_desc = desc(smem + L::dout + s * 64 * kRowBytes);
@@ -755,10 +783,22 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float p1 = masked[r] ? 0.f : ex2((sacc[i + 1] - ls.y) * kLog2e);
           pa[kk][j] = bf16x2(p0, p1);
           da[kk][j] = bf16x2(p0 * (dpacc[i] - dl.x), p1 * (dpacc[i + 1] - dl.y));
-          if constexpr (DQ)
-            *reinterpret_cast<uint32_t*>(ds_tile + swz(r0 + 8 * r, col)) = da[kk][j];
         }
-      if constexpr (DQ) fence_proxy_async();
+      if constexpr (DQ) {
+        // the owner's product of two tiles ago has read this buffer
+        if (!own && t >= 2) named_sync(kDsFree + b, 256);
+        unsigned char* my_half = ds_buf + c * 64 * kRowBytes;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = 16 * kk + 8 * (j >> 1) + 2 * t4;  // as above
+            *reinterpret_cast<uint32_t*>(my_half + swz(r0 + 8 * (j & 1), col)) =
+                da[kk][j];
+          }
+        fence_proxy_async();
+        if (!own) named_arrive(kDsFull + b, 256);
+      }
       wgmma::fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -767,43 +807,33 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int kk = 0; kk < 4; ++kk)
         wgmma::wgmma_rs<D, 1>(dka, da[kk], q_desc + kk * kStepRows, 1);
       wgmma::commit();
-      [[maybe_unused]] float dqa[D / 2];
+      [[maybe_unused]] float dq_own[D / 2];
+      [[maybe_unused]] float (&dqa)[D / 2] = dq_regs<D>(sacc, dq_own);
       if constexpr (DQ) {
-        named_sync(1 + c, 128);  // this consumer's dS^T is in shared memory
-        wgmma::fence();
+        if (own) {
+          // both halves are in the buffer (the barrier of 256 also orders
+          // this consumer's own writes): dq of the tile over all 128 keys
+          named_sync(kDsFull + b, 256);
+          const uint64_t ds_desc = desc(ds_buf);
+          wgmma::fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma::wgmma_ss<D, 1, 1>(dqa, ds_desc + kk * kStepRows,
-                                   dk_desc + kk * kStepRows, kk);
-        wgmma::commit();
+          for (int kk = 0; kk < 8; ++kk)
+            wgmma::wgmma_ss<D, 1, 1>(dqa, ds_desc + kk * kStepRows,
+                                     k_desc + kk * kStepRows, kk);
+          wgmma::commit();
+        }
       }
       wgmma::wait<0>();
       wgmma::fence_operands(dva);
       wgmma::fence_operands(dka);
-      if constexpr (DQ) wgmma::fence_operands(dqa);
       wgmma::fence_operands(pa);
       wgmma::fence_operands(da);
       if (lane == 0) mbar_arrive(&empty[s]);
-      // the hand-over: both consumers or neither pass named barriers 3 and 4
       if constexpr (DQ) {
-        if (c == 1) {
-          if (t > 0) named_sync(4, 256);  // consumer 0 has read the last share
-#pragma unroll
-          for (int i = 0; i < D / 2; i += 4)
-            *reinterpret_cast<float4*>(x + i) =
-                make_float4(dqa[i], dqa[i + 1], dqa[i + 2], dqa[i + 3]);
-          named_arrive(3, 256);
-        } else {
-          named_sync(3, 256);
-#pragma unroll
-          for (int i = 0; i < D / 2; i += 4) {
-            const float4 y = *reinterpret_cast<const float4*>(x + i);
-            dqa[i] += y.x;
-            dqa[i + 1] += y.y;
-            dqa[i + 2] += y.z;
-            dqa[i + 3] += y.w;
-          }
-          if (t + 1 < tiles) named_arrive(4, 256);
+        if (own) {
+          wgmma::fence_operands(dqa);
+          // the other consumer writes this buffer again at tile t + 2
+          if (t + 2 < tiles) named_arrive(kDsFree + b, 256);
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const int row = q0 + r0 + 8 * r;

@@ -6,7 +6,12 @@ K4 ``flash_fwd``: non-causal online-softmax attention, o and the fp32
     _flash_fwd.
 K5 ``flash_bwd`` (default, ``split=False``): dq, dk, dv from one recompute
     of p per (key tile, q tile); dq accumulates in an fp32 workspace with
-    atomics. Replaces _flash_bwd_fused_kernel via _flash_bwd_fused.
+    atomics. In bf16 a block holds 128 keys, and each 64-row q tile's dq
+    over those keys has one owner, the block's consumer warpgroup t % 2,
+    which multiplies both key halves' dS (bf16, from shared memory) by k
+    and adds the tile to the workspace; the other one only writes its half
+    of dS and goes on. Replaces _flash_bwd_fused_kernel via
+    _flash_bwd_fused.
 K6 ``flash_bwd(split=True)``: K6-dq (dq alone, streaming keys) then K6-dkv
     (dk and dv, streaming queries), both deterministic. Replaces
     _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel via _flash_bwd.

@@ -17,7 +17,10 @@ round p relative to a running maximum where the plain version uses the
 row's).
 """
 
+import os
 import re
+import sys
+import time
 
 import pytest
 import torch
@@ -193,14 +196,36 @@ def _qkv(dev, bh, n, d, dtype, seed=0, count=3):
             for _ in range(count)]
 
 
+def _finished(fn, seconds=120.0):
+    """fn's result once the card has run what it launched. bf16 K5's
+    consumers wait on each other at named barriers, which have no timeout:
+    a lost arrival would hang the card, so this polls an event and ends
+    the process (exit code 3) after ``seconds`` rather than leave every
+    later test waiting on a kernel that never returns."""
+    out = fn()
+    done = torch.cuda.Event()
+    done.record()
+    deadline = time.monotonic() + seconds
+    while not done.query():
+        if time.monotonic() > deadline:
+            print(f"a kernel did not finish within {seconds} s", flush=True,
+                  file=sys.stderr)
+            os._exit(3)
+        time.sleep(0.001)
+    return out
+
+
 # (bh, n, seq_len): ragged n; seq_len < n inside a key tile; key tiles of
 # masked keys only; a single tile; then the bf16 kernels' tile edges (128
 # q rows a block, 128 keys a forward tile, 64 q rows a backward tile): n
 # just under, on and just past 128, and seq_len on and just past a 128-key
-# boundary
+# boundary. For bf16 K5, whose consumer t % 2 owns q tile t's dq: a single
+# q tile (n 64, consumer 1 owns none), a block whose second key half lies
+# wholly past seq_len (n 200, seq_len 60), odd tile counts (n 129, 257,
+# 300) and 17 tiles (n 1025), room for the consumers to drift apart
 FLASH_SHAPES = [(3, 300, None), (2, 640, 600), (2, 200, 60), (1, 64, None),
                 (2, 127, None), (1, 128, None), (3, 129, None),
-                (2, 257, 128), (2, 257, 129)]
+                (2, 257, 128), (2, 257, 129), (2, 1025, None)]
 
 
 @pytest.mark.parametrize("d", [32, 48, 64])
@@ -208,7 +233,9 @@ FLASH_SHAPES = [(3, 300, None), (2, 640, 600), (2, 200, 60), (1, 64, None),
 @pytest.mark.parametrize("bh,n,seq_len", FLASH_SHAPES)
 def test_flash_kernels_match_plain(dev, d, dtype, bh, n, seq_len):
     """K4, K5 and K6 (dq, dkv) against their plain versions on the same
-    inputs, norm-relative (K5's dq sums by atomics in a varying order)."""
+    inputs, norm-relative (K5's dq sums by atomics in a varying order); in
+    bf16 K6-dkv's dk and dv equal to K5's bit for bit (one kernel: K5's
+    dq work changes nothing of them)."""
     q, k, v, do = _qkv(dev, bh, n, d, dtype, count=4)
     key = str(dtype).removeprefix("torch.")
     wrappers = (fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
@@ -216,9 +243,9 @@ def test_flash_kernels_match_plain(dev, d, dtype, bh, n, seq_len):
           fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
     typed = [f.launches_by_type.get(key, 0) for f in wrappers]
     o, lse = fa.flash_fwd(q, k, v, seq_len)
-    fused = fa.flash_bwd(q, k, v, o, lse, do, seq_len)
-    split = fa.flash_bwd(q, k, v, o, lse, do, seq_len, split=True)
-    torch.cuda.synchronize()
+    fused = _finished(lambda: fa.flash_bwd(q, k, v, o, lse, do, seq_len))
+    split = _finished(lambda: fa.flash_bwd(q, k, v, o, lse, do, seq_len,
+                                           split=True))
     assert (fa.flash_fwd.launches, fa.flash_bwd.launches,
             fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == tuple(
                 c + 1 for c in n0)
@@ -233,6 +260,9 @@ def test_flash_kernels_match_plain(dev, d, dtype, bh, n, seq_len):
         for g, w in zip(got, want):
             assert g.dtype == dtype and g.shape == w.shape
             assert _norm_rel(g, w) <= TOL[dtype]
+    if dtype == torch.bfloat16:
+        assert torch.equal(split[1], fused[1]) and torch.equal(split[2],
+                                                               fused[2])
 
 
 @pytest.mark.parametrize("d", [32, 48])
@@ -300,6 +330,23 @@ def test_bf16_k6_runs_the_hopper_kernels(dev, d, bh, n, seq_len):
     assert fa.flash_bwd.last_impl == f"hopper::flash_bwd_wgmma<{d}, true>"
     assert torch.equal(dk, fused[1]) and torch.equal(dv, fused[2])
     assert _norm_rel(dq, fused[0]) <= 2.0 ** -8
+
+
+def test_bf16_k5_repeats_without_a_race(dev):
+    """Five launches of bf16 K5 at 81 q tiles (the LARGE step's n): dk and
+    dv the same bits every time; dq, summed by atomics in a varying order,
+    within one bf16 rounding of the first launch's and within the bf16
+    tolerance of the plain version. A buffer overwritten before its
+    owner's product read it would show as an error far past both."""
+    q, k, v, do = _qkv(dev, 4, 5184, 48, torch.bfloat16, count=4)
+    o, lse = fa.flash_fwd(q, k, v)
+    runs = [_finished(lambda: fa.flash_bwd(q, k, v, o, lse, do))
+            for _ in range(5)]
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do)
+    for dq, dk, dv in runs:
+        assert torch.equal(dk, runs[0][1]) and torch.equal(dv, runs[0][2])
+        assert _norm_rel(dq, runs[0][0]) <= 2.0 ** -8
+        assert _norm_rel(dq, want[0]) <= TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("d", [32, 48, 64])

@@ -21,16 +21,28 @@ attention.
    scaled_dot_product_attention (and its backward alone for the backward
    kernels) on the same inputs.
 
-The result also holds flash_attention.cu's ptxas lines (registers and
-spills a kernel). Prints one JSON object and writes it to --out; exits 1
-if an edge case failed (listed under "failed"). Needs CUDA; it has no CPU
-mode.
+3. breakdown: bf16 K5 (``flash_bwd``) and K6-dkv at bh 48, n 5184, d 48,
+   32 and 64 under torch.profiler, --reps calls after a warm-up: the device
+   ms a call of each launch it makes, by kernel name (the delta
+   reduction's copies, product and reduce, the workspace memset,
+   scale_q_kernel, flash_bwd_wgmma<D, DQ>, flash_dq_flush_kernel), and
+   their sum.
+
+    python3 tools/torch_flash_probe.py --parts breakdown [--reps 5]
+
+runs one part alone (--parts takes a comma-separated list of edges,
+timed, breakdown). The result also holds flash_attention.cu's ptxas lines
+(registers and spills a kernel, any warning, and the note ptxas gives
+where it serializes a kernel's wgmma for want of registers, C7512).
+Prints one JSON object and writes it to --out; exits 1 if an edge case
+failed (listed under "failed"). Needs CUDA; it has no CPU mode.
 """
 
 import argparse
 import json
 import subprocess
 import sys
+from collections import defaultdict
 from pathlib import Path
 
 import torch
@@ -67,6 +79,31 @@ def per_launch(fn, iters):
     return [events[i].elapsed_time(events[i + 1]) for i in range(iters)]
 
 
+def breakdown(fn, reps):
+    """{kernel name: device ms a call} of the launches ``fn`` makes, from
+    torch.profiler over ``reps`` calls after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = defaultdict(float)
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        if e.time_range.end > e.time_range.start:
+            by_name[e.name] += (e.time_range.end
+                                - e.time_range.start) / 1e3 / reps
+    if not by_name:
+        raise RuntimeError("the profiler recorded no device activity")
+    return dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+
+
 def inputs(dev, bh, n, d, dtype, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn((bh, n, d), generator=gen, device=dev).to(dtype)
@@ -76,6 +113,8 @@ def inputs(dev, bh, n, d, dtype, seed=0):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=12)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--parts", default="edges,timed,breakdown")
     ap.add_argument("--out", default=str(ROOT / "build"
                                          / "torch_flash_probe.json"))
     args = ap.parse_args(argv)
@@ -87,9 +126,10 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    parts = set(args.parts.split(","))
     edges, failed = [], []
     for dtype in (torch.bfloat16, torch.float32):
-        for bh, n, d, seq_len in EDGES:
+        for bh, n, d, seq_len in (EDGES if "edges" in parts else ()):
             q, k, v, do = inputs(dev, bh, n, d, dtype)
             o, lse = fa.flash_fwd(q, k, v, seq_len)
             got = {"o": o, "lse": lse, "mb": fa.flash_matmul(q, k, v)}
@@ -130,7 +170,7 @@ def main(argv=None) -> int:
             if bad:
                 failed.append(f"{dtype} {(bh, n, d, seq_len)}: {bad}")
     timed = []
-    for dtype, bh, d in TIMED:
+    for dtype, bh, d in (TIMED if "timed" in parts else ()):
         q, k, v, do = inputs(dev, bh, N, d, dtype)
         o, lse = fa.flash_fwd(q, k, v)
         q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
@@ -151,15 +191,31 @@ def main(argv=None) -> int:
                 "ms_median": sorted(ms)[len(ms) // 2]})
         del q, k, v, do, o, lse, q4, k4, v4, runs
         torch.cuda.empty_cache()
+    launches = []
+    for d in ((48, 32, 64) if "breakdown" in parts else ()):
+        q, k, v, do = inputs(dev, 48, N, d, torch.bfloat16)
+        o, lse = fa.flash_fwd(q, k, v)
+        for name, fn in (("K5", lambda: fa.flash_bwd(q, k, v, o, lse, do)),
+                         ("K6-dkv", lambda: fa.flash_bwd_dkv(q, k, v, o, lse,
+                                                             do))):
+            ms = breakdown(fn, args.reps)
+            launches.append({"kernel": name, "dtype": "bfloat16", "bh": 48,
+                             "n": N, "d": d, "reps": args.reps,
+                             "device_ms": ms,
+                             "device_ms_total": sum(ms.values())})
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[0]
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "edges": edges, "timed": timed, "failed": failed}
+              "edges": edges, "timed": timed, "breakdown": launches,
+              "failed": failed}
     result["ptxas"] = [ln.strip() for ln in build_log(
         "flash_attention").splitlines() if "registers" in ln
-        or "spill" in ln or "Compiling entry" in ln or "warning" in ln]
+        or "spill" in ln or "Compiling entry" in ln or "warning" in ln
+        or "Performance Loss" in ln]
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
