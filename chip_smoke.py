@@ -14,11 +14,11 @@ exits nonzero (there is no CPU fallback):
    the plain version, one library call and the bound. In bf16 both are the
    tensor-core kernel (zconv_tc_kernel): K2 on the small-z grid, K1 on the
    view zconv.k1_route picks (z pairs folded into channels at conv3.conv2);
-   fp32 K1 is the CUDA-core zconv_kernel, fp32 K2 the register-tiled
-   f32up::zconv_up_f32_kernel (zconv_f32.cu). Each row names the kernel
-   that ran in ``impl``; a bf16 row must name the tensor-core kernel, an
-   fp32 K2 row zconv_up_f32_kernel, and for both a second launch must give
-   the same bits.
+   fp32 K1 and K2 are the register-tiled f32conv::zconv_f32_kernel and
+   zconv_up_f32_kernel (zconv_f32.cu). Each row names the kernel that ran
+   in ``impl``; a bf16 row must name the tensor-core kernel, an fp32 K1
+   row zconv_f32_kernel, an fp32 K2 row zconv_up_f32_kernel, and for each
+   a second launch must give the same bits.
 4. backward_kernels: K1-dx, K2-dx, K3 and K3-up at the four training shapes
    (batch 24 = 4 sequences of 6 frames), bf16 and fp32, held against their
    plain versions and timed beside them, one library call
@@ -45,8 +45,8 @@ exits nonzero (there is no CPU fallback):
    version's.
 6. serving: muvo.yml at full width with seeded random weights, driven
    through DeploymentSession (deployment_forward, then sim_forward with a
-   5-step imagination); K1 and K2 must be launched (K2 on
-   zconv_up_f32_kernel) and K4 not (648 tokens a frame), outputs must be
+   5-step imagination); K1 and K2 must be launched (on zconv_f32_kernel
+   and zconv_up_f32_kernel) and K4 not (648 tokens a frame), outputs must be
    finite with muvo_tpu's shapes, and one decode on the card must match the
    same decode run by the port on the host CPU.
 7. training: build_flagship_step (muvo.yml at full width, 4 x 6 frames, bf16
@@ -145,8 +145,8 @@ SOURCES = {"K1": "zconv.cu", "K2": "zconv.cu", "K1-dx": "zconv.cu",
            "K4": "flash_attention.cu", "K5": "flash_attention.cu",
            "K6-dq": "flash_attention.cu", "K6-dkv": "flash_attention.cu",
            "K4-mb": "flash_attention.cu"}
-F32_SOURCES = {"K2": "zconv_f32.cu", "K3": "zconv_dw.cu",
-               "K3-up": "zconv_dw.cu"}
+F32_SOURCES = {"K1": "zconv_f32.cu", "K2": "zconv_f32.cu",
+               "K3": "zconv_dw.cu", "K3-up": "zconv_dw.cu"}
 REPLACES = {"K1": "muvo_tpu/ops/pallas_zconv.py:171",
             "K2": "muvo_tpu/ops/pallas_zconv.py:171",
             "K1-dx": "muvo_tpu/ops/pallas_zconv.py:171",
@@ -262,10 +262,10 @@ def kernel_phase(dev):
                     out = kernel(x, w, bias, 0.2)
                     impl = kernel.last_impl
                     want = (TC_IMPL if dtype == torch.bfloat16
-                            else zconv.K2_F32_IMPL if up else None)
-                    if want is not None:
-                        require_kernel(f"{kid} {stage} B={b} {dtype}", impl,
-                                       want, out, kernel(x, w, bias, 0.2))
+                            else zconv.K2_F32_IMPL if up
+                            else zconv.K1_F32_IMPL)
+                    require_kernel(f"{kid} {stage} B={b} {dtype}", impl,
+                                   want, out, kernel(x, w, bias, 0.2))
                     ref = plain(x, w, bias, 0.2)
                     torch.cuda.synchronize()
                     err = (out.float() - ref.float()).abs().max().item()
@@ -289,7 +289,7 @@ def kernel_phase(dev):
                     "phase": "kernel", "kernel": kid, "stage": stage,
                     "shape": [b, *shape], "cout": cout,
                     "dtype": str(dtype).replace("torch.", ""),
-                    "impl": impl, "repeat_equal": want is not None,
+                    "impl": impl, "repeat_equal": True,
                     "max_abs_err": err, "rel_err": rel, "tol": tol,
                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
@@ -673,9 +673,11 @@ def serving_phase(dev, cfg):
     if not (launches["K1"] and launches["K2"]):
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{launches}")
-    if zconv.upzconv3d_leaky.last_impl != zconv.K2_F32_IMPL:
-        raise AssertionError(f"serving's K2 ran "
-                             f"{zconv.upzconv3d_leaky.last_impl}")
+    for kernel, want in ((zconv.zconv3d_leaky, zconv.K1_F32_IMPL),
+                         (zconv.upzconv3d_leaky, zconv.K2_F32_IMPL)):
+        if kernel.last_impl != want:
+            raise AssertionError(f"serving ran {kernel.last_impl}, not "
+                                 f"{want}")
     if launches["K4"]:  # 648 tokens a frame take the math path
         raise AssertionError(f"flash attention ran on muvo.yml's 648 tokens: "
                              f"{launches}")
@@ -702,6 +704,7 @@ def serving_phase(dev, cfg):
           "deployment_tick_ms_median": statistics.median(deploy_ms),
           "peak_mib": peak_mib, "launches": launches,
           "launches_by_type": typed, "launches_per_sim_tick": sim_launches,
+          "K1_impl": zconv.zconv3d_leaky.last_impl,
           "K2_impl": zconv.upzconv3d_leaky.last_impl,
           "decode_vs_host_norm_rel": decode_err,
           "decode_tol": DECODE_TOL, "host_decode_s": host_s})

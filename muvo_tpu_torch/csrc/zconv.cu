@@ -1,5 +1,5 @@
 // K1, K2 and their input gradients K1-dx, K2-dx: the voxel decoder's 3x3x3
-// convolutions on Hopper (sm_90a); fp32 K2 is in zconv_f32.cu.
+// convolutions on Hopper (sm_90a); fp32 K1 and K2 are in zconv_f32.cu.
 //
 //   K1     out = LeakyReLU(conv3d_same(x) + bias)
 //   K2     out = LeakyReLU(conv3d_same(up2_z(x)) + bias)
@@ -27,8 +27,8 @@
 // Bound on the card: at the decoder's shapes (C, Cout <= 32) the function
 // does 27*C*2 flops per output element against ~(C + Cout) * 4 bytes of
 // traffic, so in fp32 it is bound by operations (the CUDA cores' fp32 rate)
-// and in bf16 by bytes. The CUDA-core kernels (fp32 K1, K1-dx and K2-dx,
-// and bf16 K1 and K1-dx past 64 channels, ops/zconv.py::k1_route, which no
+// and in bf16 by bytes. The CUDA-core kernels (fp32 K1-dx and K2-dx, and
+// bf16 K1 and K1-dx past 64 channels, ops/zconv.py::k1_route, which no
 // model shape reaches), simple first: one block per (b, x, y-tile) stages a
 // haloed tile of 3 x-rows * (ty+2) y * (Z+2) z * C in shared memory (the
 // dx kernels apply the leaky mask while staging, reading the forward
@@ -739,8 +739,10 @@ bool bad_dims(int B, int X, int Y, int Z, int C, int Cout, int dtype) {
 // Plain C interface, called through ctypes. dtype: 0 = fp32, 1 = bf16.
 // Each returns a cudaError_t; nonzero means the kernel did not launch.
 
-// K1 on the CUDA cores: fp32 K1, and bf16 K1 past 64 channels. w is (kx, ky, kz, C, Cout) in fp32; bias may be null. K2 is elsewhere:
-// bf16 muvo_zconv3d_tc, fp32 zconv_f32.cu's muvo_zconv3d_up_f32.
+// K1 on the CUDA cores: bf16 K1 past 64 channels (fp32 too, which
+// tools/torch_zconv_probe.py times beside fp32 K1's own kernel). w is (kx,
+// ky, kz, C, Cout) in fp32; bias may be null. Elsewhere: bf16 K1 and K2
+// muvo_zconv3d_tc, fp32 K1 and K2 zconv_f32.cu's muvo_zconv3d_f32.
 extern "C" int muvo_zconv3d_leaky(const void* x, const float* w,
                                   const float* bias, void* out, int B, int X,
                                   int Y, int Z, int C, int Cout, int has_act,

@@ -1,85 +1,108 @@
-// fp32 K2 on Hopper's CUDA cores (sm_90a): the voxel decoder's fused
-// z-upsample conv on the serving path,
+// fp32 K1 and K2 on Hopper's CUDA cores (sm_90a): the voxel decoder's
+// 3x3x3 convs on the serving path,
 //
-//   out = LeakyReLU(conv3d_same(up2_z(x)) + bias)
+//   K1: out = LeakyReLU(conv3d_same(x) + bias)
+//   K2: out = LeakyReLU(conv3d_same(up2_z(x)) + bias)
 //
-// x (B, X, Y, Zin, C) -> out (B, X, Y, Z = 2 Zin, Cout), channels-last fp32;
-// weights (kx, ky, kz, C, Cout) and bias in fp32. up2_z is the 2x linear
-// z-upsample with half-pixel centres and clamped edges (torch
-// align_corners=False):
+// channels-last fp32: K1 x (B, X, Y, Z, C) -> out (B, X, Y, Z, Cout); K2 x
+// (B, X, Y, Zin, C) -> out (B, X, Y, Z = 2 Zin, Cout); weights (kx, ky, kz,
+// C, Cout) and bias in fp32. up2_z is the 2x linear z-upsample with
+// half-pixel centres and clamped edges (torch align_corners=False):
 //   u[2k]   = 0.75 x[k] + 0.25 x[k - 1]   (u[0] = x[0])
 //   u[2k+1] = 0.75 x[k] + 0.25 x[k + 1]   (u[Z - 1] = x[Zin - 1])
-// and the conv's SAME padding is zero outside the volume, at big z -1 and Z.
+// and the conv's SAME padding is zero outside the volume, at z -1 and Z.
 //
 // Replaces muvo_tpu/ops/pallas_zconv.py::_zconv_pallas_raw as called by
-// upzconv3d_leaky_folded (K2) in fp32. The TPU kernel folds the upsample
-// into banded z-block weights for its 128-lane tiles; here the upsampled
-// tensor is interpolated while staging and never exists in device memory.
+// zconv3d_leaky_folded (K1) and upzconv3d_leaky_folded (K2) in fp32. The
+// TPU kernel folds z into banded z-block weights for its 128-lane tiles
+// (and K2's upsample into them); here K2's upsampled tensor is
+// interpolated while staging and never exists in device memory.
 //
 // Bound on the card: operations. 2 * 27 * C * Cout flops per output voxel
-// against (C / 2 + Cout) * 4 bytes: 27,648 flops per 96 bytes at
-// conv2.conv1 (C 32, Cout 16), so the fp32 pipes (67 TFLOP/s) bound it at
-// any batch, and the design's aim is to keep the FMA pipes fed:
+// against (C + Cout) * 4 bytes for K1 (54 flops a byte at conv3.conv2, C 8,
+// Cout 8) and (C / 2 + Cout) * 4 for K2 (27,648 flops per 96 bytes at
+// conv2.conv1, C 32, Cout 16), so the fp32 pipes (67 TFLOP/s) bound both at
+// any batch, and the design's aim is to keep the FMA pipes fed. One
+// template, conv_walk<CO, UP>, runs both; UP changes only the staging, so
+// K1 and K2 share the register tile, the plane ring and the walk:
 //
 // - A thread owns kRZ = 4 consecutive output z x CO (4 or 8) output
 //   channels of one (x, y) and keeps them in fp32 registers. For each
 //   (dx, dy, c) it reads the 6 input z its window needs as two float4 (one
 //   tap window of 4 outputs plus the 2-slice halo), and for each dz one
 //   float4 (CO 8: two) of weights, then does 3 * 4 * CO FMAs: 48 FMAs per 5
-//   shared loads at CO 4. The 8 lanes of a quarter warp are 8 consecutive
-//   z groups of one (y, c), 128 contiguous bytes, so the input loads are
-//   free of bank conflicts; the lanes of a warp share one channel chunk, so
-//   the weight loads are broadcasts. Sums run dx, dy, c, dz in that order,
-//   with no atomics: a second launch gives the same bits.
-// - The weights (27 C Cout floats, 55 KB at conv2.conv1) stay in shared
-//   memory for the whole block, chunk-major, so a thread's weights for a
-//   (dx, dy) are one run at compile-time strides.
-// - A plane is one input x row of the block's ty + 2 y rows, z-upsampled
-//   and laid out [y][c][z] with the z halo (big z -1 and Z .. zs - 2)
-//   zeroed once. The block keeps kPlanes = 3 planes, the ones its current
-//   output row reads. The next plane arrives in registers while the row
-//   computes: each thread starts its share of plane x + 2's small-z loads
-//   (kRun small z of one (y, c) a staging item, with the neighbours the
-//   interpolation takes) before the row's FMAs, and after them interpolates
-//   and stores it into the slot of plane x - 1 (a fourth plane would cost
-//   shared memory, and so y rows, for nothing). So every input plane is
-//   read and interpolated once per run of rows, not three times.
+//   shared loads at CO 4, 96 per 8 at CO 8. The 8 lanes of a quarter warp
+//   are 8 consecutive z groups of one (y, c), 128 contiguous bytes, so the
+//   input loads are free of bank conflicts; the lanes of a warp share one
+//   channel chunk, so the weight loads are broadcasts. Sums run dx, dy, c,
+//   dz in that order, with no atomics: a second launch gives the same bits.
+// - The weights (27 C Cout floats: 27 KB at conv2.conv2, 55 KB at
+//   conv2.conv1) stay in shared memory for the whole block, chunk-major, so
+//   a thread's weights for a (dx, dy) are one run at compile-time strides.
+// - A plane is one input x row of the block's ty + 2 y rows, laid out
+//   [y][c][z] with the z halo (z -1 and Z .. zs - 2) zeroed once. The
+//   block keeps kPlanes = 3 planes, the ones its current output row reads.
+//   The next plane arrives in registers while the row computes: each thread
+//   starts its share of plane x + 2's loads (kPrefetch items) before the
+//   row's FMAs, and after them stores it into the slot of plane x - 1 (a
+//   fourth plane would cost shared memory, and so y rows, for nothing). So
+//   every input plane is read once per run of rows, not three times.
+//   - K2's item is kRun small z of one (y, c), with the neighbours the
+//     interpolation takes: 6 scalar loads at stride C, 8 big z stored.
+//   - K1's item is kQuad = 4 consecutive floats of one y row of x, which is
+//     Z * C contiguous floats in channels-last [z][c] order: one coalesced
+//     16-byte load where the row allows it (``xvec``: Z * C a multiple of
+//     4 and x 16-byte aligned), else 4 scalar loads, transposed into the
+//     plane's [c][z] as it is stored. At both muvo.yml stages a y row is
+//     512 floats, so a warp loads 512 contiguous bytes; the scattered
+//     stores hit at most two lanes a bank (C 16), none at C 8.
 // - Persistent blocks: block i walks rows (b, y tile, x) i * rows / grid ..
 //   (i + 1) * rows / grid - 1 with x innermost, one run per (b, y tile) it
 //   touches; a run stages its first three planes, then one a row.
 //
 // The plan (y rows a tile, CO, threads, grid, the plane layout) is made on
-// the host by ops/zconv.py::k2_f32_plan and passed in as K2f32Shape: at
-// muvo.yml's conv2.conv1 ty 8, CO 4, 256 threads, 194 KB; at conv3.conv1
-// ty 12, CO 4, 384 threads, 197 KB; one block an SM, 132 blocks at batch 1
-// and 5. A plan that does not add up is refused.
+// the host by ops/zconv.py::f32_plan and passed in as F32Shape; a plan that
+// does not add up is refused. At muvo.yml's stages: K2 conv2.conv1 ty 8,
+// CO 4, 256 threads, 194 KB; conv3.conv1 ty 12, CO 4, 384 threads, 197 KB;
+// K1 conv2.conv2 ty 16, CO 4, 512 threads, 152 KB; conv3.conv2 ty 16, CO 4,
+// 512 threads, 124 KB; one block an SM (its registers fill the SM's file).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
-namespace f32up {
+namespace f32conv {
 
 constexpr int kRZ = 4;          // output z a thread
-constexpr int kRun = 4;         // small z a staging item
+constexpr int kRun = 4;         // K2: small z a staging item
+constexpr int kQuad = 4;        // K1: floats of a y row a staging item
 constexpr int kPrefetch = 5;    // staging items a thread holds in registers
 constexpr int kPlanes = 3;      // x planes in shared memory
 constexpr int kMaxThreads = 512;
 
-// ops/zconv.py::K2F32_FIELDS, in this order
-struct K2f32Shape {
+// ops/zconv.py::F32_FIELDS, in this order
+struct F32Shape {
   int B, X, Y, Zin, Z, C, Cout;
+  int up, xvec;                     // K2 (1) or K1 (0); K1's rows as float4
   int rz, co, coutp, nchunks, ngz;  // register tile, channel chunks, z groups
   int ty, nyt;                      // y rows a tile, tiles over Y
   int zs, ys, plane, wfloats;       // floats: a (y, c) row, a y row, a plane,
                                     // the weights
-  int threads, runs, items;         // staging: small-z runs, items a plane
+  int threads, runs, items;         // staging: items a (y, c) row (K2) or a
+                                    // y row (K1), items a plane
   int rows, grid, xs;               // rows B * nyt * X over grid blocks,
                                     // at most xs a block
   int smem_bytes;
 };
 
-// staging item i of a plane: small z k0 .. k0 + kRun - 1 of (y row yy, c)
-__device__ __forceinline__ void item_of(const K2f32Shape& s, int i, int& yy,
+// floats a staging item holds: K2's kRun small z and their neighbours,
+// K1's kQuad
+template <bool UP>
+constexpr int kItemFloats = UP ? kRun + 2 : kQuad;
+
+// K2's staging item i of a plane: small z k0 .. k0 + kRun - 1 of (y row
+// yy, c)
+__device__ __forceinline__ void item_of(const F32Shape& s, int i, int& yy,
                                         int& c, int& k0) {
   c = i % s.C;
   const int q = i / s.C;
@@ -87,55 +110,93 @@ __device__ __forceinline__ void item_of(const K2f32Shape& s, int i, int& yy,
   yy = q / s.runs;
 }
 
-// x[b, xi, y0 + yy - 1, k0 - 1 .. k0 + kRun (clamped), c]; zero outside
-// the volume
-__device__ __forceinline__ void load_item(const float* __restrict__ x,
-                                          const K2f32Shape& s, int b, int xi,
-                                          int y0, int i,
-                                          float (&v)[kRun + 2]) {
-  int yy, c, k0;
-  item_of(s, i, yy, c, k0);
+// K2: x[b, xi, y0 + yy - 1, k0 - 1 .. k0 + kRun (clamped), c];
+// K1: floats k0 .. k0 + kQuad - 1 of the y row x[b, xi, y0 + yy - 1], zero
+// past its Z * C; both zero outside the volume
+template <bool UP>
+__device__ __forceinline__ void load_item(
+    const float* __restrict__ x, const F32Shape& s, int b, int xi, int y0,
+    int i, float (&v)[kItemFloats<UP>]) {
+  int yy, c = 0, k0;  // K2: first small z and channel; K1: first float
+  if constexpr (UP) {
+    item_of(s, i, yy, c, k0);
+  } else {
+    yy = i / s.runs;
+    k0 = (i % s.runs) * kQuad;
+  }
   const int gy = y0 + yy - 1;
   if (xi < 0 || xi >= s.X || gy < 0 || gy >= s.Y) {
 #pragma unroll
-    for (int j = 0; j < kRun + 2; ++j) v[j] = 0.f;
+    for (int j = 0; j < kItemFloats<UP>; ++j) v[j] = 0.f;
     return;
   }
-  const float* col =
-      x + (((size_t)b * s.X + xi) * s.Y + gy) * (size_t)s.Zin * s.C + c;
+  const float* row =
+      x + (((size_t)b * s.X + xi) * s.Y + gy) * (size_t)s.Zin * s.C;
+  if constexpr (UP) {
 #pragma unroll
-  for (int j = 0; j < kRun + 2; ++j) {
-    const int k = min(max(k0 - 1 + j, 0), s.Zin - 1);
-    v[j] = __ldg(col + (size_t)k * s.C);
+    for (int j = 0; j < kRun + 2; ++j) {
+      const int k = min(max(k0 - 1 + j, 0), s.Zin - 1);
+      v[j] = __ldg(row + (size_t)k * s.C + c);
+    }
+  } else if (s.xvec) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(row + k0));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+    const int n = s.Z * s.C;
+#pragma unroll
+    for (int j = 0; j < kQuad; ++j) v[j] = k0 + j < n ? __ldg(row + k0 + j)
+                                                      : 0.f;
   }
 }
 
-// big z 2k and 2k + 1 of the item's small z k (< Zin), at padded z 2k + 1
-// and 2k + 2 of its (yy, c) row
-__device__ __forceinline__ void store_item(float* plane, const K2f32Shape& s,
-                                           int i, const float (&v)[kRun + 2]) {
-  int yy, c, k0;
-  item_of(s, i, yy, c, k0);
-  float* row = plane + yy * s.ys + c * s.zs + 1;
+// K2: big z 2k and 2k + 1 of the item's small z k (< Zin), at padded z
+// 2k + 1 and 2k + 2 of its (yy, c) row; K1: float f = z C + c of the y row
+// at padded z z + 1 of its (yy, c) row
+template <bool UP>
+__device__ __forceinline__ void store_item(
+    float* plane, const F32Shape& s, int i,
+    const float (&v)[kItemFloats<UP>]) {
+  if constexpr (UP) {
+    int yy, c, k0;
+    item_of(s, i, yy, c, k0);
+    float* row = plane + yy * s.ys + c * s.zs + 1;
 #pragma unroll
-  for (int m = 0; m < kRun; ++m) {
-    const int k = k0 + m;
-    if (k >= s.Zin) break;
-    const float xk = v[m + 1];
-    row[2 * k] = k == 0 ? xk : 0.75f * xk + 0.25f * v[m];
-    row[2 * k + 1] = k == s.Zin - 1 ? xk : 0.75f * xk + 0.25f * v[m + 2];
+    for (int m = 0; m < kRun; ++m) {
+      const int k = k0 + m;
+      if (k >= s.Zin) break;
+      const float xk = v[m + 1];
+      row[2 * k] = k == 0 ? xk : 0.75f * xk + 0.25f * v[m];
+      row[2 * k + 1] = k == s.Zin - 1 ? xk : 0.75f * xk + 0.25f * v[m + 2];
+    }
+  } else {
+    const int yy = i / s.runs, f0 = (i % s.runs) * kQuad;
+    int z = f0 / s.C, c = f0 - z * s.C;
+    float* row = plane + yy * s.ys + 1;
+#pragma unroll
+    for (int j = 0; j < kQuad; ++j) {
+      if (z >= s.Z) break;  // past the y row's Z * C floats
+      row[c * s.zs + z] = v[j];
+      if (++c == s.C) {
+        c = 0;
+        ++z;
+      }
+    }
   }
 }
 
 // plane xi of tile (b, y0) into `plane`, load and store in one pass
+template <bool UP>
 __device__ __forceinline__ void stage_plane(float* plane,
                                             const float* __restrict__ x,
-                                            const K2f32Shape& s, int b, int xi,
+                                            const F32Shape& s, int b, int xi,
                                             int y0, int from) {
   for (int i = threadIdx.x + from; i < s.items; i += blockDim.x) {
-    float v[kRun + 2];
-    load_item(x, s, b, xi, y0, i, v);
-    store_item(plane, s, i, v);
+    float v[kItemFloats<UP>];
+    load_item<UP>(x, s, b, xi, y0, i, v);
+    store_item<UP>(plane, s, i, v);
   }
 }
 
@@ -144,9 +205,8 @@ __device__ __forceinline__ void stage_plane(float* plane,
 // plane of tap dx
 template <int CO>
 __device__ __forceinline__ void conv_row(const float* planes,
-                                         const float* wsm,
-                                         const K2f32Shape& s, int j, int yi,
-                                         int g, int cc,
+                                         const float* wsm, const F32Shape& s,
+                                         int j, int yi, int g, int cc,
                                          float (&acc)[kRZ][CO]) {
 #pragma unroll
   for (int r = 0; r < kRZ; ++r)
@@ -190,15 +250,17 @@ __device__ __forceinline__ void conv_row(const float* planes,
   }
 }
 
-template <int CO>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-    zconv_up_f32_kernel(const float* __restrict__ x,
-                        const float* __restrict__ w,
-                        const float* __restrict__ bias,
-                        float* __restrict__ out, K2f32Shape s, int has_act,
-                        float slope) {
-  extern __shared__ __align__(16) float smem[];
-  float* wsm = smem;               // [nchunks][kx ky][C][kz][CO]
+// the block's rows (see the note at the top); smem holds the weights, then
+// the kPlanes planes
+template <int CO, bool UP>
+__device__ __forceinline__ void conv_walk(float* smem,
+                                          const float* __restrict__ x,
+                                          const float* __restrict__ w,
+                                          const float* __restrict__ bias,
+                                          float* __restrict__ out,
+                                          const F32Shape& s, int has_act,
+                                          float slope) {
+  float* wsm = smem;                 // [nchunks][kx ky][C][kz][CO]
   float* planes = smem + s.wfloats;  // [kPlanes][ty + 2][C][zs]
 
   for (int i = threadIdx.x; i < s.wfloats; i += blockDim.x) {
@@ -240,19 +302,19 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     const int b = seg / s.nyt, y0 = (seg % s.nyt) * s.ty;
     __syncthreads();  // the slots are free, the halo and weights written
     for (int p = 0; p < kPlanes; ++p)
-      stage_plane(planes + p * s.plane, x, s, b, xa - 1 + p, y0, 0);
+      stage_plane<UP>(planes + p * s.plane, x, s, b, xa - 1 + p, y0, 0);
     __syncthreads();
 
     for (int xo = xa; xo < xb; ++xo) {
       const int j = xo - xa;
       const bool next = xo + 1 < xb;
       // plane xo + 2 into registers, ahead of the row's FMAs
-      float pf[kPrefetch][kRun + 2];
+      float pf[kPrefetch][kItemFloats<UP>];
       if (next) {
 #pragma unroll
         for (int q = 0; q < kPrefetch; ++q) {
           const int i = threadIdx.x + q * blockDim.x;
-          if (i < s.items) load_item(x, s, b, xo + 2, y0, i, pf[q]);
+          if (i < s.items) load_item<UP>(x, s, b, xo + 2, y0, i, pf[q]);
         }
       }
       const int gy = y0 + yi;
@@ -290,9 +352,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 #pragma unroll
         for (int q = 0; q < kPrefetch; ++q) {
           const int i = threadIdx.x + q * blockDim.x;
-          if (i < s.items) store_item(slot, s, i, pf[q]);
+          if (i < s.items) store_item<UP>(slot, s, i, pf[q]);
         }
-        stage_plane(slot, x, s, b, xo + 2, y0, kPrefetch * blockDim.x);
+        stage_plane<UP>(slot, x, s, b, xo + 2, y0, kPrefetch * blockDim.x);
         __syncthreads();
       }
     }
@@ -300,11 +362,33 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   }
 }
 
+// fp32 K1, named apart from K2 so that a profile tells them apart
+template <int CO>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    zconv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     F32Shape s, int has_act, float slope) {
+  extern __shared__ __align__(16) float smem[];
+  conv_walk<CO, false>(smem, x, w, bias, out, s, has_act, slope);
+}
+
+// fp32 K2
+template <int CO>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    zconv_up_f32_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w,
+                        const float* __restrict__ bias,
+                        float* __restrict__ out, F32Shape s, int has_act,
+                        float slope) {
+  extern __shared__ __align__(16) float smem[];
+  conv_walk<CO, true>(smem, x, w, bias, out, s, has_act, slope);
+}
+
 template <int CO>
 cudaError_t launch_t(const float* x, const float* w, const float* bias,
-                     float* out, const K2f32Shape& s, int has_act,
-                     float slope, cudaStream_t stream) {
-  auto kernel = zconv_up_f32_kernel<CO>;
+                     float* out, const F32Shape& s, int has_act, float slope,
+                     cudaStream_t stream) {
+  auto kernel = s.up ? zconv_up_f32_kernel<CO> : zconv_f32_kernel<CO>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem_bytes);
   if (err != cudaSuccess) return err;
@@ -316,25 +400,30 @@ cudaError_t launch_t(const float* x, const float* w, const float* bias,
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // the plan's numbers add up to the layout the kernel indexes
-bool plan_is_whole(const K2f32Shape& s) {
+bool plan_is_whole(const F32Shape& s) {
   if (s.B <= 0 || s.X <= 0 || s.Y <= 0 || s.Zin <= 0 || s.C <= 0 ||
-      s.Cout <= 0 || s.ty <= 0 || s.grid <= 0)
+      s.Cout <= 0 || s.ty <= 0 || s.grid <= 0 || (s.up != 0 && s.up != 1) ||
+      (long long)s.Zin * s.C >= (1LL << 30))
     return false;
   const long long rows = (long long)s.B * s.nyt * s.X;
-  return s.Z == 2 * s.Zin && s.rz == kRZ && (s.co == 4 || s.co == 8) &&
+  const int runs = s.up ? ceil_div(s.Zin, kRun) : ceil_div(s.Zin * s.C, kQuad);
+  const bool xvec = s.xvec == 0 ||
+                    (s.xvec == 1 && !s.up && (s.Zin * s.C) % kQuad == 0);
+  return s.Z == (s.up ? 2 : 1) * s.Zin && xvec && s.rz == kRZ &&
+         (s.co == 4 || s.co == 8) &&
          s.coutp == ceil_div(s.Cout, s.co) * s.co &&
          s.nchunks == s.coutp / s.co && s.ngz == ceil_div(s.Z, kRZ) &&
          s.zs == s.ngz * kRZ + 4 && s.ys == s.C * s.zs &&
          s.plane == (s.ty + 2) * s.ys && s.wfloats == 27 * s.C * s.coutp &&
          s.threads % 32 == 0 && s.threads >= s.ngz * s.ty * s.nchunks &&
-         s.threads <= kMaxThreads && s.runs == ceil_div(s.Zin, kRun) &&
-         s.items == (s.ty + 2) * s.runs * s.C && s.nyt == ceil_div(s.Y, s.ty) &&
-         rows == s.rows && s.grid <= s.rows &&
+         s.threads <= kMaxThreads && s.runs == runs &&
+         s.items == (s.ty + 2) * runs * (s.up ? s.C : 1) &&
+         s.nyt == ceil_div(s.Y, s.ty) && rows == s.rows && s.grid <= s.rows &&
          (long long)s.smem_bytes ==
              4LL * (s.wfloats + (long long)kPlanes * s.plane);
 }
 
-}  // namespace f32up
+}  // namespace f32conv
 
 // Plain C interface, called through ctypes; each returns a cudaError_t.
 
@@ -349,18 +438,21 @@ extern "C" int muvo_zconv_f32_limits(int* sms, int* smem_optin) {
   return (int)err;
 }
 
-// fp32 K2: x (B, X, Y, Zin, C), w (kx, ky, kz, C, Cout), bias (Cout,) or
-// null, out (B, X, Y, 2 Zin, Cout); LeakyReLU with slope when has_act.
-extern "C" int muvo_zconv3d_up_f32(const float* x, const float* w,
-                                   const float* bias, float* out,
-                                   const f32up::K2f32Shape* shape,
-                                   int has_act, float slope, void* stream) {
-  const f32up::K2f32Shape s = *shape;
-  if (!f32up::plan_is_whole(s)) return (int)cudaErrorInvalidValue;
+// fp32 K1 (shape->up 0) or K2 (1): x (B, X, Y, Zin, C), w (kx, ky, kz, C,
+// Cout), bias (Cout,) or null, out (B, X, Y, Z, Cout); LeakyReLU with slope
+// when has_act.
+extern "C" int muvo_zconv3d_f32(const float* x, const float* w,
+                                const float* bias, float* out,
+                                const f32conv::F32Shape* shape, int has_act,
+                                float slope, void* stream) {
+  const f32conv::F32Shape s = *shape;
+  if (!f32conv::plan_is_whole(s) ||
+      (s.xvec && reinterpret_cast<uintptr_t>(x) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (s.co == 4)
-    return (int)f32up::launch_t<4>(x, w, bias, out, s, has_act, slope, st);
-  return (int)f32up::launch_t<8>(x, w, bias, out, s, has_act, slope, st);
+    return (int)f32conv::launch_t<4>(x, w, bias, out, s, has_act, slope, st);
+  return (int)f32conv::launch_t<8>(x, w, bias, out, s, has_act, slope, st);
 }
 
 extern "C" const char* muvo_cuda_error_string(int code) {

@@ -6,18 +6,19 @@ K1 ``zconv3d_leaky``: LeakyReLU(conv3d 3x3x3 SAME stride 1 + bias).
     In bf16 a tensor-core kernel computes it on the view ``k1_route``
     picks: the volume as it is, or with z pairs folded into channels
     (``pair_fold_weights``) where 8 channels would leave its products
-    mostly empty; in fp32 a CUDA-core kernel.
+    mostly empty; in fp32 a register-tiled CUDA-core kernel
+    (csrc/zconv_f32.cu, planned by ``f32_plan``) walking a ring of staged
+    x planes.
 K2 ``upzconv3d_leaky``: LeakyReLU(conv3d(2x linear z-upsample of x) + bias),
     x already upsampled in X and Y. Replaces the same Pallas kernel via
     upzconv3d_leaky_folded; like it, the upsampled tensor never exists in
-    device memory: in fp32 a register-tiled CUDA-core kernel
-    (csrc/zconv_f32.cu, planned by ``k2_f32_plan``) interpolates z while
-    staging the x planes it walks; in bf16 a tensor-core kernel computes on
-    the small-z grid with the upsample folded into the weights
+    device memory: in fp32 K1's kernel interpolates z while it stages the
+    planes (``f32_plan`` with ``up``); in bf16 a tensor-core kernel
+    computes on the small-z grid with the upsample folded into the weights
     (``up_fold_weights``).
 K1-dx ``zconv3d_dx``: K1's input gradient, the conv of the leaky-masked
-    cotangent with the flipped, transposed kernel (_vjp_bwd's dx); routed
-    as K1, on the flipped, transposed kernel.
+    cotangent with the flipped, transposed kernel (_vjp_bwd's dx); in bf16
+    routed as K1, in fp32 the CUDA-core zconv_kernel<float> (csrc/zconv.cu).
 K2-dx ``upzconv3d_dx``: K2's input gradient, that adjoint conv over big z
     followed by the z-upsample's transpose, back to small z, in one kernel
     (_up_vjp_bwd's dx); in bf16 the adjoint fold on the small-z grid.
@@ -81,11 +82,11 @@ def _library(name: str):
             lib.muvo_zconv3d_tc.restype = _I
         elif name == "zconv_f32":
             lib.muvo_zconv_f32_limits.argtypes = [ctypes.POINTER(_I)] * 2
-            lib.muvo_zconv3d_up_f32.argtypes = [
-                _P, _P, _P, _P, ctypes.POINTER(_K2f32Shape), _I,
+            lib.muvo_zconv3d_f32.argtypes = [
+                _P, _P, _P, _P, ctypes.POINTER(_F32Shape), _I,
                 ctypes.c_float, _P]
             lib.muvo_zconv_f32_limits.restype = _I
-            lib.muvo_zconv3d_up_f32.restype = _I
+            lib.muvo_zconv3d_f32.restype = _I
         elif name == "zconv_dw_tc":
             lib.muvo_dw_tc_limits.argtypes = [ctypes.POINTER(_I)] * 2
             lib.muvo_zconv3d_dw_tc.argtypes = [
@@ -288,7 +289,8 @@ def k1_route(z: int, c: int, cout: int) -> Optional[TcView]:
     return None
 
 
-K2_F32_IMPL = "f32up::zconv_up_f32_kernel (csrc/zconv_f32.cu)"
+K1_F32_IMPL = "f32conv::zconv_f32_kernel (csrc/zconv_f32.cu)"
+K2_F32_IMPL = "f32conv::zconv_up_f32_kernel (csrc/zconv_f32.cu)"
 
 
 def _impl(view: Optional[TcView], dtype, up: bool, dx: bool) -> str:
@@ -300,124 +302,140 @@ def _impl(view: Optional[TcView], dtype, up: bool, dx: bool) -> str:
         return "zconv_dxup_kernel<float>"
     if up:
         return K2_F32_IMPL
+    if dtype == torch.float32 and not dx:
+        return K1_F32_IMPL
     t = "float" if dtype == torch.float32 else "bf16"
     return f"zconv_kernel<{t}>"
 
 
-# fp32 K2: f32up::zconv_up_f32_kernel<CO> in csrc/zconv_f32.cu, register
-# tiles of K2F32_RZ output z x CO output channels a thread over a ring of
-# K2F32_PLANES z-upsampled x planes. Its plan is made here and passed in as
-# the kernel's K2f32Shape, whose fields are these, in this order; the
-# constants are the kernel's (kRZ, kRun, kPlanes, kMaxThreads).
-K2F32_FIELDS = (
-    "B", "X", "Y", "Zin", "Z", "C", "Cout", "rz", "co", "coutp", "nchunks",
-    "ngz", "ty", "nyt", "zs", "ys", "plane", "wfloats", "threads", "runs",
-    "items", "rows", "grid", "xs", "smem_bytes")
-K2F32_RZ = 4
-K2F32_RUN = 4
-K2F32_PLANES = 3
-K2F32_MAX_THREADS = 512
-K2F32_MIN_ROWS = 4     # rows a block walks at least, where there are enough
+# fp32 K1 and K2: f32conv::zconv_f32_kernel<CO> and zconv_up_f32_kernel<CO>
+# in csrc/zconv_f32.cu, register tiles of F32_RZ output z x CO output
+# channels a thread over a ring of F32_PLANES x planes (K2's z-upsampled).
+# Their plan is made here and passed in as the kernels' F32Shape, whose
+# fields are these, in this order; the constants are the kernels' (kRZ,
+# kRun, kQuad, kPlanes, kMaxThreads).
+F32_FIELDS = (
+    "B", "X", "Y", "Zin", "Z", "C", "Cout", "up", "xvec", "rz", "co",
+    "coutp", "nchunks", "ngz", "ty", "nyt", "zs", "ys", "plane", "wfloats",
+    "threads", "runs", "items", "rows", "grid", "xs", "smem_bytes")
+F32_RZ = 4
+F32_RUN = 4            # K2: small z a staging item
+F32_QUAD = 4           # K1: floats of a y row a staging item
+F32_PLANES = 3
+F32_MAX_THREADS = 512
+F32_MIN_ROWS = 4       # rows a block walks at least, where there are enough
 SMEM_PER_SM = 233472   # H100: 228 KB of shared memory an SM
 
 
-class _K2f32Shape(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_int) for name in K2F32_FIELDS]
+class _F32Shape(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in F32_FIELDS]
 
 
-def k2_f32_plan(B: int, X: int, Y: int, Zin: int, C: int, Cout: int,
-                sms: int, smem_optin: int) -> dict:
-    """The split of an fp32 K2 call over the card, as the kernel reads it
-    (see the source note of csrc/zconv_f32.cu).
+def f32_plan(B: int, X: int, Y: int, Zin: int, C: int, Cout: int, up: bool,
+             sms: int, smem_optin: int, xvec: bool = True) -> dict:
+    """The split of an fp32 K1 (``up`` False) or K2 call over the card, as
+    the kernel reads it (see the source note of csrc/zconv_f32.cu).
 
-    A thread owns K2F32_RZ output z x ``co`` output channels of one (x, y):
-    ``ngz`` z groups, then ``ty`` y rows, then ``nchunks`` channel chunks
-    make the block's ``threads``. Its shared memory holds the weights
-    (``wfloats``, channels padded to ``coutp``) and K2F32_PLANES planes of
-    (ty + 2) y rows x C channels x ``zs`` padded big z. ``ty`` is the most y
-    rows the threads (at most K2F32_MAX_THREADS) and ``smem_optin`` allow,
-    or a little fewer where that divides Y; ``co`` (4 or 8) the one that
-    allows more rows, 4 at a tie. ``rows`` = B x ``nyt`` y tiles x X are
-    dealt to ``grid`` blocks, block i taking rows i * rows // grid ..
-    (i + 1) * rows // grid - 1 (x innermost, at most ``xs``), as many
-    blocks as fit the card at once but at least K2F32_MIN_ROWS rows a
-    block. Raises ValueError for a shape whose block does not fit."""
-    return _k2_f32_plan(B, X, Y, Zin, C, Cout, sms, smem_optin)
+    Output z is Z = Zin (K1) or 2 Zin (K2). A thread owns F32_RZ output z x
+    ``co`` output channels of one (x, y): ``ngz`` z groups, then ``ty`` y
+    rows, then ``nchunks`` channel chunks make the block's ``threads``. Its
+    shared memory holds the weights (``wfloats``, channels padded to
+    ``coutp``) and F32_PLANES planes of (ty + 2) y rows x C channels x
+    ``zs`` padded z. ``ty`` is the most y rows the threads (at most
+    F32_MAX_THREADS) and ``smem_optin`` allow, or a little fewer where that
+    divides Y; ``co`` 4 where a y row fits, else 8 (per launch on an H100,
+    tools/torch_zconv_probe.py: 4 is 12-28% faster at K2's muvo.yml stages
+    and at K1's conv2.conv2 at batch 1, within 3% of 8 at the others).
+    ``rows`` = B x ``nyt`` y tiles x X are dealt to ``grid`` blocks, block i
+    taking rows i * rows // grid .. (i + 1) * rows // grid - 1 (x innermost,
+    at most ``xs``), as many blocks as fit the card at once but at least
+    F32_MIN_ROWS rows a block. A plane's staging ``items`` are K2's runs of
+    F32_RUN small z of one (y, c), K1's runs of F32_QUAD floats of one y
+    row, loaded as one float4 where ``xvec`` (x 16-byte aligned) and Z x C
+    allow. Raises ValueError for a shape whose block does not fit: at z 64
+    and Cout 8, past C 70 (C 44 at Cout 44 and z 4)."""
+    return _f32_plan(B, X, Y, Zin, C, Cout, up, sms, smem_optin, xvec=xvec)
 
 
-def _k2_f32_plan(B, X, Y, Zin, C, Cout, sms, smem_optin,
-                 co: Optional[int] = None, ty: Optional[int] = None) -> dict:
-    """k2_f32_plan with ``co`` and ``ty`` forced where given, for
+def _f32_plan(B, X, Y, Zin, C, Cout, up, sms, smem_optin,
+              co: Optional[int] = None, ty: Optional[int] = None,
+              xvec: bool = True) -> dict:
+    """f32_plan with ``co`` and ``ty`` forced where given, for
     tools/torch_zconv_probe.py to time the plans it did not choose."""
+    what = "K2" if up else "K1"
     if min(B, X, Y, Zin, C, Cout) <= 0:
         raise ValueError(f"empty shape {(B, X, Y, Zin, C, Cout)}")
-    Z = 2 * Zin
-    ngz = -(-Z // K2F32_RZ)
-    zs = ngz * K2F32_RZ + 4  # big z -1 .. Z, and the last group's reads
+    Z = 2 * Zin if up else Zin
+    ngz = -(-Z // F32_RZ)
+    zs = ngz * F32_RZ + 4  # z -1 .. Z, and the last group's reads
     ys = C * zs
 
     def smem(coutp, t):
-        return 4 * (27 * C * coutp + K2F32_PLANES * (t + 2) * ys)
+        return 4 * (27 * C * coutp + F32_PLANES * (t + 2) * ys)
 
     def most_rows(co_):
         coutp = _round_up(Cout, co_)
-        t = min(Y, K2F32_MAX_THREADS // (ngz * (coutp // co_)))
+        t = min(Y, F32_MAX_THREADS // (ngz * (coutp // co_)))
         while t >= 1 and smem(coutp, t) > smem_optin:
             t -= 1
         return t
 
     if co is None:
-        co = max((4, 8), key=lambda c_: (most_rows(c_), -c_))
+        co = 4 if most_rows(4) >= 1 else 8
     if co not in (4, 8):
-        raise ValueError(f"fp32 K2 kernel: co {co} is not 4 or 8")
+        raise ValueError(f"fp32 {what} kernel: co {co} is not 4 or 8")
     t_max = most_rows(co)
     coutp = _round_up(Cout, co)
     if t_max < 1:
-        raise ValueError(f"fp32 K2 kernel: z {Z} x {C} -> {Cout} channels "
-                         f"needs {smem(coutp, 1)} bytes of shared memory "
-                         f"and {ngz * (coutp // co)} threads a y row, the "
-                         f"card allows {smem_optin} and {K2F32_MAX_THREADS}")
+        raise ValueError(f"fp32 {what} kernel: z {Z} x {C} -> {Cout} "
+                         f"channels needs {smem(coutp, 1)} bytes of shared "
+                         f"memory and {ngz * (coutp // co)} threads a y row, "
+                         f"the card allows {smem_optin} and "
+                         f"{F32_MAX_THREADS}")
     if ty is None:
         ty = next((t for t in range(t_max, -(-3 * t_max // 4) - 1, -1)
                    if Y % t == 0), -(-Y // -(-Y // t_max)))
     elif not 1 <= ty <= t_max:
-        raise ValueError(f"fp32 K2 kernel: ty {ty} outside 1..{t_max}")
+        raise ValueError(f"fp32 {what} kernel: ty {ty} outside 1..{t_max}")
     nchunks = coutp // co
     threads = _round_up(ty * ngz * nchunks, 32)
     nyt = -(-Y // ty)
-    runs = -(-Zin // K2F32_RUN)
+    runs = -(-Zin // F32_RUN) if up else -(-Zin * C // F32_QUAD)
     rows = B * nyt * X
-    if rows >= 2 ** 31:
-        raise ValueError(f"fp32 K2 kernel: {rows} rows")
+    if rows >= 2 ** 31 or Zin * C >= 2 ** 30:
+        raise ValueError(f"fp32 {what} kernel: {rows} rows of {Zin * C}")
     nbytes = smem(coutp, ty)
     per_sm = max(1, min(SMEM_PER_SM // (nbytes + 1024), 2048 // threads))
-    grid = max(1, min(per_sm * sms, rows // K2F32_MIN_ROWS))
-    return dict(B=B, X=X, Y=Y, Zin=Zin, Z=Z, C=C, Cout=Cout, rz=K2F32_RZ,
-                co=co, coutp=coutp, nchunks=nchunks, ngz=ngz, ty=ty, nyt=nyt,
-                zs=zs, ys=ys, plane=(ty + 2) * ys, wfloats=27 * C * coutp,
-                threads=threads, runs=runs, items=(ty + 2) * runs * C,
-                rows=rows, grid=grid, xs=-(-rows // grid), smem_bytes=nbytes)
+    grid = max(1, min(per_sm * sms, rows // F32_MIN_ROWS))
+    return dict(B=B, X=X, Y=Y, Zin=Zin, Z=Z, C=C, Cout=Cout, up=int(up),
+                xvec=int(not up and xvec and Zin * C % F32_QUAD == 0),
+                rz=F32_RZ, co=co, coutp=coutp, nchunks=nchunks, ngz=ngz,
+                ty=ty, nyt=nyt, zs=zs, ys=ys, plane=(ty + 2) * ys,
+                wfloats=27 * C * coutp, threads=threads, runs=runs,
+                items=(ty + 2) * runs * (C if up else 1), rows=rows,
+                grid=grid, xs=-(-rows // grid),
+                smem_bytes=nbytes)
 
 
 @functools.lru_cache(maxsize=None)
-def _k2_f32_limits(index: int):
+def _f32_limits(index: int):
     sms, optin = _I(), _I()
     with torch.cuda.device(index):
         rc = _library("zconv_f32").muvo_zconv_f32_limits(ctypes.byref(sms),
                                                         ctypes.byref(optin))
-    _raise_if(rc, "zconv_f32", "K2")
+    _raise_if(rc, "zconv_f32", "fp32 K1 / K2")
     return sms.value, optin.value
 
 
-def _launch_up_f32(x, w, bias32, out, slope, plan: dict):
-    """fp32 K2 on ``plan`` (k2_f32_plan of x's shape); w is (kx, ky, kz, C,
-    Cout) fp32, bias32 fp32 or None."""
+def _launch_f32(x, w, bias32, out, slope, plan: dict):
+    """fp32 K1 or K2 on ``plan`` (f32_plan of x's shape); w is (kx, ky, kz,
+    C, Cout) fp32, bias32 fp32 or None."""
     with torch.cuda.device(x.device):
-        rc = _library("zconv_f32").muvo_zconv3d_up_f32(
+        rc = _library("zconv_f32").muvo_zconv3d_f32(
             x.data_ptr(), w.data_ptr(), _ptr(bias32), out.data_ptr(),
-            ctypes.byref(_K2f32Shape(**plan)), int(slope is not None),
+            ctypes.byref(_F32Shape(**plan)), int(slope is not None),
             float(slope or 0.0), _stream(x))
-    _raise_if(rc, "zconv_f32", "K2")
+    _raise_if(rc, "zconv_f32", "K2" if plan["up"] else "K1")
 
 
 def _dw_plain(xin, g, out, cout_c, slope, with_bias: bool):
@@ -534,10 +552,11 @@ def _launch(x, weight, bias, slope, up: bool):
     if view is not None:
         _launch_tc(x, None, None, _tc_weights(weight, view, False), bias32,
                    out, view, cout, False, slope, what)
-    elif up:
-        sms, optin = _k2_f32_limits(x.device.index or 0)
-        _launch_up_f32(x, _kkkcn(weight), bias32, out, slope,
-                       k2_f32_plan(b, X, Y, zin, c, cout, sms, optin))
+    elif up or x.dtype == torch.float32:
+        sms, optin = _f32_limits(x.device.index or 0)
+        _launch_f32(x, _kkkcn(weight), bias32, out, slope,
+                    f32_plan(b, X, Y, zin, c, cout, up, sms, optin,
+                             xvec=x.data_ptr() % 16 == 0))
     else:
         w = _kkkcn(weight)
         with torch.cuda.device(x.device):

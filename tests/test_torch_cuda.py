@@ -505,9 +505,9 @@ def test_bf16_up_launches_the_tensor_core_kernel(dev):
     assert any("zconv_dxup_kernel<float>" in k for k in dx), dx
 
 
-# fp32 K2 runs f32up::zconv_up_f32_kernel (csrc/zconv_f32.cu): 4 output z x
-# 4 or 8 channels a thread, blocks walking runs of x rows over a ring of
-# three planes, the plan from zconv.k2_f32_plan
+# fp32 K2 runs f32conv::zconv_up_f32_kernel (csrc/zconv_f32.cu): 4 output z
+# x 4 or 8 channels a thread, blocks walking runs of x rows over a ring of
+# three planes, the plan from zconv.f32_plan
 @pytest.mark.parametrize("shape,cout", [
     ((2, 5, 6, 1, 16), 8),        # Zs 1: both z edges on one slice
     ((1, 4, 9, 2, 8), 8),         # Zs 2
@@ -530,6 +530,36 @@ def test_fp32_up_kernel_matches_plain_and_repeats(dev, shape, cout):
     assert out.shape == (*shape[:3], 2 * shape[3], cout)
     assert torch.equal(out, again)
     assert _rel(out, zconv.upzconv3d_leaky_plain(x, w, b, 0.2)) <= 1e-4
+
+
+# fp32 K1 runs f32conv::zconv_f32_kernel (csrc/zconv_f32.cu): fp32 K2's
+# register tile, plane ring and walk, with plain z planes staged from x's y
+# rows (float4 where Z x C allows), the plan from zconv.f32_plan
+@pytest.mark.parametrize("shape,cout,act", [
+    ((2, 5, 6, 1, 16), 8, True),       # Z 1
+    ((1, 4, 9, 2, 8), 8, True),        # Z 2
+    ((1, 3, 5, 3, 3), 5, True),        # Z 3, C 3, Cout 5: scalar loads
+    ((1, 3, 37, 64, 4), 16, True),     # Y ends mid tile (13 + 13 + 11)
+    ((2, 40, 6, 5, 6), 12, True),      # Z 5, runs across (b, y tile) ends
+    ((1, 4, 5, 16, 32), 16, False),    # no activation, no bias
+    ((1, 96, 96, 32, 16), 16, True),   # conv2.conv2 at full width, batch 1
+    ((1, 192, 192, 64, 8), 8, True),   # conv3.conv2 at full width, batch 1
+])
+def test_fp32_k1_kernel_matches_plain_and_repeats(dev, shape, cout, act):
+    """fp32 K1 against its plain version (1e-4 of max |plain|), the launch
+    counted and named, a second launch giving the same bits."""
+    x, w, b = _inputs(dev, shape, cout, torch.float32)
+    slope = 0.2 if act else None
+    bias = b if act else None
+    n = zconv.zconv3d_leaky.launches
+    out = zconv.zconv3d_leaky(x, w, bias, slope)
+    assert zconv.zconv3d_leaky.last_impl == zconv.K1_F32_IMPL
+    again = zconv.zconv3d_leaky(x, w, bias, slope)
+    torch.cuda.synchronize()
+    assert zconv.zconv3d_leaky.launches == n + 2
+    assert out.shape == (*shape[:4], cout)
+    assert torch.equal(out, again)
+    assert _rel(out, zconv.zconv3d_leaky_plain(x, w, bias, slope)) <= 1e-4
 
 
 # bf16 K1 and K1-dx run zconv_tc_kernel with no edge terms on the view
@@ -576,14 +606,17 @@ def test_bf16_k1_kernels_on_the_tensor_cores(dev, shape, cout, act, view):
 
 def test_k1_last_impl_names_the_route(dev):
     """Past 64 channels bf16 K1 and K1-dx take the CUDA-core kernel, as
-    k1_route says; fp32 keeps it at every width. Both stay right."""
+    k1_route says; fp32 K1-dx keeps it at every width, fp32 K1 runs
+    zconv_f32_kernel. All stay right."""
     x, w, b = _inputs(dev, (1, 3, 4, 6, 72), 8, torch.bfloat16)
     for t in (torch.bfloat16, torch.float32):
         x, w, b = x.to(t), w.to(t), b.to(t)
         out = zconv.zconv3d_leaky(x, w, b, 0.2)
         dx = zconv.zconv3d_dx(out, out, w, 0.2)
         name = "bf16" if t == torch.bfloat16 else "float"
-        assert zconv.zconv3d_leaky.last_impl == f"zconv_kernel<{name}>"
+        assert zconv.zconv3d_leaky.last_impl == (
+            f"zconv_kernel<{name}>" if t == torch.bfloat16
+            else zconv.K1_F32_IMPL)
         assert zconv.zconv3d_dx.last_impl == f"zconv_kernel<{name}>"
         assert _rel(out, zconv.zconv3d_leaky_plain(x, w, b, 0.2)) <= TOL[t]
         assert _rel(dx, zconv.zconv3d_dx_plain(out, out, w, 0.2)) <= TOL[t]
@@ -592,8 +625,8 @@ def test_k1_last_impl_names_the_route(dev):
 def test_bf16_k1_launches_the_tensor_core_kernel(dev):
     """The profile names zconv_tc_kernel<NP, KS, false, false> for bf16 K1
     and zconv_tc_kernel<NP, KS, false, true> for bf16 K1-dx (no edge
-    terms) on both views, and no CUDA-core kernel; fp32 K1 and K1-dx keep
-    zconv_kernel<float>."""
+    terms) on both views, and no CUDA-core kernel; fp32 K1 runs
+    zconv_f32_kernel, fp32 K1-dx keeps zconv_kernel<float>."""
     for shape, cout in (((1, 6, 7, 32, 16), 16), ((1, 6, 7, 64, 8), 8)):
         x, w, b = _inputs(dev, shape, cout, torch.bfloat16)
         out = zconv.zconv3d_leaky(x, w, b, 0.2)
@@ -607,7 +640,9 @@ def test_bf16_k1_launches_the_tensor_core_kernel(dev):
         x32, w32, b32, out32 = (t.float() for t in (x, w, b, out))
         fwd = _kernel_names(lambda: zconv.zconv3d_leaky(x32, w32, b32, 0.2))
         dx = _kernel_names(lambda: zconv.zconv3d_dx(out32, out32, w32, 0.2))
-        assert any("zconv_kernel<float>" in k for k in fwd), fwd
+        assert any("zconv_f32_kernel<" in k for k in fwd), fwd
+        assert not any("zconv_kernel<" in k or "zconv_up_f32_kernel" in k
+                       for k in fwd), fwd
         assert any("zconv_kernel<float>" in k for k in dx), dx
         assert not any("zconv_tc_kernel" in k for k in fwd + dx)
 

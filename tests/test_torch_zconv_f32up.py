@@ -1,9 +1,9 @@
 """fp32 K2 (csrc/zconv_f32.cu) on the CPU: the host side of the card's kernel.
 
 The kernel itself runs only on the card (tests/test_torch_cuda.py,
-chip_smoke.py); here its plan (ops/zconv.py::k2_f32_plan) and the walk it
-makes over that plan are checked in pure Python. The walk is this file's
-copy of how zconv_f32.cu decodes threads, staging items and rows
+chip_smoke.py); here its plan (ops/zconv.py::f32_plan with ``up``) and the
+walk it makes over that plan are checked in pure Python. The walk is this
+file's copy of how zconv_f32.cu decodes threads, staging items and rows
 (``_thread``, ``_item``, ``_walk``): it shows that the plan admits a walk
 that covers every output once, while only the card tests, against the
 plain version, prove the kernel's own walk. At muvo.yml's two stages
@@ -25,9 +25,9 @@ and 5) and at the card tests' shapes:
    over dx, dy, c, dz) on the plan gives the plain version's output
    (upzconv3d_leaky_plain) within 1e-5 of max |plain| (fp32, summation
    order only), at Zs 1-3, C 3, Cout 5, a ragged y tile and runs that end
-   mid segment;
-5. ``last_impl``'s names: the new kernel for fp32 K2 only;
-6. the K2f32Shape struct and the kernel's constants match ops/zconv.py.
+   mid segment, on CO 4 and CO 8;
+5. ``last_impl``'s names: zconv_f32.cu's kernels for fp32 K1 and K2 only;
+6. the F32Shape struct and the kernel's constants match ops/zconv.py.
 """
 
 import re
@@ -52,15 +52,15 @@ CARD_SHAPES = (((2, 12, 10, 20, 16), 8), ((1, 5, 7, 19, 3), 5),
                ((1, 1, 1, 20, 4), 12), ((3, 4, 33, 1, 8), 8),
                ((1, 6, 6, 16, 32), 16))
 # small shapes that take every path of the walk: Zs 1-3, C 3, Cout 5, a
-# ragged y tile (37 = 19 + 18) with CO 8, runs across segments
+# ragged y tile (37 = 13 + 13 + 11), runs across segments
 EDGE_SHAPES = (((2, 5, 6, 1, 16), 8), ((1, 4, 9, 2, 8), 8),
                ((1, 3, 5, 3, 3), 5), ((1, 7, 37, 16, 4), 16),
                ((2, 7, 3, 5, 6), 12))
 
 
 def _plan(shape, cout, sms=132):
-    return zconv.k2_f32_plan(*shape, cout, sms=sms,
-                             smem_optin=H100["smem_optin"])
+    return zconv.f32_plan(*shape, cout, True, sms=sms,
+                          smem_optin=H100["smem_optin"])
 
 
 def _thread(plan: dict, tid: int):
@@ -74,18 +74,18 @@ def _thread(plan: dict, tid: int):
 
 def _item(plan: dict, i: int):
     """The kernel's decode of staging item ``i`` of a plane: (y row yy,
-    channel c, first small z k0); it writes big z 2k0 .. 2k0 + 2 K2F32_RUN
+    channel c, first small z k0); it writes big z 2k0 .. 2k0 + 2 F32_RUN
     - 1 (below Z) of that (yy, c) row."""
     q, c = divmod(i, plan["C"])
     yy, run = divmod(q, plan["runs"])
-    return yy, c, run * zconv.K2F32_RUN
+    return yy, c, run * zconv.F32_RUN
 
 
 def _walk(plan: dict, block: int):
     """The rows block ``block`` computes, in the kernel's order: (b, y0, xo,
     j, slots), ``j`` the row's index in its run and ``slots`` the x index
-    of the plane each of the K2F32_PLANES slots holds while it computes
-    (tap dx reads slot (j + dx) % K2F32_PLANES)."""
+    of the plane each of the F32_PLANES slots holds while it computes
+    (tap dx reads slot (j + dx) % F32_PLANES)."""
     rows, grid, X = plan["rows"], plan["grid"], plan["X"]
     r, rend = block * rows // grid, (block + 1) * rows // grid
     walk = []
@@ -93,12 +93,12 @@ def _walk(plan: dict, block: int):
         seg, xa = divmod(r, X)
         xb = min(X, xa + rend - r)
         b, yt = divmod(seg, plan["nyt"])
-        slots = [xa - 1 + p for p in range(zconv.K2F32_PLANES)]
+        slots = [xa - 1 + p for p in range(zconv.F32_PLANES)]
         for xo in range(xa, xb):
             j = xo - xa
             walk.append((b, yt * plan["ty"], xo, j, tuple(slots)))
             if xo + 1 < xb:  # plane xo + 2 into the slot of plane xo - 1
-                slots[j % zconv.K2F32_PLANES] = xo + 2
+                slots[j % zconv.F32_PLANES] = xo + 2
         r += xb - xa
     return walk
 
@@ -137,8 +137,8 @@ def test_plan_refuses_a_block_past_the_cards_shared_memory():
     with pytest.raises(ValueError):  # 27 * 64 * 64 fp32 weights: 442 KB
         _plan((1, 4, 4, 8, 64), 64)
     with pytest.raises(ValueError):
-        zconv._k2_f32_plan(1, 4, 4, 8, 8, 8, ty=5,  # more y rows than Y
-                           **H100)
+        zconv._f32_plan(1, 4, 4, 8, 8, 8, True, ty=5,  # more y rows than Y
+                        **H100)
 
 
 def _walk_all(plan):
@@ -189,7 +189,7 @@ def test_walk_reads_only_staged_planes(shape, cout, sms):
     plan = _plan(shape, cout, sms=sms)
     for block in range(plan["grid"]):
         for b, y0, xo, j, slots in _walk(plan, block):
-            taps = [slots[(j + dx) % zconv.K2F32_PLANES] for dx in range(3)]
+            taps = [slots[(j + dx) % zconv.F32_PLANES] for dx in range(3)]
             assert taps == [xo - 1, xo, xo + 1]
     for tid in range(plan["threads"]):
         t = _thread(plan, tid)
@@ -208,7 +208,7 @@ def test_staging_items_write_each_big_z_once(shape, cout):
     written = np.zeros((plan["ty"] + 2, plan["C"], plan["zs"]), np.int32)
     for i in range(plan["items"]):
         yy, c, k0 = _item(plan, i)
-        for k in range(k0, min(k0 + zconv.K2F32_RUN, plan["Zin"])):
+        for k in range(k0, min(k0 + zconv.F32_RUN, plan["Zin"])):
             written[yy, c, 2 * k + 1:2 * k + 3] += 1
     assert (written[..., 1:plan["Z"] + 1] == 1).all()
     assert (written[..., 0] == 0).all()            # big z -1: the halo
@@ -226,9 +226,9 @@ def _stage(plane, x, plan, b, xi, y0):
         gy = y0 + yy - 1
         inside = 0 <= xi < plan["X"] and 0 <= gy < plan["Y"]
         v = [x[b, xi, gy, min(max(k0 - 1 + j, 0), Zin - 1), c] if inside
-             else np.float32(0) for j in range(zconv.K2F32_RUN + 2)]
+             else np.float32(0) for j in range(zconv.F32_RUN + 2)]
         row = plane[yy, c]
-        for m in range(zconv.K2F32_RUN):
+        for m in range(zconv.F32_RUN):
             k = k0 + m
             if k >= Zin:
                 break
@@ -239,7 +239,9 @@ def _stage(plane, x, plan, b, xi, y0):
                 np.float32(0.75) * xk + np.float32(0.25) * v[m + 2])
 
 
-def _emulate(x, weight, bias, slope, plan):
+def _emulate(x, weight, bias, slope, plan, stage=_stage):
+    """The kernel's steps on ``plan``; ``stage`` fills a plane (K2's
+    ``_stage``, or fp32 K1's)."""
     B, X, Y, Z, C, Cout = (plan[k] for k in ("B", "X", "Y", "Z", "C",
                                               "Cout"))
     co, ty, ngz, nyt = plan["co"], plan["ty"], plan["ngz"], plan["nyt"]
@@ -254,7 +256,7 @@ def _emulate(x, weight, bias, slope, plan):
                               range(plan["threads"])) if t is not None]
     rows = plan["rows"]
     for block in range(plan["grid"]):
-        planes = np.zeros((zconv.K2F32_PLANES, ty + 2, C, plan["zs"]),
+        planes = np.zeros((zconv.F32_PLANES, ty + 2, C, plan["zs"]),
                           np.float32)
         r, rend = block * rows // plan["grid"], (block + 1) * rows // plan[
             "grid"]
@@ -262,8 +264,8 @@ def _emulate(x, weight, bias, slope, plan):
             seg, xa = divmod(r, X)
             xb = min(X, xa + rend - r)
             b, y0 = seg // nyt, (seg % nyt) * ty
-            for p in range(zconv.K2F32_PLANES):
-                _stage(planes[p], x, plan, b, xa - 1 + p, y0)
+            for p in range(zconv.F32_PLANES):
+                stage(planes[p], x, plan, b, xa - 1 + p, y0)
             for xo in range(xa, xb):
                 j = xo - xa
                 taps = np.stack([planes[(j + dx) % 3] for dx in range(3)])
@@ -290,7 +292,7 @@ def _emulate(x, weight, bias, slope, plan):
                             assert np.isnan(out[b, xo, gy, z, c_out])
                             out[b, xo, gy, z, c_out] = v
                 if xo + 1 < xb:
-                    _stage(planes[j % 3], x, plan, b, xo + 2, y0)
+                    stage(planes[j % 3], x, plan, b, xo + 2, y0)
             r += xb - xa
     return out
 
@@ -315,11 +317,30 @@ def test_kernel_steps_match_the_plain_version(shape, cout, sms, act):
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("shape,cout", EDGE_SHAPES)
+def test_kernel_steps_match_the_plain_version_at_co_8(shape, cout):
+    """The same on the plans' other register tile, 4 z x 8 channels."""
+    rs = np.random.RandomState(8)
+    c = shape[-1]
+    x = rs.standard_normal(shape).astype(np.float32)
+    w = (rs.standard_normal((cout, c, 3, 3, 3)) / np.sqrt(27 * c)).astype(
+        np.float32)
+    b = rs.standard_normal(cout).astype(np.float32)
+    plan = zconv._f32_plan(*shape, cout, True, co=8, sms=3,
+                           smem_optin=H100["smem_optin"])
+    got = _emulate(x, w, b, 0.2, plan)
+    want = zconv.upzconv3d_leaky_plain(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+        0.2).numpy()
+    assert not np.isnan(got).any()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
 def test_impl_names_the_new_kernel_for_fp32_k2_only():
     f32, bf16 = torch.float32, torch.bfloat16
     assert zconv._impl(None, f32, True, False) == zconv.K2_F32_IMPL
     assert "zconv_f32.cu" in zconv.K2_F32_IMPL
-    assert zconv._impl(None, f32, False, False) == "zconv_kernel<float>"
+    assert zconv._impl(None, f32, False, False) == zconv.K1_F32_IMPL
     assert zconv._impl(None, bf16, False, False) == "zconv_kernel<bf16>"
     assert zconv._impl(None, f32, False, True) == "zconv_kernel<float>"
     assert zconv._impl(None, f32, True, True) == "zconv_dxup_kernel<float>"
@@ -345,13 +366,13 @@ def test_fp32_k2_on_the_host_takes_the_plain_version():
 def test_shape_struct_and_constants_match_the_kernel_source():
     src = (Path(zconv.__file__).resolve().parent.parent / "csrc"
            / "zconv_f32.cu").read_text()
-    body = re.search(r"struct K2f32Shape \{(.*?)\n\};", src, re.S).group(1)
+    body = re.search(r"struct F32Shape \{(.*?)\n\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     names = re.findall(r"\b(\w+)\s*[,;]", body.replace("int ", " "))
-    assert tuple(names) == zconv.K2F32_FIELDS
+    assert tuple(names) == zconv.F32_FIELDS
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
-    assert int(consts["kRZ"]) == zconv.K2F32_RZ
-    assert int(consts["kRun"]) == zconv.K2F32_RUN
-    assert int(consts["kPlanes"]) == zconv.K2F32_PLANES
+    assert int(consts["kRZ"]) == zconv.F32_RZ
+    assert int(consts["kRun"]) == zconv.F32_RUN
+    assert int(consts["kPlanes"]) == zconv.F32_PLANES
     assert int(consts["kMaxThreads"]) == MAX_THREADS
     assert int(consts["kPrefetch"]) == PREFETCH

@@ -16,10 +16,11 @@ DeploymentSession up, then measures:
 2. kernels: torch.profiler over --ticks whole sim_forward ticks: the wall
    time, the device's busy time (the union of its kernels' intervals) and
    idle share, and device time summed by kernel name, with the port's own
-   kernels (zconv_kernel: fp32 K1; zconv_up_f32_kernel: fp32 K2, or
-   zconv_kernel<float, true> in a tree from before it; zconv_tc_kernel: K1
-   and K2 in bf16; flash_fwd_f32 and flash_fwd_wgmma: K4) named, and fp32
-   K2's device ms and launches a tick apart.
+   kernels (zconv_f32_kernel: fp32 K1, or zconv_kernel<float> in a tree
+   from before it; zconv_up_f32_kernel: fp32 K2, or zconv_kernel<float,
+   true> in a tree from before it; zconv_tc_kernel: K1 and K2 in bf16;
+   flash_fwd_f32 and flash_fwd_wgmma: K4) named, and fp32 K1's and K2's
+   device ms and launches a tick apart.
 
 Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
 mode.
@@ -49,6 +50,12 @@ def _busy_us(intervals):
         busy += e - max(s, end)
         end = e
     return busy
+
+
+def _is_fp32_k1(name: str) -> bool:
+    """fp32 K1's kernel: zconv_f32_kernel, or zconv_kernel<float> before
+    it (a serving tick runs no K1-dx)."""
+    return "zconv_f32_kernel" in name or "zconv_kernel<float>" in name
 
 
 def _is_fp32_k2(name: str) -> bool:
@@ -127,7 +134,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.ticks
     by_name, intervals = defaultdict(float), []
-    k2_launches = 0
+    k1_launches = k2_launches = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -136,6 +143,7 @@ def main() -> int:
             continue
         by_name[e.name] += (t - s) / 1e3 / args.ticks
         intervals.append((s, t))
+        k1_launches += _is_fp32_k1(e.name)
         k2_launches += _is_fp32_k2(e.name)
     if not intervals:
         raise RuntimeError("the profiler recorded no device activity")
@@ -143,7 +151,8 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     zconv_ms = sum(v for k, v in by_name.items()
                    if "zconv_kernel" in k or "zconv_tc_kernel" in k
-                   or "zconv_up_f32_kernel" in k)
+                   or "zconv_f32_kernel" in k or "zconv_up_f32_kernel" in k)
+    k1_ms = sum(v for k, v in by_name.items() if _is_fp32_k1(k))
     k2_ms = sum(v for k, v in by_name.items() if _is_fp32_k2(k))
     flash_ms = sum(v for k, v in by_name.items() if "flash_fwd_" in k)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -158,6 +167,8 @@ def main() -> int:
         "tick_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "zconv_kernels_ms": zconv_ms, "flash_kernels_ms": flash_ms,
+        "k1_f32_ms_per_tick": k1_ms,
+        "k1_f32_launches_per_tick": k1_launches / args.ticks,
         "k2_f32_ms_per_tick": k2_ms,
         "k2_f32_launches_per_tick": k2_launches / args.ticks,
         "device_ms_by_kernel": [[k, v] for k, v in top[:25]],

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """bf16 K2 and K2-dx (the tensor-core kernel on the small-z grid), bf16 K3
 and K3-up (the split-K weight-gradient GEMM), bf16 K1 and K1-dx (the
-tensor-core kernel on the plain or the pair view) and fp32 K2 (the
-register-tiled CUDA-core kernel) on one GPU: right at the edges, then timed
-launch by launch at the voxel decoder's stages beside cuDNN.
+tensor-core kernel on the plain or the pair view), fp32 K2 and fp32 K1
+(the register-tiled CUDA-core kernel) on one GPU: right at the edges, then
+timed launch by launch at the voxel decoder's stages beside cuDNN.
 
     python3 tools/torch_zconv_probe.py [--iters 12]
-        [--parts k2,dw,k1,k2f32] [--out PATH]
+        [--parts k2,dw,k1,k2f32,k1f32] [--out PATH]
 
 1. edges: K2 (upzconv3d_leaky) and K2-dx (upzconv3d_dx) in bf16 against
    their plain versions, relative to max |plain| (2e-2, as chip_smoke.py),
@@ -50,14 +50,23 @@ launch by launch at the voxel decoder's stages beside cuDNN.
    plain version, relative to max |plain| (1e-4, TF32 off), at Zs 1-3, C
    3 with Cout 5, a y tile and a run that end mid volume, no activation and
    both full-width stages at batch 1; a second launch must give the same
-   bits and ``last_impl`` must name f32up::zconv_up_f32_kernel.
+   bits and ``last_impl`` must name f32conv::zconv_up_f32_kernel.
 8. k2f32 timing: fp32 K2 at conv2.conv1 and conv3.conv1, batch 1 and 5,
-   --iters launches one event apart, on zconv.k2_f32_plan's plan and on
+   --iters launches one event apart, on zconv.f32_plan's plan and on
    the other channel tile (co 4 <-> 8) and on fewer y rows, beside one
    cuDNN call (F.interpolate over z, then F.conv3d with bias, TF32 off)
    and the bound (2 * 27 * C * Cout flops an output voxel over 67 TFLOP/s,
    or x, the weights and the output over 3.35 TB/s, the larger), with
    zconv_f32.cu's ptxas lines (registers and spills).
+9. k1f32 edges: fp32 K1 (zconv3d_leaky on fp32 tensors) as part 7, at Z
+   1-3, C 3 with Cout 5 (scalar loads), a y tile and a run that end mid
+   volume, no activation and both full-width stages (conv2.conv2,
+   conv3.conv2) at batch 1; ``last_impl`` must name
+   f32conv::zconv_f32_kernel.
+10. k1f32 timing: fp32 K1 at conv2.conv2 and conv3.conv2 as part 8, and
+   the first CUDA-core zconv_kernel<float> (csrc/zconv.cu, through
+   muvo_zconv3d_leaky with dtype 0) on the same inputs, beside F.conv3d
+   with bias.
 
 Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
 mode.
@@ -382,6 +391,15 @@ K2F32_EDGES = (("Zs1", (2, 5, 6, 1, 16), 8, True),
                ("no_act", (1, 4, 5, 16, 32), 16, False),
                ("conv2.conv1", (1, 96, 96, 16, 32), 16, True),
                ("conv3.conv1", (1, 192, 192, 32, 16), 8, True))
+# (label, input shape (B, X, Y, Z, C), Cout, activation)
+K1F32_EDGES = (("Z1", (2, 5, 6, 1, 16), 8, True),
+               ("Z2", (1, 4, 9, 2, 8), 8, True),
+               ("Z3_c3_cout5", (1, 3, 5, 3, 3), 5, True),
+               ("y_mid_tile_run_mid_x", (1, 3, 37, 64, 4), 16, True),
+               ("runs_across_tiles", (2, 40, 6, 5, 6), 12, True),
+               ("no_act", (1, 4, 5, 16, 32), 16, False),
+               ("conv2.conv2", (1, 96, 96, 32, 16), 16, True),
+               ("conv3.conv2", (1, 192, 192, 64, 8), 8, True))
 
 
 def fp32_inputs(dev, shape, cout, seed=0):
@@ -394,33 +412,46 @@ def fp32_inputs(dev, shape, cout, seed=0):
     return x, w, b
 
 
-def k2f32_edges(dev):
-    """Part 7: fp32 K2 against its plain version at the edges."""
+def f32_fns(up):
+    """(kernel id, wrapper, plain version, the wrapper's kernel name)."""
     from muvo_tpu_torch.ops import zconv
 
+    if up:
+        return ("K2", zconv.upzconv3d_leaky, zconv.upzconv3d_leaky_plain,
+                zconv.K2_F32_IMPL)
+    return ("K1", zconv.zconv3d_leaky, zconv.zconv3d_leaky_plain,
+            zconv.K1_F32_IMPL)
+
+
+def f32_edges(dev, up):
+    """Parts 7 and 9: fp32 K2 (``up``) or K1 against its plain version at
+    the edges."""
+    from muvo_tpu_torch.ops import zconv
+
+    kid, kern, plain, impl_want = f32_fns(up)
     edges, failed = [], []
-    for label, shape, cout, act in K2F32_EDGES:
+    for label, shape, cout, act in (K2F32_EDGES if up else K1F32_EDGES):
         x, w, b = fp32_inputs(dev, shape, cout)
         slope = 0.2 if act else None
         bias = b if act else None
-        out = zconv.upzconv3d_leaky(x, w, bias, slope)
-        impl = zconv.upzconv3d_leaky.last_impl
-        same = torch.equal(out, zconv.upzconv3d_leaky(x, w, bias, slope))
-        want = zconv.upzconv3d_leaky_plain(x, w, bias, slope)
+        out = kern(x, w, bias, slope)
+        impl = kern.last_impl
+        same = torch.equal(out, kern(x, w, bias, slope))
+        want = plain(x, w, bias, slope)
         torch.cuda.synchronize()
-        plan = zconv.k2_f32_plan(*shape, cout,
-                                 *zconv._k2_f32_limits(dev.index or 0))
+        plan = zconv.f32_plan(*shape, cout, up,
+                              *zconv._f32_limits(dev.index or 0))
         row = {"case": label, "shape": list(shape), "cout": cout, "act": act,
-               "impl": impl, "K2": rel(out, want), "repeat_equal": same,
+               "impl": impl, kid: rel(out, want), "repeat_equal": same,
                "plan": {k: plan[k] for k in ("co", "ty", "threads", "grid",
-                                             "xs", "smem_bytes")}}
+                                             "xs", "xvec", "smem_bytes")}}
         if not same:
-            failed.append(f"{label}: a second launch differs")
-        if impl != zconv.K2_F32_IMPL:
-            failed.append(f"{label}: ran {impl}")
-        if not row["K2"] <= FP32_TOL:
-            row["K2_where"] = where(out, want, 2 * shape[3])
-            failed.append(f"{label}: {row['K2']}")
+            failed.append(f"{kid} {label}: a second launch differs")
+        if impl != impl_want:
+            failed.append(f"{kid} {label}: ran {impl}")
+        if not row[kid] <= FP32_TOL:
+            row[kid + "_where"] = where(out, want, out.shape[3])
+            failed.append(f"{kid} {label}: {row[kid]}")
         edges.append(row)
         print(json.dumps(row), flush=True)
     if failed:
@@ -428,36 +459,57 @@ def k2f32_edges(dev):
     return edges
 
 
-def k2f32_timed(dev, iters):
-    """Part 8: fp32 K2 per launch on the plan and its alternatives, beside
-    cuDNN and the bound."""
+def old_k1_f32(x, wk, b, out):
+    """The first fp32 K1, zconv_kernel<float> (csrc/zconv.cu, which bf16 K1
+    keeps past 64 channels), on the same inputs."""
+    from muvo_tpu_torch.ops import zconv
+
+    with torch.cuda.device(x.device):
+        rc = zconv._library("zconv").muvo_zconv3d_leaky(
+            x.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(),
+            *x.shape, out.shape[-1], 1, 0.2, 0, zconv._stream(x))
+    zconv._raise_if(rc, "zconv", "K1")
+
+
+def f32_timed(dev, iters, up):
+    """Parts 8 and 10: fp32 K2 (``up``) or K1 per launch on the plan and
+    its alternatives (K1 also on the first kernel), beside cuDNN and the
+    bound."""
     from muvo_tpu_torch.models.layers import to_nchw
     from muvo_tpu_torch.ops import _build, zconv
 
-    sms, optin = zconv._k2_f32_limits(dev.index or 0)
+    kid, kern, _, _ = f32_fns(up)
+    sms, optin = zconv._f32_limits(dev.index or 0)
     timed = []
-    for stage, shape, cout in STAGES:
+    for stage, shape, cout in (STAGES if up else K1_STAGES):
         c = shape[-1]
-        big = (shape[0], shape[1], 2 * shape[2])
+        big = (shape[0], shape[1], (2 if up else 1) * shape[2])
         for batch in (1, FWD_BATCH):
             x, w, b = fp32_inputs(dev, (batch, *shape), cout, seed=6)
             out = torch.empty((batch, *big, cout), device=dev)
             wk = zconv._kkkcn(w)
-            plan = zconv.k2_f32_plan(batch, *shape, cout, sms, optin)
-            other = zconv._k2_f32_plan(batch, *shape, cout, sms, optin,
-                                       co=12 - plan["co"])
-            fewer = zconv._k2_f32_plan(batch, *shape, cout, sms, optin,
-                                       ty=max(1, plan["ty"] // 2))
+            plan = zconv.f32_plan(batch, *shape, cout, up, sms, optin)
+            other = zconv._f32_plan(batch, *shape, cout, up, sms, optin,
+                                    co=12 - plan["co"])
+            fewer = zconv._f32_plan(batch, *shape, cout, up, sms, optin,
+                                    ty=max(1, plan["ty"] // 2))
             flops = 2 * 27 * c * cout * batch * big[0] * big[1] * big[2]
             nbytes = 4 * (x.numel() + w.numel() + out.numel() + cout)
             bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-            runs = {"K2": (lambda: zconv.upzconv3d_leaky(x, w, b, 0.2), plan)}
-            for name, p in (("K2_other_co", other), ("K2_half_ty", fewer)):
-                runs[name] = (lambda p=p: zconv._launch_up_f32(
+            runs = {kid: (lambda: kern(x, w, b, 0.2), plan)}
+            for name, p in ((f"{kid}_other_co", other),
+                            (f"{kid}_half_ty", fewer)):
+                runs[name] = (lambda p=p: zconv._launch_f32(
                     x, wk, b, out, 0.2, p), p)
-            runs["cudnn_K2"] = (lambda: F.conv3d(F.interpolate(
-                to_nchw(x), size=big, mode="trilinear", align_corners=False),
-                w, b, padding=1), None)
+            if up:
+                runs["cudnn_K2"] = (lambda: F.conv3d(F.interpolate(
+                    to_nchw(x), size=big, mode="trilinear",
+                    align_corners=False), w, b, padding=1), None)
+            else:
+                runs["K1_zconv_kernel_float"] = (
+                    lambda: old_k1_f32(x, wk, b, out), {})
+                runs["cudnn_K1"] = (
+                    lambda: F.conv3d(to_nchw(x), w, b, padding=1), None)
             for name, (fn, p) in runs.items():
                 ms = per_launch(fn, iters)
                 row = {"run": name, "stage": stage, "batch": batch,
@@ -466,6 +518,7 @@ def k2f32_timed(dev, iters):
                 if p is not None:
                     row["bound_ms"] = bound_ms
                     row["x_bound"] = row["ms_median"] / bound_ms
+                if p:
                     row["plan"] = {k: p[k] for k in ("co", "ty", "threads",
                                                      "grid", "xs",
                                                      "smem_bytes")}
@@ -483,9 +536,9 @@ def k2f32_timed(dev, iters):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=12)
-    ap.add_argument("--parts", default="k2,dw,k1,k2f32",
+    ap.add_argument("--parts", default="k2,dw,k1,k2f32,k1f32",
                     help="comma-separated: k2 (parts 1-2), dw (3-4), "
-                         "k1 (5-6), k2f32 (7-8)")
+                         "k1 (5-6), k2f32 (7-8), k1f32 (9-10)")
     ap.add_argument("--out", default=str(ROOT / "build"
                                          / "torch_zconv_probe.json"))
     args = ap.parse_args(argv)
@@ -504,9 +557,10 @@ def main(argv=None) -> int:
     if "k1" in parts:
         result["k1_edges"] = k1_edges(dev)
         result["k1_timed"] = k1_timed(dev, args.iters)
-    if "k2f32" in parts:
-        result["k2f32_edges"] = k2f32_edges(dev)
-        result["k2f32_timed"] = k2f32_timed(dev, args.iters)
+    for part, up in (("k2f32", True), ("k1f32", False)):
+        if part in parts:
+            result[part + "_edges"] = f32_edges(dev, up)
+            result[part + "_timed"] = f32_timed(dev, args.iters, up)
     result["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
