@@ -36,7 +36,9 @@ exits nonzero (there is no CPU fallback):
    (TF32 off) and bf16, each held against its plain version and timed
    beside it (FLASH_ITERS launches), one library call
    (scaled_dot_product_attention, or its backward alone) and the bound;
-   K4-mb (the microbenchmark's kernel) once. K6 in every case: each kernel
+   K4-mb (the microbenchmark's kernel) once. K5 in every case named in
+   ``last_impl`` as the dispatch picks it (fp32: the register-tiled
+   fp32::flash_bwd_kv_f32<D, true>). K6 in every case: each kernel
    named in ``last_impl`` as the dispatch picks it (bf16: the hopper
    kernels, flash_bwd_dq_wgmma and flash_bwd_wgmma<D, false>), the same
    bits on a second launch; in bf16 K6-dkv's dk and dv equal to K5's (one
@@ -808,6 +810,9 @@ def flash_kernel_phase(dev):
                    "K5": fa.flash_bwd(q, k, v, o, lse, do, seq_len),
                    "K6-dq": (fa.flash_bwd_dq(q, k, v, o, lse, do, seq_len),),
                    "K6-dkv": fa.flash_bwd_dkv(q, k, v, o, lse, do, seq_len)}
+            k5_impl = fa.flash_bwd.last_impl
+            if k5_impl != fa.kernel_name("K5", dtype, d):
+                raise AssertionError(f"K5 {label} {dtype}: ran {k5_impl}")
             again = (fa.flash_bwd_dq(q, k, v, o, lse, do, seq_len),
                      *fa.flash_bwd_dkv(q, k, v, o, lse, do, seq_len))
             torch.cuda.synchronize()
@@ -853,6 +858,7 @@ def flash_kernel_phase(dev):
                           for g, w in zip(got[kid], want[kid]))
                 bms, by, work = flash_bound(kid, q, keys, inputs, got[kid])
                 row = {"phase": "flash_kernel", "kernel": kid, "case": label,
+                       "impl": _wrapper(kid).last_impl,
                        "bh": bh, "n": n, "d": d, "seq_len": seq_len,
                        "dtype": str(dtype).replace("torch.", ""),
                        "max_abs_err": err, "norm_rel_err": rel, "tol": tol,

@@ -59,9 +59,12 @@
 // consumer overlaps its own products, and K5 adds the atomics' L2 traffic
 // and the owner's wait for the other half of dS^T. fp32 K4 and K4-mb
 // (namespace fp32) hold register micro-tiles of S and O on the CUDA cores,
-// FMA-bound. fp32 K5 and fp32 K6 keep the first design: every tile in
-// shared memory, each product one pass of a scalar shared-memory GEMM
-// (fp32 FMAs) accumulating in shared memory.
+// FMA-bound. fp32 K5 and K6-dkv are one key-major template there,
+// flash_bwd_kv_f32<D, FUSED>: register micro-tiles of S, dP, dK and dV (and
+// K5's dq share), each element one fmaf chain in the first design's order,
+// so dk and dv keep its bits. fp32 K6-dq keeps the first design: every
+// tile in shared memory, each product one pass of a scalar shared-memory
+// GEMM (fp32 FMAs) accumulating in shared memory.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
@@ -92,9 +95,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 template <typename T>
 __host__ __device__ constexpr bool is_f32() { return std::is_same<T, float>::value; }
 
-// The first design (fp32 K5 and fp32 K6). Strides of the staged tiles are
-// odd, since the scalar GEMM reads columns of (rows, d) tiles across
-// threads.
+// The first design (fp32 K6-dq). Strides of the staged tiles are odd,
+// since the scalar GEMM reads columns of (rows, d) tiles across threads.
 template <int D>
 __host__ __device__ constexpr int tile_stride() { return D + 1; }
 constexpr int kPStride = kTile + 1;  // p and ds tiles
@@ -234,69 +236,6 @@ __device__ __forceinline__ void stage_q_side(unsigned char* smem, const T* q,
     const int row = q0 + threadIdx.x;
     lse_s[threadIdx.x] = row < n ? lse[row] : 0.f;
     delta_s[threadIdx.x] = row < n ? delta[row] : 0.f;
-  }
-}
-
-// fp32 K5 (FUSED) and fp32 K6-dkv: one block per (64-key tile, bh), holding
-// k, v and the dk, dv accumulators while it walks every q tile. K5 adds each
-// q tile's share of dq, ds k, into the fp32 workspace dq_acc with atomics.
-template <typename T, int D, bool FUSED>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dk,
-                        T* __restrict__ dv, float* __restrict__ dq_acc, int n,
-                        int seq_len, float scale) {
-  using L = BwdSmem<T, D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* S = reinterpret_cast<float*>(smem + L::s_off);
-  float* dK = reinterpret_cast<float*>(smem + L::acc1_off);
-  float* dV = reinterpret_cast<float*>(smem + L::acc2_off);
-  const T* Qs = reinterpret_cast<const T*>(smem + L::q_off);
-  const T* dOs = reinterpret_cast<const T*>(smem + L::do_off);
-  T* Ks = reinterpret_cast<T*>(smem + L::k_off);
-  T* Vs = reinterpret_cast<T*>(smem + L::v_off);
-  const T* Pc = reinterpret_cast<const T*>(smem + L::pc_off);
-  const T* dSc = reinterpret_cast<const T*>(smem + L::ds_off);
-
-  const int k0 = blockIdx.x * kTile;
-  const size_t bh = blockIdx.y;
-  const size_t base = bh * n * D;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < kTile * L::OS; i += kThreads) dK[i] = dV[i] = 0.f;
-  if (k0 < seq_len) {  // a tile of masked keys only has zero gradients
-    stage<T, D, false>(Ks, k + base, k0, n, 0.f);
-    stage<T, D, false>(Vs, v + base, k0, n, 0.f);
-    for (int q0 = 0; q0 < n; q0 += kTile) {
-      __syncthreads();  // the previous q tile is consumed
-      stage_q_side<T, D>(smem, q + base, dout + base, lse + bh * n,
-                         delta + bh * n, q0, n, scale);
-      __syncthreads();
-      scores_and_ds<T, D>(smem, q0, k0, n, seq_len);
-      // dv += Pc^T dO, dk += dSc^T q^ (rows: keys)
-      gemm<T, D, kTile, true, false>(dV, L::OS, Pc, L::PS, dOs, L::TS, true);
-      gemm<T, D, kTile, true, false>(dK, L::OS, dSc, L::PS, Qs, L::TS, true);
-      if (FUSED) {
-        // this q tile's dq share, dSc k, through the free score buffer
-        gemm<T, D, kTile, false, false>(S, kSS, dSc, L::PS, Ks, L::TS, false);
-        __syncthreads();
-        for (int i = tid; i < kTile * D; i += kThreads) {
-          const int r = i / D, c = i - r * D;
-          if (q0 + r < n)
-            atomicAdd(dq_acc + base + (size_t)(q0 + r) * D + c, S[r * kSS + c]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i - r * D;
-    const int row = k0 + r;
-    if (row < n) {
-      dk[base + (size_t)row * D + c] = from_float<T>(dK[r * L::OS + c]);
-      dv[base + (size_t)row * D + c] = from_float<T>(dV[r * L::OS + c]);
-    }
   }
 }
 
@@ -1363,6 +1302,315 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32 K5 (FUSED) and fp32 K6-dkv on the CUDA cores: one key-major
+// template in the plain version's summation order. A block of 256 threads
+// takes 64 keys of one bh (a key tile wholly past seq_len only writes
+// zeros) and walks the 64-row q tiles in ascending order. k^T and v^T are
+// staged once. The q side of a tile (q^ = q * scale, dO, lse, delta)
+// arrives in registers by float4 loads while the tile before it is in use,
+// and goes into the other half of a double buffer.
+// Per q tile:
+//   A. S = q^ k^T and dP = dO v^T: a 4 q x 4 key micro-tile of each a
+//      thread (rows 16 wy + ly + 4 i, keys 32 wx + 4 lx + j), each element
+//      one fmaf chain over c ascending from 0; then in registers p =
+//      expf(S - lse) (0 at keys at or past seq_len and rows past n) and
+//      ds = p (dP - delta), stored as float4 rows of P and dS [q][key], the
+//      one exchange the register tiling needs;
+//   B. dV += P^T dO and dK += dS^T q^ in registers: 4 keys x D/16 columns a
+//      thread (keys 4 kg + j, columns cg + 16 m), one fmaf a q row, the
+//      rows ascending;
+//   C. K5 only: the tile's dq share dS k over the block's keys, 4 q rows x
+//      D/16 columns a thread (rows 4 kg + i, columns cg + 16 m) from
+//      float4s of dS rows and k^T rows, staged in shared memory; at the
+//      start of the next tile (after the walk, for the last) each thread
+//      adds D/16 float4s of it to the fp32 workspace by float4 atomics, a
+//      row's float4s on consecutive threads.
+// So each S, dP element is one fmaf chain over c from 0, and each dk, dv
+// element one over the q rows in ascending order, carried across tiles:
+// the order of the first design, which cuBLAS's fp32 products in
+// flash_bwd_plain keep too from bh 2 on (chip_smoke.py's check_k6 holds dk
+// and dv to them bit for bit). No sum over q is split; the 81 x 48 blocks
+// of the LARGE shape fill the card without it. q^ and dO rows have stride
+// D + 4 floats, so A's float4 reads of 4 consecutive rows lie in distinct
+// banks; k^T, v^T, P and dS rows have stride 68, so a warp's reads in A, B
+// and C take no more wavefronts than their bytes need.
+// The products bound it: 10 (K5) or 8 (K6-dkv) n^2 d bh flops at 67
+// TFLOP/s, 9.2 and 7.4 ms at bh 48, n 5184, d 48.
+// ---------------------------------------------------------------------------
+constexpr int kBwdKeys = 64, kBwdRows = 64;
+constexpr int kBS = kBwdKeys + 4;   // k^T, v^T, P and dS rows
+constexpr int kSmemOptin = 232448;  // a block's shared memory on sm_90
+
+template <int D, bool FUSED>
+struct BwdLayout {  // in floats
+  static constexpr int QS = D + 4;                      // q^ and dO rows
+  static constexpr int kt = 0;                          // k^T: D x kBS
+  static constexpr int vt = kt + D * kBS;               // v^T: D x kBS
+  static constexpr int dq = vt + D * kBS;               // K5's dq share: kBwdRows x QS
+  static constexpr int q = dq + FUSED * kBwdRows * QS;  // 2 x q^: kBwdRows x QS
+  static constexpr int dout = q + 2 * kBwdRows * QS;    // 2 x dO: kBwdRows x QS
+  static constexpr int lse = dout + 2 * kBwdRows * QS;  // 2 x kBwdRows
+  static constexpr int delta = lse + 2 * kBwdRows;      // 2 x kBwdRows
+  static constexpr int p = delta + 2 * kBwdRows;        // P: kBwdRows x kBS
+  static constexpr int ds = p + kBwdRows * kBS;         // dS: kBwdRows x kBS
+  static constexpr size_t bytes = sizeof(float) * (ds + kBwdRows * kBS);
+};
+
+__device__ __forceinline__ float lane4(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <int D, bool FUSED>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_kv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, float* __restrict__ dq_acc, int n,
+                     int seq_len, float scale) {
+  using L = BwdLayout<D, FUSED>;
+  constexpr int F4 = D / 4;                      // float4s a row
+  constexpr int PER = kBwdRows * F4 / kThreads;  // float4s a thread stages
+  constexpr int NC = D / 16;                     // B's columns a thread
+  static_assert(kBwdRows * F4 % kThreads == 0, "whole float4s a thread");
+  static_assert(kBwdKeys == kBwdRows, "one row map stages k, v, q and dO");
+  static_assert(L::bytes <= kSmemOptin, "a block's shared memory");
+  extern __shared__ __align__(16) float sm[];
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * kBwdKeys, bh = blockIdx.y;
+  const size_t base = (size_t)bh * n * D;
+  const int kg = tid >> 4, cg = tid & 15;  // B: keys 4 kg + j, columns cg + 16 m
+  float dK[4][NC], dV[4][NC];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int m = 0; m < NC; ++m) dK[j][m] = dV[j][m] = 0.f;
+
+  if (k0 < seq_len) {
+    float* Kt = sm + L::kt;
+    float* Vt = sm + L::vt;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int idx = tid + kThreads * j, row = idx / F4, c4 = idx - row * F4;
+      const int key = k0 + row;
+      const float4 kx = key < n ? ld4(k + base + (size_t)key * D + 4 * c4) : zero;
+      const float4 vx = key < n ? ld4(v + base + (size_t)key * D + 4 * c4) : zero;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        Kt[(4 * c4 + e) * kBS + row] = lane4(kx, e);
+        Vt[(4 * c4 + e) * kBS + row] = lane4(vx, e);
+      }
+    }
+    // the q side of a tile: float4s of q and dO, and one row's lse
+    // (threads 0-63) or delta (64-127)
+    float4 qx[PER], ox[PER];
+    float stat = 0.f;
+    auto load = [&](int q0) {
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int idx = tid + kThreads * j, row = idx / F4, c4 = idx - row * F4;
+        const int r = q0 + row;
+        qx[j] = r < n ? ld4(q + base + (size_t)r * D + 4 * c4) : zero;
+        ox[j] = r < n ? ld4(dout + base + (size_t)r * D + 4 * c4) : zero;
+      }
+      if (tid < 2 * kBwdRows) {
+        const int r = q0 + (tid & (kBwdRows - 1));
+        const float* src = tid < kBwdRows ? lse : delta;
+        stat = r < n ? src[(size_t)bh * n + r] : 0.f;
+      }
+    };
+    auto store = [&](int buf) {
+      float* Q = sm + L::q + buf * kBwdRows * L::QS;
+      float* O = sm + L::dout + buf * kBwdRows * L::QS;
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int idx = tid + kThreads * j, row = idx / F4, c4 = idx - row * F4;
+        *reinterpret_cast<float4*>(Q + row * L::QS + 4 * c4) =
+            make_float4(qx[j].x * scale, qx[j].y * scale, qx[j].z * scale,
+                        qx[j].w * scale);
+        *reinterpret_cast<float4*>(O + row * L::QS + 4 * c4) = ox[j];
+      }
+      if (tid < 2 * kBwdRows)  // lse, then delta, kBwdRows x 2 each
+        sm[L::lse + (tid / kBwdRows) * (L::delta - L::lse) + buf * kBwdRows +
+           (tid & (kBwdRows - 1))] = stat;
+    };
+    // K5: tile q0's dq share, staged by C, into the workspace as float4
+    // atomics, a row's float4s on consecutive threads
+    float* Dq = sm + L::dq;
+    auto flush = [&](int q0) {
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int idx = tid + kThreads * j, row = idx / F4, c4 = idx - row * F4;
+        if (q0 + row < n)
+          atomicAdd(reinterpret_cast<float4*>(dq_acc + base +
+                                              (size_t)(q0 + row) * D + 4 * c4),
+                    ld4(Dq + row * L::QS + 4 * c4));
+      }
+    };
+    load(0);
+    store(0);
+    __syncthreads();
+
+    // A: rows ra + 4 i, keys kb + j
+    const int w = tid >> 5, lane = tid & 31;
+    const int ra = 16 * (w >> 1) + (lane >> 3);
+    const int kb = 32 * (w & 1) + 4 * (lane & 7);
+    bool key_live[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) key_live[j] = k0 + kb + j < seq_len;
+    float* P = sm + L::p;
+    float* dS = sm + L::ds;
+    const int tiles = (n + kBwdRows - 1) / kBwdRows;
+    for (int t = 0; t < tiles; ++t) {
+      const int buf = t & 1, q0 = t * kBwdRows;
+      if (t + 1 < tiles) load(q0 + kBwdRows);
+      if (FUSED && t > 0) flush(q0 - kBwdRows);
+      const float* Q = sm + L::q + buf * kBwdRows * L::QS;
+      const float* O = sm + L::dout + buf * kBwdRows * L::QS;
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+      for (int c4 = 0; c4 < F4; ++c4) {
+        float4 a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = ld4(Q + (ra + 4 * i) * L::QS + 4 * c4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) b[e] = ld4(Kt + (4 * c4 + e) * kBS + kb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              s[i][j] = fmaf(lane4(a[i], e), lane4(b[e], j), s[i][j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = ld4(O + (ra + 4 * i) * L::QS + 4 * c4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) b[e] = ld4(Vt + (4 * c4 + e) * kBS + kb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              dp[i][j] = fmaf(lane4(a[i], e), lane4(b[e], j), dp[i][j]);
+      }
+      const float* lse_s = sm + L::lse + buf * kBwdRows;
+      const float* delta_s = sm + L::delta + buf * kBwdRows;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ra + 4 * i;
+        const bool row_live = q0 + r < n;
+        const float l = lse_s[r], dl = delta_s[r];
+        float pr[4], dr[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          pr[j] = row_live && key_live[j] ? expf(s[i][j] - l) : 0.f;
+          dr[j] = pr[j] * (dp[i][j] - dl);
+        }
+        *reinterpret_cast<float4*>(P + r * kBS + kb) =
+            make_float4(pr[0], pr[1], pr[2], pr[3]);
+        *reinterpret_cast<float4*>(dS + r * kBS + kb) =
+            make_float4(dr[0], dr[1], dr[2], dr[3]);
+      }
+      __syncthreads();
+      // B: the rows in ascending order (rows past n add zeros)
+#pragma unroll 8
+      for (int r = 0; r < kBwdRows; ++r) {
+        const float4 pv = ld4(P + r * kBS + 4 * kg);
+        const float4 sv = ld4(dS + r * kBS + 4 * kg);
+        float ov[NC], qv[NC];
+#pragma unroll
+        for (int m = 0; m < NC; ++m) {
+          ov[m] = O[r * L::QS + cg + 16 * m];
+          qv[m] = Q[r * L::QS + cg + 16 * m];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int m = 0; m < NC; ++m) {
+            dV[j][m] = fmaf(lane4(pv, j), ov[m], dV[j][m]);
+            dK[j][m] = fmaf(lane4(sv, j), qv[m], dK[j][m]);
+          }
+      }
+      if constexpr (FUSED) {
+        // C: rows 4 kg + i, columns cg + 16 m of dS k over the block's keys
+        // (dS is zero past seq_len), from float4s of dS rows and k^T rows,
+        // staged in Dq for the next tile's flush
+        float acc[4][NC];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int m = 0; m < NC; ++m) acc[i][m] = 0.f;
+#pragma unroll 2
+        for (int kc = 0; kc < kBwdKeys; kc += 4) {
+          float4 a[4], b[NC];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = ld4(dS + (4 * kg + i) * kBS + kc);
+#pragma unroll
+          for (int m = 0; m < NC; ++m) b[m] = ld4(Kt + (cg + 16 * m) * kBS + kc);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int m = 0; m < NC; ++m)
+                acc[i][m] = fmaf(lane4(a[i], e), lane4(b[m], e), acc[i][m]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int m = 0; m < NC; ++m)
+            Dq[(4 * kg + i) * L::QS + cg + 16 * m] = acc[i][m];
+      }
+      if (t + 1 < tiles) store(buf ^ 1);
+      __syncthreads();
+    }
+    if (FUSED) flush((tiles - 1) * kBwdRows);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int key = k0 + 4 * kg + j;
+    if (key < n) {
+#pragma unroll
+      for (int m = 0; m < NC; ++m) {
+        dk[base + (size_t)key * D + cg + 16 * m] = dK[j][m];
+        dv[base + (size_t)key * D + cg + 16 * m] = dV[j][m];
+      }
+    }
+  }
+}
+
+// fp32 K5 (dq_acc given, zeroed by the caller) or K6-dkv (dq_acc null)
+template <int D>
+cudaError_t bwd_kv(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dk, void* dv, float* dq_acc, int bh, int n,
+                   int seq_len, float scale, cudaStream_t st) {
+  for (const void* p : {q, k, v, dout, static_cast<const void*>(dq_acc)})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  const bool fused = dq_acc != nullptr;
+  const size_t bytes = fused ? BwdLayout<D, true>::bytes : BwdLayout<D, false>::bytes;
+  auto kernel = fused ? flash_bwd_kv_f32<D, true> : flash_bwd_kv_f32<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((n + kBwdKeys - 1) / kBwdKeys, bh), kThreads, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), dq_acc, n,
+      seq_len, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace fp32
 
 template <typename K>
@@ -1383,36 +1631,15 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
     return hopper::fwd<D>(q, k, v, o, lse, bh, n, seq_len, scale, softmax, st);
 }
 
-// fp32 K5's kernel (dq_acc given) or fp32 K6-dkv (dq_acc null): the first
-// design
-template <int D>
-cudaError_t first_bwd_kv(const void* q, const void* k, const void* v,
-                         const void* dout, const float* lse,
-                         const float* delta, void* dk, void* dv, float* dq_acc,
-                         int bh, int n, int seq_len, float scale,
-                         cudaStream_t st) {
-  const size_t bytes = BwdSmem<float, D>::bytes;
-  auto kernel = dq_acc != nullptr ? flash_bwd_kv_kernel<float, D, true>
-                                  : flash_bwd_kv_kernel<float, D, false>;
-  cudaError_t err = prepare(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid_of(bh, n), kThreads, bytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dk), static_cast<float*>(dv), dq_acc, n,
-      seq_len, scale);
-  return cudaGetLastError();
-}
-
-// K6-dkv: bf16 flash_bwd_wgmma<D, false> on q^ in q_hat, fp32 the first
-// design (q_hat unused)
+// K6-dkv: bf16 flash_bwd_wgmma<D, false> on q^ in q_hat, fp32
+// fp32::flash_bwd_kv_f32<D, false> (q_hat unused)
 template <typename T, int D>
 cudaError_t bwd_kv(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* q_hat, void* dk, void* dv, int bh, int n,
                    int seq_len, float scale, cudaStream_t st) {
   if constexpr (is_f32<T>())
-    return first_bwd_kv<D>(q, k, v, dout, lse, delta, dk, dv, nullptr, bh, n,
+    return fp32::bwd_kv<D>(q, k, v, dout, lse, delta, dk, dv, nullptr, bh, n,
                            seq_len, scale, st);
   else
     return hopper::bwd_wgmma<D, false>(q, k, v, dout, lse, delta, q_hat, dk,
@@ -1441,7 +1668,8 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
   }
 }
 
-// K5: zero the dq workspace, the fused kernel, then dq = dq_acc * scale
+// K5: zero the dq workspace, the fused kernel (fp32:
+// fp32::flash_bwd_kv_f32<D, true>), then dq = dq_acc * scale
 template <typename T, int D>
 cudaError_t bwd_fused(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
@@ -1454,7 +1682,7 @@ cudaError_t bwd_fused(const void* q, const void* k, const void* v,
     const size_t count = (size_t)bh * n * D;
     cudaError_t err = cudaMemsetAsync(dq_acc, 0, count * sizeof(float), st);
     if (err != cudaSuccess) return err;
-    err = first_bwd_kv<D>(q, k, v, dout, lse, delta, dk, dv, dq_acc, bh, n,
+    err = fp32::bwd_kv<D>(q, k, v, dout, lse, delta, dk, dv, dq_acc, bh, n,
                           seq_len, scale, st);
     if (err != cudaSuccess) return err;
     const size_t blocks = (count + 255) / 256;

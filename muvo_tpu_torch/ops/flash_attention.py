@@ -34,9 +34,14 @@ so its dk and dv equal K5's bit for bit), on q^ = q * scale in bf16 from
 scale_q_kernel (K5 writes it into dq, K6-dkv into a (bh, n, d) scratch
 the wrapper allocates), and K6-dq the q-major flash_bwd_dq_wgmma<D> on
 K4's skeleton (q^ formed in shared memory, dq kept in registers). fp32 K4
-and K4-mb are register-tiled CUDA-core kernels; fp32 K5 and K6 the first,
-shared-memory design. The products bound the bf16 backward kernels, the
-exponentials bound K4; the source gives the numbers. muvo_tpu's
+and K4-mb are register-tiled CUDA-core kernels (fp32::flash_fwd_f32), and
+so are fp32 K5 and K6-dkv, one key-major template,
+fp32::flash_bwd_kv_f32<D, FUSED>: 64 keys a block, dk and dv in registers,
+each element one fmaf chain over the q rows in ascending order (the plain
+version's order: their bits equal flash_bwd_plain's on the card), K5's dq
+share added by float4 atomics. fp32 K6-dq keeps the first, shared-memory
+design. The products bound the backward kernels, the exponentials bound
+bf16 K4; the source gives the numbers. muvo_tpu's
 _FUSED_DQ_VMEM_BUDGET limits the TPU's VMEM and has no counterpart: K5's dq workspace lies in
 device memory, so K5 serves every length, and ``split`` is the port's
 form of muvo_tpu's MUVO_FLASH_FUSED_BWD switch, an argument and not an
@@ -116,11 +121,11 @@ _KERNELS = {
     "K4-mb": {torch.bfloat16: "hopper::flash_fwd_wgmma<{d}, false>",
               torch.float32: "fp32::flash_fwd_f32<{d}, false>"},
     "K5": {torch.bfloat16: "hopper::flash_bwd_wgmma<{d}, true>",
-           torch.float32: "flash_bwd_kv_kernel<float, {d}, true>"},
+           torch.float32: "fp32::flash_bwd_kv_f32<{d}, true>"},
     "K6-dq": {torch.bfloat16: "hopper::flash_bwd_dq_wgmma<{d}>",
               torch.float32: "flash_bwd_dq_kernel<float, {d}>"},
     "K6-dkv": {torch.bfloat16: "hopper::flash_bwd_wgmma<{d}, false>",
-               torch.float32: "flash_bwd_kv_kernel<float, {d}, false>"},
+               torch.float32: "fp32::flash_bwd_kv_f32<{d}, false>"},
 }
 
 

@@ -235,7 +235,10 @@ def test_flash_kernels_match_plain(dev, d, dtype, bh, n, seq_len):
     """K4, K5 and K6 (dq, dkv) against their plain versions on the same
     inputs, norm-relative (K5's dq sums by atomics in a varying order); in
     bf16 K6-dkv's dk and dv equal to K5's bit for bit (one kernel: K5's
-    dq work changes nothing of them)."""
+    dq work changes nothing of them); in fp32 K6-dkv's and K5's dk and dv
+    equal to each other and to the plain version's bit for bit (one
+    template, fp32::flash_bwd_kv_f32, in the plain version's summation
+    order)."""
     q, k, v, do = _qkv(dev, bh, n, d, dtype, count=4)
     key = str(dtype).removeprefix("torch.")
     wrappers = (fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
@@ -260,9 +263,18 @@ def test_flash_kernels_match_plain(dev, d, dtype, bh, n, seq_len):
         for g, w in zip(got, want):
             assert g.dtype == dtype and g.shape == w.shape
             assert _norm_rel(g, w) <= TOL[dtype]
-    if dtype == torch.bfloat16:
-        assert torch.equal(split[1], fused[1]) and torch.equal(split[2],
-                                                               fused[2])
+    assert torch.equal(split[1], fused[1]) and torch.equal(split[2],
+                                                           fused[2])
+    if dtype == torch.float32:
+        ref = want
+        if bh == 1:
+            # cuBLAS sums a single batch's products in another order than a
+            # batch of two or more (the first design's kernel differed from
+            # it there too), so at bh 1 the plain version runs on the batch
+            # doubled
+            ref = [w[:1] for w in fa.flash_bwd_plain(
+                *(torch.cat([t, t]) for t in (q, k, v, o, lse, do)), seq_len)]
+        assert all(torch.equal(g, w) for g, w in zip(fused[1:], ref[1:]))
 
 
 @pytest.mark.parametrize("d", [32, 48])
@@ -352,7 +364,8 @@ def test_bf16_k5_repeats_without_a_race(dev):
 @pytest.mark.parametrize("d", [32, 48, 64])
 @pytest.mark.parametrize("bh,n,seq_len", [(3, 300, None), (2, 257, 129)])
 def test_fp32_k6_keeps_the_first_design(dev, d, bh, n, seq_len):
-    """fp32 K6 and K5 stay on the first, shared-memory design and equal the
+    """fp32 K6-dq keeps the first, shared-memory design; fp32 K5 and
+    K6-dkv run the register-tiled fp32::flash_bwd_kv_f32. All equal the
     plain version bit for bit (K5's dq, summed by atomics, aside)."""
     q, k, v, do = _qkv(dev, bh, n, d, torch.float32, count=4)
     o, lse = fa.flash_fwd(q, k, v, seq_len)
@@ -361,9 +374,8 @@ def test_fp32_k6_keeps_the_first_design(dev, d, bh, n, seq_len):
     fused = fa.flash_bwd(q, k, v, o, lse, do, seq_len)
     torch.cuda.synchronize()
     assert fa.flash_bwd_dq.last_impl == f"flash_bwd_dq_kernel<float, {d}>"
-    assert fa.flash_bwd_dkv.last_impl == (
-        f"flash_bwd_kv_kernel<float, {d}, false>")
-    assert fa.flash_bwd.last_impl == f"flash_bwd_kv_kernel<float, {d}, true>"
+    assert fa.flash_bwd_dkv.last_impl == f"fp32::flash_bwd_kv_f32<{d}, false>"
+    assert fa.flash_bwd.last_impl == f"fp32::flash_bwd_kv_f32<{d}, true>"
     want = fa.flash_bwd_plain(q, k, v, o, lse, do, seq_len)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert all(torch.equal(g, w) for g, w in zip(fused[1:], want[1:]))
@@ -372,15 +384,14 @@ def test_fp32_k6_keeps_the_first_design(dev, d, bh, n, seq_len):
 def test_k6_profile_names_the_kernels(dev):
     """The profiler sees flash_bwd_dq_wgmma and flash_bwd_wgmma<48, false>
     for bf16 K6 (and no kernel of the first design), the first design's
-    flash_bwd_dq_kernel and flash_bwd_kv_kernel<float, 48, false> for
-    fp32."""
+    flash_bwd_dq_kernel and flash_bwd_kv_f32<48, false> for fp32."""
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do = _qkv(dev, 2, 300, 48, dtype, count=4)
         o, lse = fa.flash_fwd(q, k, v)
         names = _kernel_names(lambda: fa.flash_bwd(q, k, v, o, lse, do,
                                                    split=True))
         first = [k for k in names
-                 if "flash_bwd_dq_kernel" in k or "flash_bwd_kv_kernel" in k]
+                 if "flash_bwd_dq_kernel" in k or "flash_bwd_kv_f32" in k]
         if dtype == torch.bfloat16:
             assert any("flash_bwd_dq_wgmma<48>" in k for k in names), names
             assert any("flash_bwd_wgmma<48, false>" in k for k in names), names
@@ -388,7 +399,7 @@ def test_k6_profile_names_the_kernels(dev):
         else:
             assert any("flash_bwd_dq_kernel<float, 48>" in k
                        for k in names), names
-            assert any("flash_bwd_kv_kernel<float, 48, false>" in k
+            assert any("flash_bwd_kv_f32<48, false>" in k
                        for k in names), names
             assert not any("wgmma" in k for k in names), names
 

@@ -15,31 +15,35 @@ attention.
    kernel, the same products in the same order), and K6-dq's dq is
    reported against K5's.
 2. timing: each kernel --iters times in a row, one CUDA event between
-   launches, so a slow launch shows on its own: bf16 K4, K4-mb, K5, K6-dq
-   and K6-dkv at bh 48, n 5184, d 48 and 32, fp32 K4 at bh 48 and 8 (the
-   LARGE training and serving shapes), each beside
+   launches, so a slow launch shows on its own: K4, K4-mb, K5, K6-dq and
+   K6-dkv at bh 48, n 5184, d 48 and 32 in bf16 and fp32, and fp32 K4 at
+   bh 8 (the LARGE serving shape), each beside
    scaled_dot_product_attention (and its backward alone for the backward
    kernels) on the same inputs.
 
 3. breakdown: bf16 K5 (``flash_bwd``) and K6-dkv at bh 48, n 5184, d 48,
-   32 and 64 under torch.profiler, --reps calls after a warm-up: the device
-   ms a call of each launch it makes, by kernel name (the delta
-   reduction's copies, product and reduce, the workspace memset,
-   scale_q_kernel, flash_bwd_wgmma<D, DQ>, flash_dq_flush_kernel), and
-   their sum.
+   32 and 64, and fp32 K5 at d 48 and 32, under torch.profiler, --reps
+   calls after a warm-up: the device ms a call of each launch it makes, by
+   kernel name (the delta reduction's copies, product and reduce, the
+   workspace memset, scale_q_kernel, flash_bwd_wgmma<D, DQ> or
+   flash_bwd_kv_f32<D, true>, flash_dq_flush_kernel), and their sum.
 
     python3 tools/torch_flash_probe.py --parts breakdown [--reps 5]
 
 runs one part alone (--parts takes a comma-separated list of edges,
 timed, breakdown). The result also holds flash_attention.cu's ptxas lines
 (registers and spills a kernel, any warning, and the note ptxas gives
-where it serializes a kernel's wgmma for want of registers, C7512).
-Prints one JSON object and writes it to --out; exits 1 if an edge case
-failed (listed under "failed"). Needs CUDA; it has no CPU mode.
+where it serializes a kernel's wgmma for want of registers, C7512), and
+under "ptxas_bwd_kv_f32" the registers and spill bytes of each
+fp32::flash_bwd_kv_f32 instantiation. Prints one JSON object and writes
+it to --out; exits 1 if an edge case failed or a flash_bwd_kv_f32
+instantiation spills (listed under "failed"). Needs CUDA; it has no CPU
+mode.
 """
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 from collections import defaultdict
@@ -58,7 +62,12 @@ EDGES = ((1, 128, 48, None), (2, 127, 32, None), (3, 129, 64, None),
          (2, 200, 64, 60), (1, 64, 48, None))
 N = 5184
 TIMED = ((torch.bfloat16, 48, 48), (torch.bfloat16, 48, 32),
-         (torch.float32, 48, 48), (torch.float32, 8, 48))
+         (torch.float32, 48, 48), (torch.float32, 48, 32),
+         (torch.float32, 8, 48))
+BREAKDOWN = ((torch.bfloat16, 48, ("K5", "K6-dkv")),
+             (torch.bfloat16, 32, ("K5", "K6-dkv")),
+             (torch.bfloat16, 64, ("K5", "K6-dkv")),
+             (torch.float32, 48, ("K5",)), (torch.float32, 32, ("K5",)))
 
 
 def norm_rel(got, want):
@@ -102,6 +111,30 @@ def breakdown(fn, reps):
     if not by_name:
         raise RuntimeError("the profiler recorded no device activity")
     return dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+
+
+def ptxas_entries(log, name):
+    """[{entry, registers, spill_stores, spill_loads}] of each kernel
+    whose mangled name holds ``name``, from ``nvcc -Xptxas -v``'s log."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = None
+            if name in m.group(1):
+                cur = {"entry": m.group(1), "registers": None,
+                       "spill_stores": None, "spill_loads": None}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def inputs(dev, bh, n, d, dtype, seed=0):
@@ -177,7 +210,7 @@ def main(argv=None) -> int:
         runs = {"K4": lambda: fa.flash_fwd(q, k, v),
                 "K4-mb": lambda: fa.flash_matmul(q, k, v),
                 "sdpa": lambda: F.scaled_dot_product_attention(q4, k4, v4)}
-        if dtype == torch.bfloat16:
+        if bh == 48:  # the training shape: the backward kernels too
             lib = F.scaled_dot_product_attention(q4, k4, v4)
             runs["K5"] = lambda: fa.flash_bwd(q, k, v, o, lse, do)
             runs["K6-dq"] = lambda: fa.flash_bwd_dq(q, k, v, o, lse, do)
@@ -192,17 +225,16 @@ def main(argv=None) -> int:
         del q, k, v, do, o, lse, q4, k4, v4, runs
         torch.cuda.empty_cache()
     launches = []
-    for d in ((48, 32, 64) if "breakdown" in parts else ()):
-        q, k, v, do = inputs(dev, 48, N, d, torch.bfloat16)
+    for dtype, d, kids in (BREAKDOWN if "breakdown" in parts else ()):
+        q, k, v, do = inputs(dev, 48, N, d, dtype)
         o, lse = fa.flash_fwd(q, k, v)
-        for name, fn in (("K5", lambda: fa.flash_bwd(q, k, v, o, lse, do)),
-                         ("K6-dkv", lambda: fa.flash_bwd_dkv(q, k, v, o, lse,
-                                                             do))):
-            ms = breakdown(fn, args.reps)
-            launches.append({"kernel": name, "dtype": "bfloat16", "bh": 48,
-                             "n": N, "d": d, "reps": args.reps,
-                             "device_ms": ms,
-                             "device_ms_total": sum(ms.values())})
+        calls = {"K5": lambda: fa.flash_bwd(q, k, v, o, lse, do),
+                 "K6-dkv": lambda: fa.flash_bwd_dkv(q, k, v, o, lse, do)}
+        for name in kids:
+            ms = breakdown(calls[name], args.reps)
+            launches.append({"kernel": name, "dtype": str(dtype).replace(
+                "torch.", ""), "bh": 48, "n": N, "d": d, "reps": args.reps,
+                "device_ms": ms, "device_ms_total": sum(ms.values())})
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -212,10 +244,17 @@ def main(argv=None) -> int:
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "edges": edges, "timed": timed, "breakdown": launches,
               "failed": failed}
-    result["ptxas"] = [ln.strip() for ln in build_log(
-        "flash_attention").splitlines() if "registers" in ln
-        or "spill" in ln or "Compiling entry" in ln or "warning" in ln
-        or "Performance Loss" in ln]
+    log = build_log("flash_attention")
+    result["ptxas"] = [ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln
+                       or "Compiling entry" in ln or "warning" in ln
+                       or "Performance Loss" in ln]
+    result["ptxas_bwd_kv_f32"] = ptxas_entries(log, "flash_bwd_kv_f32")
+    spilled = [e for e in result["ptxas_bwd_kv_f32"]
+               if e["spill_stores"] or e["spill_loads"]]
+    if len(result["ptxas_bwd_kv_f32"]) != 6 or spilled:
+        failed.append(f"flash_bwd_kv_f32's ptxas: "
+                      f"{result['ptxas_bwd_kv_f32']}")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))

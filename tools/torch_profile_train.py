@@ -26,10 +26,10 @@ measures:
    and dw_tc_kernel<N, MT, true> K3-up, sum_rows_kernel K3's second pass,
    flash_fwd_wgmma<D, true> (bf16) and flash_fwd_f32<D, true> K4,
    flash_bwd_wgmma<D, true> (bf16, with flash_dq_flush_kernel, its last
-   pass) and flash_bwd_kv_kernel<T, D, true> (fp32) K5,
+   pass) and flash_bwd_kv_f32<D, true> (fp32) K5,
    flash_bwd_dq_wgmma<D> (bf16) and flash_bwd_dq_kernel (fp32) K6-dq,
-   flash_bwd_wgmma<D, false> (bf16) and flash_bwd_kv_kernel<T, D, false>
-   (fp32) K6-dkv, and scale_q_kernel the first pass of bf16 K5 and K6-dkv
+   flash_bwd_wgmma<D, false> (bf16) and flash_bwd_kv_f32<D, false> (fp32)
+   K6-dkv, and scale_q_kernel the first pass of bf16 K5 and K6-dkv
    (q^ for their TMA), a group of its own.
 
 Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
@@ -57,14 +57,13 @@ from torch_profile_serving import _busy_us  # noqa: E402
 GROUPS = (
     ("K4 (flash_fwd_wgmma / flash_fwd_f32<D, true>)",
      r"flash_fwd_(wgmma|f32)<[^>]*true>"),
-    ("K5 (flash_bwd_wgmma<D, true> or flash_bwd_kv_kernel<T, D, true>, "
+    ("K5 (flash_bwd_wgmma<D, true> or flash_bwd_kv_f32<D, true>, "
      "with flash_dq_flush_kernel)",
-     r"flash_bwd_wgmma<\d+, true>|flash_bwd_kv_kernel<[^>]*true>|"
-     r"flash_dq_flush_kernel"),
+     r"flash_bwd_(wgmma|kv_f32)<\d+, true>|flash_dq_flush_kernel"),
     ("K6-dq (flash_bwd_dq_wgmma<D>, fp32 flash_bwd_dq_kernel)",
      r"flash_bwd_dq_wgmma|flash_bwd_dq_kernel"),
-    ("K6-dkv (flash_bwd_wgmma<D, false>, fp32 flash_bwd_kv_kernel<T, D, "
-     "false>)", r"flash_bwd_wgmma<\d+, false>|flash_bwd_kv_kernel<[^>]*false>"),
+    ("K6-dkv (flash_bwd_wgmma<D, false>, fp32 flash_bwd_kv_f32<D, false>)",
+     r"flash_bwd_(wgmma|kv_f32)<\d+, false>"),
     ("q^ for K5 and K6-dkv (scale_q_kernel)", r"scale_q_kernel"),
     ("K1 + K1-dx (zconv_kernel<T>, bf16 zconv_tc_kernel<N, K, false, DX>)",
      r"zconv_kernel<[^>]*>|zconv_tc_kernel<\d+, \d+, false, "),
