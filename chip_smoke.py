@@ -25,10 +25,11 @@ exits nonzero (there is no CPU fallback):
    (aten.convolution_backward) and the bound. bf16 K1-dx is
    zconv_tc_kernel on K1's view, bf16 K2-dx zconv_tc_kernel with the
    adjoint fold; bf16 K3 and K3-up are tc::dw_tc_kernel (zconv_dw_tc.cu),
-   fp32 ones dw_kernel (zconv_dw.cu); each row names its kernel in
-   ``impl``. A bf16 dx row must name the tensor-core kernel; a second
-   launch of a bf16 dx kernel and of every dW kernel must give the same
-   bits.
+   fp32 ones the register-tiled f32dw::dw_f32_kernel (zconv_dw.cu, its
+   plane staging shared with zconv_f32.cu); each row names its kernel in
+   ``impl``. A bf16 dx row must name the tensor-core kernel and every dW
+   row the kernel zconv.DW_IMPL gives its type; a second launch of a bf16
+   dx kernel and of every dW kernel must give the same bits.
 5. flash_kernels: K4 (flash forward), K5 (fused backward), K6-dq and K6-dkv
    (split backward) at the LARGE training shape (bh 48 = 8 heads x 6
    frames, n 5184, d 48), at d 32, at a ragged n, with seq_len < n and at
@@ -140,7 +141,9 @@ KERNEL_NAMES = {"K1": "zconv3d_leaky", "K2": "upzconv3d_leaky",
                 "K3": "zconv3d_dw", "K3-up": "upzconv3d_dw",
                 "K4": "flash_fwd", "K5": "flash_bwd", "K6-dq": "flash_bwd_dq",
                 "K6-dkv": "flash_bwd_dkv", "K4-mb": "flash_matmul"}
-# each kernel's source; where fp32 has its own, in F32_SOURCES
+# each kernel's source; where fp32 has its own, in F32_SOURCES (fp32 K1,
+# K2, K3 and K3-up: the register-tiled CUDA-core kernels, whose plane
+# staging is csrc/zconv_stage.cuh's)
 SOURCES = {"K1": "zconv.cu", "K2": "zconv.cu", "K1-dx": "zconv.cu",
            "K2-dx": "zconv.cu", "K3": "zconv_dw_tc.cu",
            "K3-up": "zconv_dw_tc.cu",
@@ -367,7 +370,9 @@ def backward_kernel_phase(dev):
                 impl = dw_k.last_impl
                 dw2, db2 = dw_k(x, g, out, 0.2)
                 torch.cuda.synchronize()
-                if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+                require_kernel(f"{dw_id} {stage} {dtype}", impl,
+                               zconv.DW_IMPL[dtype], dw, dw2)
+                if not torch.equal(db, db2):
                     raise AssertionError(f"{dw_id} {stage} {dtype}: a second "
                                          f"launch gave other bits")
                 del dw2, db2

@@ -12,9 +12,11 @@
 // wrapper passes the spatially
 // flipped kernel with C and Cout swapped). up2_z is the 2x linear
 // z-upsample with half-pixel centres and clamped edges (torch
-// align_corners=False), see zconv_common.cuh. m(g) is the LeakyReLU
-// derivative applied to the cotangent g: g where the forward output is
-// >= 0, slope * g elsewhere.
+// align_corners=False):
+//   u[2k]   = 0.25 x[max(k-1, 0)] + 0.75 x[k]
+//   u[2k+1] = 0.75 x[k]           + 0.25 x[min(k+1, Zin-1)]
+// m(g) is the LeakyReLU derivative applied to the cotangent g: g where the
+// forward output is >= 0, slope * g elsewhere.
 //
 // Replaces muvo_tpu/ops/pallas_zconv.py::_zconv_pallas_raw as called by
 // zconv3d_leaky_folded (K1), upzconv3d_leaky_folded (K2), _vjp_bwd's dx
@@ -139,9 +141,9 @@ __device__ __forceinline__ void stage(const T* __restrict__ x,
     r /= ZH;
     const int yy = r % TYH;
     const int dx = r / TYH;
-    tile[((dx * TYH + yy) * ZH + zz) * s.cs + c] = load_voxel<T, false>(
+    tile[((dx * TYH + yy) * ZH + zz) * s.cs + c] = load_voxel<T>(
         x, mask, mslope, b, xi + dx - 1, y0 + yy - 1, zz - 1, c, s.X, s.Y,
-        s.Z, s.Z, s.C);
+        s.Z, s.C);
   }
 }
 

@@ -46,7 +46,8 @@
 //   starts its share of plane x + 2's loads (kPrefetch items) before the
 //   row's FMAs, and after them stores it into the slot of plane x - 1 (a
 //   fourth plane would cost shared memory, and so y rows, for nothing). So
-//   every input plane is read once per run of rows, not three times.
+//   every input plane is read once per run of rows, not three times. The
+//   items are zconv_stage.cuh's, which K3 and K3-up (zconv_dw.cu) share:
 //   - K2's item is kRun small z of one (y, c), with the neighbours the
 //     interpolation takes: 6 scalar loads at stride C, 8 big z stored.
 //   - K1's item is kQuad = 4 consecutive floats of one y row of x, which is
@@ -71,11 +72,18 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "zconv_stage.cuh"
+
 namespace f32conv {
 
+using f32stage::kItemFloats;
+using f32stage::kQuad;
+using f32stage::kRun;
+using f32stage::load_item;
+using f32stage::stage_plane;
+using f32stage::store_item;
+
 constexpr int kRZ = 4;          // output z a thread
-constexpr int kRun = 4;         // K2: small z a staging item
-constexpr int kQuad = 4;        // K1: floats of a y row a staging item
 constexpr int kPrefetch = 5;    // staging items a thread holds in registers
 constexpr int kPlanes = 3;      // x planes in shared memory
 constexpr int kMaxThreads = 512;
@@ -94,111 +102,6 @@ struct F32Shape {
                                     // at most xs a block
   int smem_bytes;
 };
-
-// floats a staging item holds: K2's kRun small z and their neighbours,
-// K1's kQuad
-template <bool UP>
-constexpr int kItemFloats = UP ? kRun + 2 : kQuad;
-
-// K2's staging item i of a plane: small z k0 .. k0 + kRun - 1 of (y row
-// yy, c)
-__device__ __forceinline__ void item_of(const F32Shape& s, int i, int& yy,
-                                        int& c, int& k0) {
-  c = i % s.C;
-  const int q = i / s.C;
-  k0 = (q % s.runs) * kRun;
-  yy = q / s.runs;
-}
-
-// K2: x[b, xi, y0 + yy - 1, k0 - 1 .. k0 + kRun (clamped), c];
-// K1: floats k0 .. k0 + kQuad - 1 of the y row x[b, xi, y0 + yy - 1], zero
-// past its Z * C; both zero outside the volume
-template <bool UP>
-__device__ __forceinline__ void load_item(
-    const float* __restrict__ x, const F32Shape& s, int b, int xi, int y0,
-    int i, float (&v)[kItemFloats<UP>]) {
-  int yy, c = 0, k0;  // K2: first small z and channel; K1: first float
-  if constexpr (UP) {
-    item_of(s, i, yy, c, k0);
-  } else {
-    yy = i / s.runs;
-    k0 = (i % s.runs) * kQuad;
-  }
-  const int gy = y0 + yy - 1;
-  if (xi < 0 || xi >= s.X || gy < 0 || gy >= s.Y) {
-#pragma unroll
-    for (int j = 0; j < kItemFloats<UP>; ++j) v[j] = 0.f;
-    return;
-  }
-  const float* row =
-      x + (((size_t)b * s.X + xi) * s.Y + gy) * (size_t)s.Zin * s.C;
-  if constexpr (UP) {
-#pragma unroll
-    for (int j = 0; j < kRun + 2; ++j) {
-      const int k = min(max(k0 - 1 + j, 0), s.Zin - 1);
-      v[j] = __ldg(row + (size_t)k * s.C + c);
-    }
-  } else if (s.xvec) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(row + k0));
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  } else {
-    const int n = s.Z * s.C;
-#pragma unroll
-    for (int j = 0; j < kQuad; ++j) v[j] = k0 + j < n ? __ldg(row + k0 + j)
-                                                      : 0.f;
-  }
-}
-
-// K2: big z 2k and 2k + 1 of the item's small z k (< Zin), at padded z
-// 2k + 1 and 2k + 2 of its (yy, c) row; K1: float f = z C + c of the y row
-// at padded z z + 1 of its (yy, c) row
-template <bool UP>
-__device__ __forceinline__ void store_item(
-    float* plane, const F32Shape& s, int i,
-    const float (&v)[kItemFloats<UP>]) {
-  if constexpr (UP) {
-    int yy, c, k0;
-    item_of(s, i, yy, c, k0);
-    float* row = plane + yy * s.ys + c * s.zs + 1;
-#pragma unroll
-    for (int m = 0; m < kRun; ++m) {
-      const int k = k0 + m;
-      if (k >= s.Zin) break;
-      const float xk = v[m + 1];
-      row[2 * k] = k == 0 ? xk : 0.75f * xk + 0.25f * v[m];
-      row[2 * k + 1] = k == s.Zin - 1 ? xk : 0.75f * xk + 0.25f * v[m + 2];
-    }
-  } else {
-    const int yy = i / s.runs, f0 = (i % s.runs) * kQuad;
-    int z = f0 / s.C, c = f0 - z * s.C;
-    float* row = plane + yy * s.ys + 1;
-#pragma unroll
-    for (int j = 0; j < kQuad; ++j) {
-      if (z >= s.Z) break;  // past the y row's Z * C floats
-      row[c * s.zs + z] = v[j];
-      if (++c == s.C) {
-        c = 0;
-        ++z;
-      }
-    }
-  }
-}
-
-// plane xi of tile (b, y0) into `plane`, load and store in one pass
-template <bool UP>
-__device__ __forceinline__ void stage_plane(float* plane,
-                                            const float* __restrict__ x,
-                                            const F32Shape& s, int b, int xi,
-                                            int y0, int from) {
-  for (int i = threadIdx.x + from; i < s.items; i += blockDim.x) {
-    float v[kItemFloats<UP>];
-    load_item<UP>(x, s, b, xi, y0, i, v);
-    store_item<UP>(plane, s, i, v);
-  }
-}
 
 // the thread's kRZ x CO outputs of one row: z 4g .. 4g + 3 of y row yi,
 // channels cc * CO .. cc * CO + CO - 1; slot (j + dx) % kPlanes holds the
@@ -302,7 +205,8 @@ __device__ __forceinline__ void conv_walk(float* smem,
     const int b = seg / s.nyt, y0 = (seg % s.nyt) * s.ty;
     __syncthreads();  // the slots are free, the halo and weights written
     for (int p = 0; p < kPlanes; ++p)
-      stage_plane<UP>(planes + p * s.plane, x, s, b, xa - 1 + p, y0, 0);
+      stage_plane<UP, false>(planes + p * s.plane, x, s, b, xa - 1 + p, y0,
+                             0, s.zs);
     __syncthreads();
 
     for (int xo = xa; xo < xb; ++xo) {
@@ -352,9 +256,10 @@ __device__ __forceinline__ void conv_walk(float* smem,
 #pragma unroll
         for (int q = 0; q < kPrefetch; ++q) {
           const int i = threadIdx.x + q * blockDim.x;
-          if (i < s.items) store_item<UP>(slot, s, i, pf[q]);
+          if (i < s.items) store_item<UP, false>(slot, s, i, pf[q], s.zs);
         }
-        stage_plane<UP>(slot, x, s, b, xo + 2, y0, kPrefetch * blockDim.x);
+        stage_plane<UP, false>(slot, x, s, b, xo + 2, y0,
+                               kPrefetch * blockDim.x, s.zs);
         __syncthreads();
       }
     }

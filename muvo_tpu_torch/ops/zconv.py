@@ -26,7 +26,8 @@ K3 ``zconv3d_dw`` / ``upzconv3d_dw`` (K3-up): the weight and bias
     gradients of K1 / K2 in one pass (_dw_pallas and the dbias sums beside
     it), fp32 out: in bf16 a split-K GEMM on the tensor cores over the
     big-z positions (csrc/zconv_dw_tc.cu, planned by ``dw_tc_plan``), in
-    fp32 a CUDA-core reduction (csrc/zconv_dw.cu).
+    fp32 a register-tiled CUDA-core kernel sliding a z window over a ring
+    of staged x planes (csrc/zconv_dw.cu, planned by ``dw_f32_plan``).
 
 Tensors are channels-last NDHWC; weights are upstream's Conv3d layout
 (Cout, C, 3, 3, 3). On a CPU tensor each wrapper runs its plain PyTorch
@@ -96,10 +97,10 @@ def _library(name: str):
             lib.muvo_zconv3d_dw_tc.restype = _I
         else:
             lib.muvo_zconv3d_dw_workspace.argtypes = [
-                _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_size_t)]
+                ctypes.POINTER(_DwF32Shape), ctypes.POINTER(ctypes.c_size_t)]
             lib.muvo_zconv3d_dw.argtypes = [
-                _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _I, _I, _I, _I,
-                _I, _I, _I, _P]
+                _P, _P, _P, ctypes.c_float, _P, _P, _P,
+                ctypes.POINTER(_DwF32Shape), _P]
             lib.muvo_zconv3d_dw_workspace.restype = _I
             lib.muvo_zconv3d_dw.restype = _I
         _libs[name] = lib
@@ -651,7 +652,7 @@ DW_TC_FIELDS = (
     "smem_bytes")
 DW_TC_MAX_WARPGROUPS = 4
 DW_IMPL = {torch.bfloat16: "tc::dw_tc_kernel (csrc/zconv_dw_tc.cu)",
-           torch.float32: "dw_kernel (csrc/zconv_dw.cu)"}
+           torch.float32: "f32dw::dw_f32_kernel (csrc/zconv_dw.cu)"}
 
 
 class _DwTcShape(ctypes.Structure):
@@ -778,6 +779,174 @@ def _dw_tc(x, g, mask, slope, with_bias: bool, up: bool):
     return dw_tc_unpack(d, c, cout, with_bias)
 
 
+# fp32 K3 / K3-up: f32dw::dw_f32_kernel<UP> in csrc/zconv_dw.cu, a register
+# tile of one (dx, dy) tap pair x 3 dz x 4 input x DW_F32_CO output channels
+# a thread, sliding a z window over a ring of DW_F32_PLANES staged x planes.
+# Its plan is made here and passed in as the kernel's DwF32Shape, whose
+# fields are these, in this order; the constants are the kernel's (kCo,
+# kThreads, kPrefetchX, kPrefetchG, kPlanes).
+DW_F32_FIELDS = (
+    "B", "X", "Y", "Zin", "Z", "C", "Cout", "up", "xvec", "gvec", "cp",
+    "coutp", "ncic", "ncoc", "nunits", "nl", "passes", "unit0", "slices",
+    "ty", "nyt", "nzs", "zrun", "ys", "plane", "gs", "gfloats", "threads",
+    "runs", "items", "gruns", "gitems", "rows", "grid", "smem_bytes")
+DW_F32_CO = 4
+DW_F32_THREADS = 288
+DW_F32_PREFETCH_X = 5
+DW_F32_PREFETCH_G = 4
+DW_F32_PLANES = 3
+DW_F32_MAX_TY = 16     # y rows a tile at most
+DW_F32_MIN_ROWS = 4    # rows a block walks at least, where there are enough
+
+
+class _DwF32Shape(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in DW_F32_FIELDS]
+
+
+def dw_f32_lanes(plan: dict):
+    """What a quarter warp of the kernel loads at one z: (rows, x offsets,
+    g offsets), ``rows`` consecutive y rows (its lanes' slices) and, in each,
+    the distinct float4 offsets of its lanes' units (coc fastest, so lanes
+    that differ only in coc read one x float4)."""
+    rows = min(plan["slices"], 8)
+    units = 8 // rows
+    ncoc = plan["ncoc"]
+    x_off = sorted({k // ncoc for k in range(units)})
+    g_off = sorted({k % ncoc for k in range(units)})
+    return rows, x_off, g_off
+
+
+def bank_ways(stride: int, rows: int, offsets) -> int:
+    """The most 16-byte loads of one quarter warp on one group of 4 banks:
+    float4 offsets ``offsets`` in each of ``rows`` rows ``stride`` floats
+    apart (a float4 spans 4 of the 32 banks, so 8 groups)."""
+    hits = {}
+    for r in range(rows):
+        for o in offsets:
+            slot = (r * stride // 4 + o) % 8
+            hits[slot] = hits.get(slot, 0) + 1
+    return max(hits.values())
+
+
+def _dw_stride(floats: int, rows: int, offsets) -> int:
+    """The smallest row stride (floats, a multiple of 4) of at least
+    ``floats`` whose quarter-warp loads meet the fewest on one bank."""
+    n = _round_up(floats, 4)
+    return min(range(n, n + 32, 4),
+               key=lambda st: (bank_ways(st, rows, offsets), st))
+
+
+def dw_f32_plan(B: int, X: int, Y: int, Zin: int, C: int, Cout: int,
+                up: bool, sms: int, smem_optin: int, xvec: bool = True,
+                gvec: bool = True) -> dict:
+    """The split of an fp32 K3 (``up`` False) or K3-up call over the card,
+    as the kernel reads it (see the source note of csrc/zconv_dw.cu).
+
+    Units are 9 (dx, dy) x ``ncic`` chunks of 4 input channels (C padded
+    to ``cp``) x ``ncoc`` chunks of DW_F32_CO output channels (Cout padded
+    to ``coutp``), unit u = (tap * ncic + cic) * ncoc + coc; a launch takes
+    ``nl`` of them (at most DW_F32_THREADS; ``passes`` launches), and
+    ``slices`` threads (the largest power of two that fits) share each over
+    disjoint positions: thread t has unit t // slices, slice t % slices.
+    Positions: tiles of ``ty`` y rows of one x row (the largest power of
+    two up to DW_F32_MAX_TY and Y whose block fits ``smem_optin``: with
+    slices a power of two too, the pairs below split evenly over them;
+    tools/torch_zconv_probe.py times the plan against the fewer rows a
+    smaller ``smem_optin`` gives), z cut into
+    ``nzs`` segments of ``zrun`` so that the (y, segment) pairs are at
+    least the slices; slice s takes pairs s, s + slices, ... ``rows`` = B x
+    ``nyt`` x X rows are dealt to ``grid`` blocks (one an SM, at least
+    DW_F32_MIN_ROWS rows each), block i taking rows i * rows // grid .. (i +
+    1) * rows // grid - 1, x innermost. The plane's y rows (``ys`` floats,
+    [z + 1][cp]) and the cotangent's (``gs``, [z][coutp]) are padded to the
+    stride at which ``dw_f32_lanes``' loads meet the fewest on one bank.
+    ``xvec`` and ``gvec`` say whether x's and g's (and the mask's) rows load
+    as float4. Raises ValueError for a shape whose block does not fit."""
+    what = "K3-up" if up else "K3"
+    if min(B, X, Y, Zin, C, Cout) <= 0:
+        raise ValueError(f"empty shape {(B, X, Y, Zin, C, Cout)}")
+    Z = 2 * Zin if up else Zin
+    cp, coutp = _round_up(C, 4), _round_up(Cout, DW_F32_CO)
+    ncic, ncoc = cp // 4, coutp // DW_F32_CO
+    nunits = 9 * ncic * ncoc
+    nl = min(nunits, DW_F32_THREADS)
+    slices = 1 << (DW_F32_THREADS // nl).bit_length() - 1
+    threads = _round_up(nl * slices, 32)
+    lanes, x_off, g_off = dw_f32_lanes(dict(slices=slices, ncoc=ncoc))
+    ys = _dw_stride((Z + 2) * cp, lanes, x_off)
+    gs = _dw_stride(Z * coutp, lanes, g_off)
+    runs = -(-Zin // F32_RUN) if up else -(-Zin * C // F32_QUAD)
+    xitems = runs * (C if up else 1)  # x items a y row
+    gruns = -(-Z * Cout // F32_QUAD)
+
+    def smem(t):  # the planes and cotangent rows; at the end, dbias's sums
+        return max(4 * (DW_F32_PLANES * (t + 2) * ys + t * gs), 16 * threads)
+
+    fits = [1 << k for k in range(DW_F32_MAX_TY.bit_length())
+            if 1 << k <= Y and smem(1 << k) <= smem_optin]
+    if not fits:
+        raise ValueError(f"fp32 {what} kernel: z {Z} x {C} -> {Cout} "
+                         f"channels needs {smem(1)} bytes of shared memory, "
+                         f"the card allows {smem_optin}")
+    ty = fits[-1]
+    nzs = -(-slices // ty)
+    zrun = -(-Z // nzs)
+    nzs = -(-Z // zrun)
+    nyt = -(-Y // ty)
+    rows = B * nyt * X
+    if rows >= 2 ** 31 or Zin * C >= 2 ** 30 or Z * Cout >= 2 ** 30:
+        raise ValueError(f"fp32 {what} kernel: {rows} rows of {Zin * C}")
+    return dict(B=B, X=X, Y=Y, Zin=Zin, Z=Z, C=C, Cout=Cout, up=int(up),
+                xvec=int(not up and xvec and Zin * C % F32_QUAD == 0),
+                gvec=int(gvec and Z * Cout % F32_QUAD == 0), cp=cp,
+                coutp=coutp, ncic=ncic, ncoc=ncoc, nunits=nunits, nl=nl,
+                passes=-(-nunits // nl), unit0=0, slices=slices, ty=ty,
+                nyt=nyt, nzs=nzs, zrun=zrun, ys=ys, plane=(ty + 2) * ys,
+                gs=gs, gfloats=ty * gs, threads=threads, runs=runs,
+                items=(ty + 2) * xitems, gruns=gruns, gitems=ty * gruns,
+                rows=rows, grid=max(1, min(sms, rows // DW_F32_MIN_ROWS)),
+                smem_bytes=smem(ty))
+
+
+def _launch_dw_f32(x, g, mask, slope, plan: dict, with_bias: bool):
+    """fp32 K3 / K3-up on ``plan``: (dW (27, cp, coutp), dbias (coutp,) or
+    None), fp32."""
+    lib = _library("zconv_dw")
+    shape = _DwF32Shape(**plan)
+    floats = ctypes.c_size_t()
+    what = "K3-up" if plan["up"] else "K3"
+    rc = lib.muvo_zconv3d_dw_workspace(ctypes.byref(shape),
+                                       ctypes.byref(floats))
+    _raise_if(rc, "zconv_dw", what)
+    dev = x.device
+    work = torch.empty(floats.value, dtype=torch.float32, device=dev)
+    dw = torch.empty((27, plan["cp"], plan["coutp"]), dtype=torch.float32,
+                     device=dev)
+    db = (torch.empty(plan["coutp"], dtype=torch.float32, device=dev)
+          if with_bias else None)
+    with torch.cuda.device(dev):
+        rc = lib.muvo_zconv3d_dw(
+            x.data_ptr(), g.data_ptr(), _ptr(mask), float(slope or 0.0),
+            work.data_ptr(), dw.data_ptr(), _ptr(db), ctypes.byref(shape),
+            _stream(x))
+    _raise_if(rc, "zconv_dw", what)
+    return dw, db
+
+
+def _dw_f32(x, g, mask, slope, with_bias: bool, up: bool):
+    b, X, Y, zin, c = x.shape
+    cout = g.shape[-1]
+    plan = dw_f32_plan(
+        b, X, Y, zin, c, cout, up, *_f32_limits(x.device.index or 0),
+        xvec=x.data_ptr() % 16 == 0,
+        gvec=all(t.data_ptr() % 16 == 0 for t in (g, mask) if t is not None))
+    dw, db = _launch_dw_f32(x, g, mask, slope, plan, with_bias)
+    # (kx, ky, kz, C, Cout) -> upstream's (Cout, C, kx, ky, kz)
+    dw = dw.reshape(3, 3, 3, plan["cp"], plan["coutp"])[..., :c, :cout]
+    return (dw.permute(4, 3, 0, 1, 2).contiguous(),
+            None if db is None else db[:cout].contiguous())
+
+
 def _dw(x, g, out, slope, with_bias: bool, up: bool):
     if x.ndim != 5 or g.ndim != 5 or x.shape[:3] != g.shape[:3] or (
             g.shape[3] != (2 if up else 1) * x.shape[3]):
@@ -796,31 +965,10 @@ def _dw(x, g, out, slope, with_bias: bool, up: bool):
     counted = upzconv3d_dw if up else zconv3d_dw
     if x.dtype == torch.bfloat16:
         result = _dw_tc(x, g, mask, slope, with_bias, up)
-        _count(counted, x.dtype, DW_IMPL[x.dtype])
-        return result
-    b, X, Y, zin, c = x.shape
-    cout = g.shape[-1]
-    cp, gp = _round_up(c, 4), _round_up(cout, 8)
-    lib = _library("zconv_dw")
-    floats = ctypes.c_size_t()
-    with torch.cuda.device(x.device):
-        rc = lib.muvo_zconv3d_dw_workspace(b, X, Y, zin, c, cout, int(up),
-                                           ctypes.byref(floats))
-        _raise_if(rc, "zconv_dw", "K3")
-        work = torch.empty(floats.value, dtype=torch.float32, device=x.device)
-        dw = torch.empty((3, 3, 3, cp, gp), dtype=torch.float32,
-                         device=x.device)
-        db = (torch.empty(gp, dtype=torch.float32, device=x.device)
-              if with_bias else None)
-        rc = lib.muvo_zconv3d_dw(
-            x.data_ptr(), g.data_ptr(), _ptr(mask), float(slope or 0.0),
-            work.data_ptr(), dw.data_ptr(), _ptr(db), b, X, Y, zin, c, cout,
-            int(up), _DTYPES[x.dtype], _stream(x))
-    _raise_if(rc, "zconv_dw", "K3-up" if up else "K3")
+    else:
+        result = _dw_f32(x, g, mask, slope, with_bias, up)
     _count(counted, x.dtype, DW_IMPL[x.dtype])
-    # (kx, ky, kz, C, Cout) -> upstream's (Cout, C, kx, ky, kz)
-    dw = dw[..., :c, :cout].permute(4, 3, 0, 1, 2).contiguous()
-    return dw, None if db is None else db[:cout].contiguous()
+    return result
 
 
 def zconv3d_dw(x, g, out, slope: Optional[float] = 0.2,

@@ -659,9 +659,9 @@ def test_bf16_k1_launches_the_tensor_core_kernel(dev):
 
 
 # bf16 K3 and K3-up run tc::dw_tc_kernel (csrc/zconv_dw_tc.cu), the split-K
-# GEMM over the big-z positions; fp32 keeps dw_kernel (csrc/zconv_dw.cu)
-@pytest.mark.parametrize("kid", ["K1", "K2"])
-@pytest.mark.parametrize("shape,cout,act", [
+# GEMM over the big-z positions; fp32 ones f32dw::dw_f32_kernel
+# (csrc/zconv_dw.cu), the register-tiled CUDA-core kernel
+DW_SHAPES = [
     ((2, 96, 96, 16, 32), 16, True),   # conv2.conv1 (K3-up) at batch 2
     ((2, 96, 96, 32, 16), 16, True),   # conv2.conv2 (K3)
     ((2, 192, 192, 32, 16), 8, True),  # conv3.conv1 (K3-up)
@@ -671,7 +671,12 @@ def test_bf16_k1_launches_the_tensor_core_kernel(dev):
     ((1, 4, 5, 16, 32), 16, False),    # no activation, no bias
     ((1, 11, 13, 1, 16), 8, True),     # Zs 1
     ((1, 9, 6, 2, 16), 8, True),       # Zs 2, Y ends mid tile
-])
+    ((1, 5, 21, 4, 4), 8, True),       # Y 21: fp32 y tiles of 16 and 5
+]
+
+
+@pytest.mark.parametrize("kid", ["K1", "K2"])
+@pytest.mark.parametrize("shape,cout,act", DW_SHAPES)
 def test_bf16_dw_kernel_matches_plain(dev, kid, shape, cout, act):
     """bf16 K3 / K3-up against the plain version on the same bf16 inputs
     (fp32 out on both sides; the plain one rounds dW to bf16), the launch
@@ -701,18 +706,49 @@ def test_bf16_dw_kernel_matches_plain(dev, kid, shape, cout, act):
         assert db is None
 
 
+@pytest.mark.parametrize("kid", ["K1", "K2"])
+@pytest.mark.parametrize("shape,cout,act", DW_SHAPES)
+def test_fp32_dw_kernel_matches_plain(dev, kid, shape, cout, act):
+    """fp32 K3 / K3-up against the plain version on the same inputs (TF32
+    off), the launch counted once, the register-tiled kernel named, and a
+    second launch giving the same bits (no atomics)."""
+    forward, _, _, dw_k, dw_p = BACKWARD[kid]
+    x, w, b = _inputs(dev, shape, cout, torch.float32)
+    slope = 0.2 if act else None
+    out = forward(x, w, b if act else None, slope)
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    n = dw_k.launches
+    dw, db = dw_k(x, g, out, slope, with_bias=act)
+    torch.cuda.synchronize()
+    assert dw_k.launches == n + 1
+    assert dw_k.last_impl == zconv.DW_IMPL[torch.float32]
+    dw2, db2 = dw_k(x, g, out, slope, with_bias=act)
+    assert torch.equal(dw, dw2)
+    dw_want, db_want = dw_p(x, g, out, slope, act)
+    assert dw.dtype == torch.float32 and dw.shape == w.shape
+    assert _rel(dw, dw_want) <= TOL[torch.float32]
+    if act:
+        assert torch.equal(db, db2)
+        assert db.shape == (cout,)
+        assert _rel(db, db_want) <= TOL[torch.float32]
+    else:
+        assert db is None
+
+
 def test_dw_launches_the_tensor_core_kernel_in_bf16_only(dev):
-    """The profile names dw_tc_kernel for bf16 K3-up and K3, dw_kernel for
-    fp32; a bf16 shape the kernel's plan refuses raises and launches
-    nothing."""
+    """The profile names dw_tc_kernel for bf16 K3-up and K3,
+    dw_f32_kernel for fp32; a bf16 shape the kernel's plan refuses raises
+    and launches nothing."""
     x, w, b = _inputs(dev, (1, 6, 7, 16, 16), 8, torch.bfloat16)
     out = zconv.upzconv3d_leaky_plain(x, w, b, 0.2)
     names = _kernel_names(lambda: zconv.upzconv3d_dw(x, out, out, 0.2))
     assert any("dw_tc_kernel" in k for k in names), names
-    assert not any("dw_kernel<" in k for k in names), names
+    assert not any("dw_f32_kernel<" in k for k in names), names
     x32, out32 = x.float(), out.float()
     names = _kernel_names(lambda: zconv.upzconv3d_dw(x32, out32, out32, 0.2))
-    assert any("dw_kernel<float, true" in k for k in names), names
+    assert any("dw_f32_kernel<true>" in k for k in names), names
+    assert not any("dw_tc_kernel" in k for k in names), names
     assert zconv.upzconv3d_dw.last_impl == zconv.DW_IMPL[torch.float32]
     big = torch.zeros((1, 2, 2, 2000, 64), dtype=torch.bfloat16, device=dev)
     gb = torch.zeros((1, 2, 2, 4000, 8), dtype=torch.bfloat16, device=dev)

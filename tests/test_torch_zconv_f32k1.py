@@ -206,8 +206,10 @@ def test_kernel_steps_match_muvo_tpu_pallas():
 
 
 def test_k1_constants_match_the_kernel_source():
-    src = (Path(zconv.__file__).resolve().parent.parent / "csrc"
-           / "zconv_f32.cu").read_text()
+    csrc = Path(zconv.__file__).resolve().parent.parent / "csrc"
+    # the staging items' constants are zconv_stage.cuh's, which it includes
+    src = ((csrc / "zconv_f32.cu").read_text()
+           + (csrc / "zconv_stage.cuh").read_text())
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
     assert int(consts["kQuad"]) == zconv.F32_QUAD
     assert int(consts["kPrefetch"]) == PREFETCH

@@ -364,8 +364,10 @@ def test_fp32_k2_on_the_host_takes_the_plain_version():
 
 
 def test_shape_struct_and_constants_match_the_kernel_source():
-    src = (Path(zconv.__file__).resolve().parent.parent / "csrc"
-           / "zconv_f32.cu").read_text()
+    csrc = Path(zconv.__file__).resolve().parent.parent / "csrc"
+    # the staging items' constants are zconv_stage.cuh's, which it includes
+    src = ((csrc / "zconv_f32.cu").read_text()
+           + (csrc / "zconv_stage.cuh").read_text())
     body = re.search(r"struct F32Shape \{(.*?)\n\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     names = re.findall(r"\b(\w+)\s*[,;]", body.replace("int ", " "))

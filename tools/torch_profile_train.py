@@ -21,8 +21,8 @@ measures:
    (one kernel, launched on the flipped weights for dx),
    zconv_up_f32_kernel<CO> (fp32) and zconv_tc_kernel<N, K, true, false>
    (bf16) K2, zconv_dxup_kernel (fp32) and zconv_tc_kernel<N, K, true,
-   true> (bf16) K2-dx, dw_kernel<T, false, ...>
-   (fp32) and dw_tc_kernel<N, MT, false> (bf16) K3, dw_kernel<T, true, ...>
+   true> (bf16) K2-dx, dw_f32_kernel<false>
+   (fp32) and dw_tc_kernel<N, MT, false> (bf16) K3, dw_f32_kernel<true>
    and dw_tc_kernel<N, MT, true> K3-up, sum_rows_kernel K3's second pass,
    flash_fwd_wgmma<D, true> (bf16) and flash_fwd_f32<D, true> K4,
    flash_bwd_wgmma<D, true> (bf16, with flash_dq_flush_kernel, its last
@@ -71,10 +71,10 @@ GROUPS = (
      "false>)", r"zconv_up_f32_kernel|zconv_tc_kernel<\d+, \d+, true, false>"),
     ("K2-dx (zconv_dxup_kernel, bf16 zconv_tc_kernel<N, K, true, true>)",
      r"zconv_dxup_kernel|zconv_tc_kernel<\d+, \d+, true, true>"),
-    ("K3 (dw_kernel<T, false, U>, bf16 dw_tc_kernel<N, MT, false>)",
-     r"dw_kernel<[^,]*, false|dw_tc_kernel<[^>]*false>"),
-    ("K3-up (dw_kernel<T, true, U>, bf16 dw_tc_kernel<N, MT, true>)",
-     r"dw_kernel<[^,]*, true|dw_tc_kernel<[^>]*true>"),
+    ("K3 (dw_f32_kernel<false>, bf16 dw_tc_kernel<N, MT, false>)",
+     r"dw_f32_kernel<false>|dw_tc_kernel<[^>]*false>"),
+    ("K3-up (dw_f32_kernel<true>, bf16 dw_tc_kernel<N, MT, true>)",
+     r"dw_f32_kernel<true>|dw_tc_kernel<[^>]*true>"),
     ("K3 second pass (sum_rows_kernel)", r"sum_rows_kernel"),
     ("cuDNN / cuBLAS convolutions and GEMMs",
      r"cudnn|xmma|gemm|cutlass|implicit_convolve|dgrad|wgrad|conv|"

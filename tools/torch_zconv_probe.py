@@ -2,11 +2,12 @@
 """bf16 K2 and K2-dx (the tensor-core kernel on the small-z grid), bf16 K3
 and K3-up (the split-K weight-gradient GEMM), bf16 K1 and K1-dx (the
 tensor-core kernel on the plain or the pair view), fp32 K2 and fp32 K1
-(the register-tiled CUDA-core kernel) on one GPU: right at the edges, then
-timed launch by launch at the voxel decoder's stages beside cuDNN.
+(the register-tiled CUDA-core kernel) and fp32 K3 and K3-up (the
+register-tiled weight gradients) on one GPU: right at the edges, then timed
+launch by launch at the voxel decoder's stages beside cuDNN.
 
     python3 tools/torch_zconv_probe.py [--iters 12]
-        [--parts k2,dw,k1,k2f32,k1f32] [--out PATH]
+        [--parts k2,dw,k1,k2f32,k1f32,dw32] [--out PATH]
 
 1. edges: K2 (upzconv3d_leaky) and K2-dx (upzconv3d_dx) in bf16 against
    their plain versions, relative to max |plain| (2e-2, as chip_smoke.py),
@@ -67,6 +68,18 @@ timed launch by launch at the voxel decoder's stages beside cuDNN.
    the first CUDA-core zconv_kernel<float> (csrc/zconv.cu, through
    muvo_zconv3d_leaky with dtype 0) on the same inputs, beside F.conv3d
    with bias.
+11. dw32 edges: fp32 K3 and K3-up (zconv3d_dw, upzconv3d_dw on fp32
+   tensors) against their plain versions (dW and dbias, 1e-4 of max
+   |plain|, TF32 off) at part 3's cases, each with a second launch that
+   must give the same bits and ``last_impl`` naming f32dw::dw_f32_kernel.
+12. dw32 timing: fp32 K3 and K3-up at batch 24 at their four stages,
+   --iters launches one event apart, on zconv.dw_f32_plan's plan and on
+   the fewer y rows a tile (ty) it takes under smaller shared-memory
+   limits (10/12 .. 4/12 of the card's), beside
+   aten.convolution_backward's weight and bias gradient (TF32 off) and
+   the bound (2 * 27 * C * Cout flops an output voxel over 67 TFLOP/s, or
+   x, g, the forward output, dW and dbias over 3.35 TB/s, the larger),
+   with zconv_dw.cu's ptxas lines (registers and spills).
 
 Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
 mode.
@@ -533,12 +546,109 @@ def f32_timed(dev, iters, up):
     return timed
 
 
+def dw32_edges(dev):
+    """Part 11: fp32 K3 / K3-up against their plain versions at part 3's
+    cases."""
+    from muvo_tpu_torch.ops import zconv
+
+    edges, failed = [], []
+    for label, kid, shape, cout, act in DW_EDGES:
+        fwd, kern, plain = dw_fns(kid)
+        x, w, b = fp32_inputs(dev, shape, cout)
+        slope = 0.2 if act else None
+        out = fwd(x, w, b if act else None, slope)
+        g = torch.randn(out.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(1))
+        dw, db = kern(x, g, out, slope, with_bias=act)
+        impl = kern.last_impl
+        dw2, db2 = kern(x, g, out, slope, with_bias=act)
+        want, db_want = plain(x, g, out, slope, act)
+        torch.cuda.synchronize()
+        same = torch.equal(dw, dw2) and (not act or torch.equal(db, db2))
+        row = {"case": label, "kernel": kid, "shape": list(shape),
+               "cout": cout, "act": act, "impl": impl, "dW": rel(dw, want),
+               "dbias": rel(db, db_want) if act else None,
+               "repeat_equal": same}
+        if not same:
+            failed.append(f"{kid} {label}: a second launch differs")
+        if impl != zconv.DW_IMPL[torch.float32]:
+            failed.append(f"{kid} {label}: ran {impl}")
+        if not (row["dW"] <= FP32_TOL
+                and (not act or row["dbias"] <= FP32_TOL)):
+            failed.append(f"{kid} {label}: {row['dW']} {row['dbias']}")
+        edges.append(row)
+        print(json.dumps(row), flush=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return edges
+
+
+def dw32_timed(dev, iters):
+    """Part 12: fp32 K3 / K3-up per launch at batch 24 on the plan and its
+    alternatives, beside cuDNN and the bound."""
+    from muvo_tpu_torch.models.layers import to_nchw
+    from muvo_tpu_torch.ops import _build, zconv
+
+    sms, optin = zconv._f32_limits(dev.index or 0)
+    timed = []
+    for kid, stage, shape, cout in DW_STAGES:
+        up = kid == "K3-up"
+        fwd, kern, _ = dw_fns(kid)
+        x, w, b = fp32_inputs(dev, (BWD_BATCH, *shape), cout, seed=2)
+        out = fwd(x, w, b, 0.2)
+        g = torch.randn(out.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(3))
+        gm = zconv.leaky_mask(g, out, 0.2)
+        xin = zconv.upsample2x_z(x) if up else x
+        c, vox = shape[-1], out.numel() // cout
+        flops = (2 * 27 * c * cout + cout) * vox
+        nbytes = 4 * (x.numel() + g.numel() + out.numel() + w.numel() + cout)
+        bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        plan = zconv.dw_f32_plan(BWD_BATCH, *shape, cout, up, sms, optin)
+        runs = {kid: (lambda: kern(x, g, out, 0.2), plan)}
+        for twelfths in (10, 8, 6, 5, 4):
+            try:
+                p = zconv.dw_f32_plan(BWD_BATCH, *shape, cout, up, sms,
+                                      optin * twelfths // 12)
+            except ValueError:  # its planes do not fit
+                continue
+            name = f"{kid}_ty{p['ty']}"
+            if p["ty"] != plan["ty"] and name not in runs:
+                runs[name] = (lambda p=p: zconv._launch_dw_f32(
+                    x, g, out, 0.2, p, True), p)
+        runs["cudnn_" + kid] = (
+            lambda: torch.ops.aten.convolution_backward(
+                to_nchw(gm), to_nchw(xin), w, [cout], **CONV,
+                output_mask=[False, True, True]), None)
+        for name, (fn, p) in runs.items():
+            ms = per_launch(fn, iters)
+            row = {"run": name, "stage": stage, "batch": BWD_BATCH,
+                   "input": [BWD_BATCH, *shape], "cout": cout, "ms": ms,
+                   "ms_median": ms_median(ms)}
+            if p is not None:
+                row["bound_ms"] = bound_ms
+                row["x_bound"] = row["ms_median"] / bound_ms
+                row["plan"] = {k: p[k] for k in (
+                    "ty", "slices", "threads", "nzs", "grid", "passes",
+                    "smem_bytes")}
+            timed.append(row)
+            print(json.dumps(row), flush=True)
+        del x, w, b, out, g, gm, xin, runs
+        torch.cuda.empty_cache()
+    ptxas = [ln.strip() for ln in _build.build_log("zconv_dw").splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    timed.append({"ptxas": ptxas})
+    print(json.dumps({"ptxas": ptxas}), flush=True)
+    return timed
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=12)
-    ap.add_argument("--parts", default="k2,dw,k1,k2f32,k1f32",
+    ap.add_argument("--parts", default="k2,dw,k1,k2f32,k1f32,dw32",
                     help="comma-separated: k2 (parts 1-2), dw (3-4), "
-                         "k1 (5-6), k2f32 (7-8), k1f32 (9-10)")
+                         "k1 (5-6), k2f32 (7-8), k1f32 (9-10), "
+                         "dw32 (11-12)")
     ap.add_argument("--out", default=str(ROOT / "build"
                                          / "torch_zconv_probe.json"))
     args = ap.parse_args(argv)
@@ -561,6 +671,9 @@ def main(argv=None) -> int:
         if part in parts:
             result[part + "_edges"] = f32_edges(dev, up)
             result[part + "_timed"] = f32_timed(dev, args.iters, up)
+    if "dw32" in parts:
+        result["dw32_edges"] = dw32_edges(dev)
+        result["dw32_timed"] = dw32_timed(dev, args.iters)
     result["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
