@@ -24,12 +24,16 @@ exits nonzero (there is no CPU fallback):
    plain versions and timed beside them, one library call
    (aten.convolution_backward) and the bound. bf16 K1-dx is
    zconv_tc_kernel on K1's view, bf16 K2-dx zconv_tc_kernel with the
-   adjoint fold; bf16 K3 and K3-up are tc::dw_tc_kernel (zconv_dw_tc.cu),
-   fp32 ones the register-tiled f32dw::dw_f32_kernel (zconv_dw.cu, its
-   plane staging shared with zconv_f32.cu); each row names its kernel in
-   ``impl``. A bf16 dx row must name the tensor-core kernel and every dW
-   row the kernel zconv.DW_IMPL gives its type; a second launch of a bf16
-   dx kernel and of every dW kernel must give the same bits.
+   adjoint fold; fp32 K1-dx and K2-dx are fp32 K1's register-tiled walk
+   on the masked cotangent, f32conv::zconv_dx_f32_kernel and (on the
+   small-z view with the adjoint fold) zconv_dxup_f32_kernel
+   (zconv_f32.cu); bf16 K3 and K3-up are tc::dw_tc_kernel
+   (zconv_dw_tc.cu), fp32 ones the register-tiled f32dw::dw_f32_kernel
+   (zconv_dw.cu, its plane staging shared with zconv_f32.cu); each row
+   names its kernel in ``impl``. A dx row must name the tensor-core kernel
+   (bf16) or its fp32 kernel, and every dW row the kernel zconv.DW_IMPL
+   gives its type; a second launch of every dx and dW kernel must give the
+   same bits.
 5. flash_kernels: K4 (flash forward), K5 (fused backward), K6-dq and K6-dkv
    (split backward) at the LARGE training shape (bh 48 = 8 heads x 6
    frames, n 5184, d 48), at d 32, at a ragged n, with seq_len < n and at
@@ -142,8 +146,8 @@ KERNEL_NAMES = {"K1": "zconv3d_leaky", "K2": "upzconv3d_leaky",
                 "K4": "flash_fwd", "K5": "flash_bwd", "K6-dq": "flash_bwd_dq",
                 "K6-dkv": "flash_bwd_dkv", "K4-mb": "flash_matmul"}
 # each kernel's source; where fp32 has its own, in F32_SOURCES (fp32 K1,
-# K2, K3 and K3-up: the register-tiled CUDA-core kernels, whose plane
-# staging is csrc/zconv_stage.cuh's)
+# K2, K1-dx, K2-dx, K3 and K3-up: the register-tiled CUDA-core kernels,
+# whose plane staging is csrc/zconv_stage.cuh's)
 SOURCES = {"K1": "zconv.cu", "K2": "zconv.cu", "K1-dx": "zconv.cu",
            "K2-dx": "zconv.cu", "K3": "zconv_dw_tc.cu",
            "K3-up": "zconv_dw_tc.cu",
@@ -151,6 +155,7 @@ SOURCES = {"K1": "zconv.cu", "K2": "zconv.cu", "K1-dx": "zconv.cu",
            "K6-dq": "flash_attention.cu", "K6-dkv": "flash_attention.cu",
            "K4-mb": "flash_attention.cu"}
 F32_SOURCES = {"K1": "zconv_f32.cu", "K2": "zconv_f32.cu",
+               "K1-dx": "zconv_f32.cu", "K2-dx": "zconv_f32.cu",
                "K3": "zconv_dw.cu", "K3-up": "zconv_dw.cu"}
 REPLACES = {"K1": "muvo_tpu/ops/pallas_zconv.py:171",
             "K2": "muvo_tpu/ops/pallas_zconv.py:171",
@@ -345,9 +350,11 @@ def backward_kernel_phase(dev):
                 dx_p = zconv.upzconv3d_dx_plain if up else zconv.zconv3d_dx_plain
                 got, want = dx_k(g, out, w, 0.2), dx_p(g, out, w, 0.2)
                 dx_impl = dx_k.last_impl
-                if dtype == torch.bfloat16:
-                    require_kernel(f"{dx_id} {stage}", dx_impl, TC_IMPL,
-                                   got, dx_k(g, out, w, 0.2))
+                require_kernel(f"{dx_id} {stage} {dtype}", dx_impl,
+                               TC_IMPL if dtype == torch.bfloat16
+                               else zconv.K2_DX_F32_IMPL if up
+                               else zconv.K1_DX_F32_IMPL,
+                               got, dx_k(g, out, w, 0.2))
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 rel = err / want.float().abs().max().item()
@@ -402,9 +409,7 @@ def backward_kernel_phase(dev):
                         "cotangent": list(out.shape),
                         "dtype": str(dtype).replace("torch.", ""),
                         "impl": impl,  # the kernel (and view) that ran
-                        # checked above: bf16 dx rows, and every dW row
-                        "repeat_equal": (dtype == torch.bfloat16
-                                         or kid in ("K3", "K3-up")),
+                        "repeat_equal": True,  # checked above
                         "max_abs_err": err, "rel_err": rel, "tol": tol,
                         "ms": time_ms(kern, iters=5, warmup=1),
                         "plain_ms": time_ms(plain, iters=3, warmup=1),

@@ -1,5 +1,6 @@
 // K1, K2 and their input gradients K1-dx, K2-dx: the voxel decoder's 3x3x3
-// convolutions on Hopper (sm_90a); fp32 K1 and K2 are in zconv_f32.cu.
+// convolutions on Hopper (sm_90a); fp32 K1, K2, K1-dx and K2-dx are in
+// zconv_f32.cu.
 //
 //   K1     out = LeakyReLU(conv3d_same(x) + bias)
 //   K2     out = LeakyReLU(conv3d_same(up2_z(x)) + bias)
@@ -29,19 +30,16 @@
 // Bound on the card: at the decoder's shapes (C, Cout <= 32) the function
 // does 27*C*2 flops per output element against ~(C + Cout) * 4 bytes of
 // traffic, so in fp32 it is bound by operations (the CUDA cores' fp32 rate)
-// and in bf16 by bytes. The CUDA-core kernels (fp32 K1-dx and K2-dx, and
-// bf16 K1 and K1-dx past 64 channels, ops/zconv.py::k1_route, which no
-// model shape reaches), simple first: one block per (b, x, y-tile) stages a
-// haloed tile of 3 x-rows * (ty+2) y * (Z+2) z * C in shared memory (the
-// dx kernels apply the leaky mask while staging, reading the forward
-// output and g once), keeps all 27*C*Cout weights in shared memory, and
-// each thread accumulates 8 output channels of one (y, z) voxel in fp32
-// registers; bias and the leaky slope are applied in the epilogue and the
-// result is stored in the input type. K2-dx keeps the big-z dx of its tile
-// in shared memory and contracts pairs of big-z slices into small z with
-// the upsample's transposed weights (0.25 / 0.75, the clamped ends taking
-// the taps that fall off) while writing, so the big-z dx never exists in
-// device memory. The channel stride of the tile is odd, so neighbouring
+// and in bf16 by bytes. The CUDA-core zconv_kernel<T> (bf16 K1 and K1-dx
+// past 64 channels, ops/zconv.py::k1_route, which no model shape reaches;
+// fp32 only for tools/torch_zconv_probe.py's comparison with fp32 K1),
+// simple first: one block per (b, x, y-tile) stages a haloed tile of 3
+// x-rows * (ty+2) y * (Z+2) z * C in shared memory (for K1-dx applying the
+// leaky mask while staging, reading the forward output and g once), keeps
+// all 27*C*Cout weights in shared memory, and each thread accumulates 8
+// output channels of one (y, z) voxel in fp32 registers; bias and the
+// leaky slope are applied in the epilogue and the result is stored in the
+// input type. The channel stride of the tile is odd, so neighbouring
 // threads (neighbouring z) read distinct banks.
 //
 // bf16 K1, K2, K1-dx and K2-dx: zconv_tc_kernel<NP, KS, EDGES, DX>, an
@@ -103,7 +101,6 @@ struct Shape {
   int ty;     // y rows per block
   int cs;     // channel stride of the staged tile (odd)
   int coutp;  // Cout rounded up to kCoChunk
-  int dxup;   // K2-dx: contract the big-z result into Z / 2 small z
 };
 
 __host__ __device__ inline size_t tile_floats(const Shape& s) {
@@ -112,9 +109,7 @@ __host__ __device__ inline size_t tile_floats(const Shape& s) {
 }
 
 inline size_t smem_bytes(const Shape& s) {
-  size_t floats = tile_floats(s) + (size_t)27 * s.C * s.coutp;
-  if (s.dxup) floats += (size_t)s.ty * s.Z * s.coutp;  // big-z dx of the tile
-  return floats * sizeof(float);
+  return (tile_floats(s) + (size_t)27 * s.C * s.coutp) * sizeof(float);
 }
 
 // weights to shared memory, output channels zero-padded to coutp, and the
@@ -224,71 +219,6 @@ zconv_kernel(const T* __restrict__ x, const T* __restrict__ mask,
   }
 }
 
-// weight of big-z slice z in small-z slice k under up2_z^T (Zs small slices)
-__device__ __forceinline__ float up_weight(int z, int k, int Zs) {
-  const int m = z >> 1;
-  float w = 0.f;
-  if (z & 1) {
-    if (m == k) w += 0.75f;
-    if (min(m + 1, Zs - 1) == k) w += 0.25f;
-  } else {
-    if (max(m - 1, 0) == k) w += 0.25f;
-    if (m == k) w += 0.75f;
-  }
-  return w;
-}
-
-// K2-dx: the big-z dx of the tile into shared memory, then up2_z^T
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-zconv_dxup_kernel(const T* __restrict__ g, const T* __restrict__ mask,
-                  float mslope, const float* __restrict__ w,
-                  T* __restrict__ dx, Shape s) {
-  extern __shared__ __align__(16) float smem[];
-  float* tile = smem;
-  float* wsm = smem + tile_floats(s);
-  float* dbig = wsm + (size_t)27 * s.C * s.coutp;  // [ty][Z][coutp]
-  const int y0 = blockIdx.x * s.ty;
-  const int xi = blockIdx.y;
-  const int b = blockIdx.z;
-  stage<T>(g, mask, mslope, w, tile, wsm, s, b, xi, y0);
-  __syncthreads();
-
-  const int nchunks = s.coutp / kCoChunk;
-  const int nwork = nchunks * s.ty * s.Z;
-  for (int item = threadIdx.x; item < nwork; item += blockDim.x) {
-    const int z = item % s.Z;
-    const int r = item / s.Z;
-    const int ty = r % s.ty;
-    const int cc = r / s.ty;
-    float acc[kCoChunk];
-    conv_point(tile, wsm, s, ty, z, cc, acc);
-    float* d = dbig + ((size_t)ty * s.Z + z) * s.coutp + cc * kCoChunk;
-#pragma unroll
-    for (int j = 0; j < kCoChunk; ++j) d[j] = acc[j];
-  }
-  __syncthreads();
-
-  // small slice k gathers big slices 2k-2 .. 2k+3 (the clamped ends add
-  // the quarter taps that fall off the volume)
-  const int Zs = s.Z / 2;
-  const int nout = s.ty * Zs * s.Cout;
-  for (int item = threadIdx.x; item < nout; item += blockDim.x) {
-    const int c = item % s.Cout;
-    const int r = item / s.Cout;
-    const int k = r % Zs;
-    const int ty = r / Zs;
-    const int gy = y0 + ty;
-    if (gy >= s.Y) continue;
-    float v = 0.f;
-    for (int z = max(2 * k - 2, 0); z <= min(2 * k + 3, s.Z - 1); ++z)
-      v = fmaf(up_weight(z, k, Zs), dbig[((size_t)ty * s.Z + z) * s.coutp + c],
-               v);
-    dx[((((size_t)b * s.X + xi) * s.Y + gy) * Zs + k) * s.Cout + c] =
-        from_float<T>(v);
-  }
-}
-
 // tallest y tile (<= 16, no taller than needed) under the soft cap, or
 // failing that the tallest that fits the card at all; false if none fits
 bool pick_ty(Shape& s) {
@@ -322,22 +252,6 @@ cudaError_t launch(const void* x, const void* mask, float mslope,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(mask), mslope, w, bias,
       static_cast<T*>(out), s, has_act, slope);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dxup(const void* g, const void* mask, float mslope,
-                        const float* w, void* dx, Shape s,
-                        cudaStream_t stream) {
-  auto kernel = zconv_dxup_kernel<T>;
-  const size_t smem = smem_bytes(s);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((s.Y + s.ty - 1) / s.ty, s.X, s.B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(mask), mslope, w,
-      static_cast<T*>(dx), s);
   return cudaGetLastError();
 }
 
@@ -752,7 +666,7 @@ extern "C" int muvo_zconv3d_leaky(const void* x, const float* w,
   if (bad_dims(B, X, Y, Z, C, Cout, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Shape s{B, X, Y, Z, C, Cout, 16, (C % 2 == 0) ? C + 1 : C,
-          round_up(Cout, kCoChunk), 0};
+          round_up(Cout, kCoChunk)};
   if (!pick_ty(s)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch<float>(x, nullptr, 0.f, w, bias, out, s, has_act,
@@ -761,28 +675,22 @@ extern "C" int muvo_zconv3d_leaky(const void* x, const float* w,
                                     has_act, slope, st);
 }
 
-// K1-dx / K2-dx on the CUDA cores: fp32 K1-dx and K2-dx, and bf16 K1-dx
-// (up 0) past 64 channels. g and mask (the forward output; null without
-// activation) are (B, X, Y, Z, Cg); w_adj is the flipped, transposed kernel
-// (kx, ky, kz, Cg, C) in fp32; dx is (B, X, Y, Z, C) for K1-dx (up 0) and
-// (B, X, Y, Z / 2, C) for K2-dx (up 1, Z even).
+// K1-dx on the CUDA cores: bf16 K1-dx past 64 channels only. g and mask
+// (the forward output; null without activation) are (B, X, Y, Z, Cg);
+// w_adj is the flipped, transposed kernel (kx, ky, kz, Cg, C) in fp32; dx
+// is (B, X, Y, Z, C). Refuses fp32 (zconv_f32.cu's muvo_zconv3d_dx_f32) and
+// up (K2-dx: muvo_zconv3d_tc, muvo_zconv3d_dx_f32).
 extern "C" int muvo_zconv3d_dx(const void* g, const void* mask, float slope,
                                const float* w_adj, void* dx, int B, int X,
                                int Y, int Z, int Cg, int C, int up, int dtype,
                                void* stream) {
-  if (bad_dims(B, X, Y, Z, Cg, C, dtype) || (up && Z % 2 != 0) ||
-      (up && dtype == 1))
-    return (int)cudaErrorInvalidValue;  // bf16 K2-dx: muvo_zconv3d_tc
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bad_dims(B, X, Y, Z, Cg, C, dtype) || up || dtype != 1)
+    return (int)cudaErrorInvalidValue;
   Shape s{B, X, Y, Z, Cg, C, 16, (Cg % 2 == 0) ? Cg + 1 : Cg,
-          round_up(C, kCoChunk), up};
+          round_up(C, kCoChunk)};
   if (!pick_ty(s)) return (int)cudaErrorInvalidValue;
-  if (up) return (int)launch_dxup<float>(g, mask, slope, w_adj, dx, s, st);
-  return (int)(dtype == 0 ? launch<float>(g, mask, slope, w_adj, nullptr, dx,
-                                          s, 0, 0.f, st)
-                          : launch<__nv_bfloat16>(g, mask, slope, w_adj,
-                                                  nullptr, dx, s, 0, 0.f,
-                                                  st));
+  return (int)launch<__nv_bfloat16>(g, mask, slope, w_adj, nullptr, dx, s, 0,
+                                    0.f, static_cast<cudaStream_t>(stream));
 }
 
 // bf16 K1, K2, K1-dx and K2-dx on the tensor cores (zconv_tc_kernel): the

@@ -1,6 +1,6 @@
 // Staging of fp32 x planes, shared by the register-tiled CUDA-core kernels
-// of the voxel convs: fp32 K1 and K2 (zconv_f32.cu) and their weight
-// gradients K3 and K3-up (zconv_dw.cu).
+// of the voxel convs: fp32 K1, K2, K1-dx and K2-dx (zconv_f32.cu) and the
+// weight gradients K3 and K3-up (zconv_dw.cu).
 //
 // A plane is one input x row of a block's y tile (ty + 2 y rows with the y
 // halo) over the conv's z axis, z -1 .. Z padded. The staging of a plane is
@@ -16,7 +16,8 @@
 // - plain (K1, K3): an item is kQuad consecutive floats of one y row of x,
 //   which is Z * C contiguous floats in channels-last [z][c] order: one
 //   16-byte load where the shape's ``xvec`` allows it, else kQuad scalar
-//   loads.
+//   loads. K1-dx and K2-dx stage the leaky-masked cotangent so: the same
+//   floats of g and of the forward output, m(g) stored (masked_value).
 // Each kernel picks the plane's layout: y row yy at yy * ys floats, and in
 // it channel c at padded z zz at c * rstep + zz ([c][z], ZC false: K1 and
 // K2, rstep a padded z row) or at zz * rstep + c ([z][c], ZC true: K3 and
@@ -135,6 +136,17 @@ __device__ __forceinline__ void store_item(
   }
 }
 
+// the LeakyReLU derivative applied to a cotangent item v, given the same
+// floats of the forward output o: v where o >= 0, slope * v elsewhere (as
+// ops/zconv.py::leaky_mask)
+__device__ __forceinline__ void masked_value(float (&v)[kQuad],
+                                             const float (&o)[kQuad],
+                                             float slope) {
+#pragma unroll
+  for (int j = 0; j < kQuad; ++j)
+    if (!(o[j] >= 0.f)) v[j] *= slope;
+}
+
 // items from .. items - 1 of plane xi of tile (b, y0), load and store in
 // one pass, the block's threads taking every blockDim.x-th
 template <bool UP, bool ZC, class Shape>
@@ -146,6 +158,25 @@ __device__ __forceinline__ void stage_plane(float* plane,
     float v[kItemFloats<UP>];
     load_item<UP>(x, s, b, xi, y0, i, v);
     store_item<UP, ZC>(plane, s, i, v, rstep);
+  }
+}
+
+// the same for plain items of the cotangent g, masked by the forward output
+// (null: no activation, g as it is)
+template <bool ZC, class Shape>
+__device__ __forceinline__ void stage_masked_plane(
+    float* plane, const float* __restrict__ g, const float* __restrict__ out,
+    float slope, const Shape& s, int b, int xi, int y0, int from,
+    int rstep) {
+  for (int i = threadIdx.x + from; i < s.items; i += blockDim.x) {
+    float v[kQuad];
+    load_item<false>(g, s, b, xi, y0, i, v);
+    if (out != nullptr) {
+      float o[kQuad];
+      load_item<false>(out, s, b, xi, y0, i, o);
+      masked_value(v, o, slope);
+    }
+    store_item<false, ZC>(plane, s, i, v, rstep);
   }
 }
 

@@ -18,10 +18,14 @@ K2 ``upzconv3d_leaky``: LeakyReLU(conv3d(2x linear z-upsample of x) + bias),
     (``up_fold_weights``).
 K1-dx ``zconv3d_dx``: K1's input gradient, the conv of the leaky-masked
     cotangent with the flipped, transposed kernel (_vjp_bwd's dx); in bf16
-    routed as K1, in fp32 the CUDA-core zconv_kernel<float> (csrc/zconv.cu).
+    routed as K1, in fp32 K1's register-tiled walk on the masked cotangent
+    (csrc/zconv_f32.cu, planned by ``f32_dx_plan``).
 K2-dx ``upzconv3d_dx``: K2's input gradient, that adjoint conv over big z
     followed by the z-upsample's transpose, back to small z, in one kernel
-    (_up_vjp_bwd's dx); in bf16 the adjoint fold on the small-z grid.
+    (_up_vjp_bwd's dx): the adjoint fold on the small-z grid
+    (``up_fold_weights(adjoint=True)``), in bf16 on the tensor cores, in
+    fp32 on fp32 K1-dx's walk with the fold's edge terms; the big-z
+    gradient never exists.
 K3 ``zconv3d_dw`` / ``upzconv3d_dw`` (K3-up): the weight and bias
     gradients of K1 / K2 in one pass (_dw_pallas and the dbias sums beside
     it), fp32 out: in bf16 a split-K GEMM on the tensor cores over the
@@ -86,8 +90,12 @@ def _library(name: str):
             lib.muvo_zconv3d_f32.argtypes = [
                 _P, _P, _P, _P, ctypes.POINTER(_F32Shape), _I,
                 ctypes.c_float, _P]
+            lib.muvo_zconv3d_dx_f32.argtypes = [
+                _P, _P, ctypes.c_float, _P, _P, _P,
+                ctypes.POINTER(_F32Shape), _P]
             lib.muvo_zconv_f32_limits.restype = _I
             lib.muvo_zconv3d_f32.restype = _I
+            lib.muvo_zconv3d_dx_f32.restype = _I
         elif name == "zconv_dw_tc":
             lib.muvo_dw_tc_limits.argtypes = [ctypes.POINTER(_I)] * 2
             lib.muvo_zconv3d_dw_tc.argtypes = [
@@ -292,6 +300,10 @@ def k1_route(z: int, c: int, cout: int) -> Optional[TcView]:
 
 K1_F32_IMPL = "f32conv::zconv_f32_kernel (csrc/zconv_f32.cu)"
 K2_F32_IMPL = "f32conv::zconv_up_f32_kernel (csrc/zconv_f32.cu)"
+K1_DX_F32_IMPL = "f32conv::zconv_dx_f32_kernel (csrc/zconv_f32.cu)"
+K2_DX_F32_IMPL = "f32conv::zconv_dxup_f32_kernel (csrc/zconv_f32.cu)"
+_F32_IMPL = {(False, False): K1_F32_IMPL, (True, False): K2_F32_IMPL,
+             (False, True): K1_DX_F32_IMPL, (True, True): K2_DX_F32_IMPL}
 
 
 def _impl(view: Optional[TcView], dtype, up: bool, dx: bool) -> str:
@@ -299,31 +311,30 @@ def _impl(view: Optional[TcView], dtype, up: bool, dx: bool) -> str:
     if view is not None:
         return (f"tc::zconv_tc_kernel, {view.name} view (Zs {view.zs}, "
                 f"Kc {view.kc}, N {view.n})")
-    if up and dx:
-        return "zconv_dxup_kernel<float>"
-    if up:
-        return K2_F32_IMPL
-    if dtype == torch.float32 and not dx:
-        return K1_F32_IMPL
-    t = "float" if dtype == torch.float32 else "bf16"
-    return f"zconv_kernel<{t}>"
+    if dtype == torch.float32:
+        return _F32_IMPL[(up, dx)]
+    return "zconv_kernel<bf16>"
 
 
-# fp32 K1 and K2: f32conv::zconv_f32_kernel<CO> and zconv_up_f32_kernel<CO>
-# in csrc/zconv_f32.cu, register tiles of F32_RZ output z x CO output
-# channels a thread over a ring of F32_PLANES x planes (K2's z-upsampled).
-# Their plan is made here and passed in as the kernels' F32Shape, whose
-# fields are these, in this order; the constants are the kernels' (kRZ,
-# kRun, kQuad, kPlanes, kMaxThreads).
+# fp32 K1, K2, K1-dx and K2-dx: f32conv::zconv_f32_kernel<CO>,
+# zconv_up_f32_kernel<CO>, zconv_dx_f32_kernel and zconv_dxup_f32_kernel in
+# csrc/zconv_f32.cu, register tiles of F32_RZ output z x CO output channels
+# a thread over a ring of F32_PLANES x planes (K2's z-upsampled, the dx
+# kernels' the masked cotangent). Their plan is made here and passed in as
+# the kernels' F32Shape, whose fields are these, in this order; the
+# constants are the kernels' (kRZ, kRun, kQuad, kPlanes, kMaxThreads,
+# kDxCo).
 F32_FIELDS = (
-    "B", "X", "Y", "Zin", "Z", "C", "Cout", "up", "xvec", "rz", "co",
-    "coutp", "nchunks", "ngz", "ty", "nyt", "zs", "ys", "plane", "wfloats",
-    "threads", "runs", "items", "rows", "grid", "xs", "smem_bytes")
+    "B", "X", "Y", "Zin", "Z", "C", "Cout", "up", "dx", "edges", "xvec",
+    "rz", "co", "coutp", "nchunks", "ngz", "ty", "nyt", "zs", "ys", "plane",
+    "wfloats", "threads", "runs", "items", "rows", "grid", "xs",
+    "smem_bytes")
 F32_RZ = 4
 F32_RUN = 4            # K2: small z a staging item
 F32_QUAD = 4           # K1: floats of a y row a staging item
 F32_PLANES = 3
 F32_MAX_THREADS = 512
+F32_DX_CO = 4          # K1-dx's and K2-dx's only channel tile
 F32_MIN_ROWS = 4       # rows a block walks at least, where there are enough
 SMEM_PER_SM = 233472   # H100: 228 KB of shared memory an SM
 
@@ -358,12 +369,38 @@ def f32_plan(B: int, X: int, Y: int, Zin: int, C: int, Cout: int, up: bool,
     return _f32_plan(B, X, Y, Zin, C, Cout, up, sms, smem_optin, xvec=xvec)
 
 
+def f32_dx_view(z: int, cg: int, c: int, up: bool):
+    """(Zs, Kc, N) of the view fp32 K1-dx (``up`` False) or K2-dx computes
+    on, given the cotangent's z and channels ``cg`` and dx's channels ``c``:
+    the plain view (z, cg) -> c, or K2-dx's small-z view, the cotangent's
+    (2 Zs, cg) as (Zs, 2 cg) -> c (the same bytes)."""
+    return (z // 2, 2 * cg, c) if up else (z, cg, c)
+
+
+def f32_dx_plan(B: int, X: int, Y: int, Z: int, Cg: int, C: int, up: bool,
+                sms: int, smem_optin: int, xvec: bool = True) -> dict:
+    """The split of an fp32 K1-dx (``up`` False) or K2-dx call over the
+    card: ``f32_plan``'s walk on ``f32_dx_view``'s view of the cotangent
+    (B, X, Y, Z, Cg) into dx (B, X, Y, Zs, C), with ``dx`` set (masked
+    staging, no bias or activation), ``edges`` for K2-dx (its centre-tap
+    edge terms, added by each block after its walk, in the shared memory
+    the walk frees) and ``co`` F32_DX_CO. ``xvec``:
+    the cotangent and the forward output both 16-byte aligned. Raises
+    ValueError for a shape whose block does not fit (the source note of
+    csrc/zconv_f32.cu gives the widest channels each takes)."""
+    zs, kc, n = f32_dx_view(Z, Cg, C, up)
+    return _f32_plan(B, X, Y, zs, kc, n, False, sms, smem_optin, xvec=xvec,
+                     dx=True, edges=up)
+
+
 def _f32_plan(B, X, Y, Zin, C, Cout, up, sms, smem_optin,
               co: Optional[int] = None, ty: Optional[int] = None,
-              xvec: bool = True) -> dict:
+              xvec: bool = True, dx: bool = False,
+              edges: bool = False) -> dict:
     """f32_plan with ``co`` and ``ty`` forced where given, for
-    tools/torch_zconv_probe.py to time the plans it did not choose."""
-    what = "K2" if up else "K1"
+    tools/torch_zconv_probe.py to time the plans it did not choose; ``dx``
+    and ``edges`` plan K1-dx and K2-dx on their view (f32_dx_plan)."""
+    what = ("K2-dx" if edges else "K1-dx") if dx else ("K2" if up else "K1")
     if min(B, X, Y, Zin, C, Cout) <= 0:
         raise ValueError(f"empty shape {(B, X, Y, Zin, C, Cout)}")
     Z = 2 * Zin if up else Zin
@@ -382,9 +419,10 @@ def _f32_plan(B, X, Y, Zin, C, Cout, up, sms, smem_optin,
         return t
 
     if co is None:
-        co = 4 if most_rows(4) >= 1 else 8
-    if co not in (4, 8):
-        raise ValueError(f"fp32 {what} kernel: co {co} is not 4 or 8")
+        co = F32_DX_CO if dx else 4 if most_rows(4) >= 1 else 8
+    if co not in ((F32_DX_CO,) if dx else (4, 8)):
+        raise ValueError(f"fp32 {what} kernel: co {co} is not 4 or 8 (dx "
+                         f"kernels: {F32_DX_CO})")
     t_max = most_rows(co)
     coutp = _round_up(Cout, co)
     if t_max < 1:
@@ -409,6 +447,7 @@ def _f32_plan(B, X, Y, Zin, C, Cout, up, sms, smem_optin,
     per_sm = max(1, min(SMEM_PER_SM // (nbytes + 1024), 2048 // threads))
     grid = max(1, min(per_sm * sms, rows // F32_MIN_ROWS))
     return dict(B=B, X=X, Y=Y, Zin=Zin, Z=Z, C=C, Cout=Cout, up=int(up),
+                dx=int(dx), edges=int(edges),
                 xvec=int(not up and xvec and Zin * C % F32_QUAD == 0),
                 rz=F32_RZ, co=co, coutp=coutp, nchunks=nchunks, ngz=ngz,
                 ty=ty, nyt=nyt, zs=zs, ys=ys, plane=(ty + 2) * ys,
@@ -437,6 +476,22 @@ def _launch_f32(x, w, bias32, out, slope, plan: dict):
             ctypes.byref(_F32Shape(**plan)), int(slope is not None),
             float(slope or 0.0), _stream(x))
     _raise_if(rc, "zconv_f32", "K2" if plan["up"] else "K1")
+
+
+def _launch_dx_f32(g, mask, slope, weight, dx, plan: dict):
+    """fp32 K1-dx or K2-dx (``plan["edges"]``) on ``plan`` (f32_dx_plan
+    of g's shape): the flipped, transposed kernel, or K2-dx's adjoint fold,
+    main and edges (folded on the card, a few small einsums)."""
+    if plan["edges"]:
+        w, wedge = up_fold_weights(weight, adjoint=True)
+    else:
+        w, wedge = _kkkcn(weight, adjoint=True), None
+    with torch.cuda.device(g.device):
+        rc = _library("zconv_f32").muvo_zconv3d_dx_f32(
+            g.data_ptr(), _ptr(mask), float(slope or 0.0), w.data_ptr(),
+            _ptr(wedge), dx.data_ptr(), ctypes.byref(_F32Shape(**plan)),
+            _stream(g))
+    _raise_if(rc, "zconv_f32", "K2-dx" if plan["edges"] else "K1-dx")
 
 
 def _dw_plain(xin, g, out, cout_c, slope, with_bias: bool):
@@ -609,12 +664,17 @@ def _dx(g, out, weight, slope, up: bool):
     if view is not None:
         _launch_tc(g, mask, slope, _tc_weights(weight, view, True), None, dx,
                    view, view.n, True, None, what)
-    else:
+    elif g.dtype == torch.float32:
+        _launch_dx_f32(g, mask, slope, weight, dx, f32_dx_plan(
+            b, X, Y, z, cg, c, up, *_f32_limits(g.device.index or 0),
+            xvec=all(t.data_ptr() % 16 == 0 for t in (g, mask)
+                     if t is not None)))
+    else:  # bf16 K1-dx past TC_MAX_CHANNELS
         w_adj = _kkkcn(weight, adjoint=True)
         with torch.cuda.device(g.device):
             rc = _library("zconv").muvo_zconv3d_dx(
                 g.data_ptr(), _ptr(mask), float(slope or 0.0),
-                w_adj.data_ptr(), dx.data_ptr(), b, X, Y, z, cg, c, int(up),
+                w_adj.data_ptr(), dx.data_ptr(), b, X, Y, z, cg, c, 0,
                 _DTYPES[g.dtype], _stream(g))
         _raise_if(rc, "zconv", what)
     _count(upzconv3d_dx if up else zconv3d_dx, g.dtype,

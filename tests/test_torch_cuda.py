@@ -498,7 +498,7 @@ def test_bf16_up_launches_the_tensor_core_kernel(dev):
     """The profile names zconv_tc_kernel<..., false> for bf16 K2 and
     zconv_tc_kernel<..., true> for bf16 K2-dx, and neither CUDA-core
     kernel; fp32 K2 runs zconv_up_f32_kernel (and not zconv_kernel<float,
-    true>), fp32 K2-dx keeps zconv_dxup_kernel<float>."""
+    true>), fp32 K2-dx zconv_dxup_f32_kernel."""
     x, w, b = _inputs(dev, (1, 6, 7, 16, 32), 16, torch.bfloat16)
     out = zconv.upzconv3d_leaky(x, w, b, 0.2)
     fwd = _kernel_names(lambda: zconv.upzconv3d_leaky(x, w, b, 0.2))
@@ -513,7 +513,8 @@ def test_bf16_up_launches_the_tensor_core_kernel(dev):
     dx = _kernel_names(lambda: zconv.upzconv3d_dx(out32, out32, w32, 0.2))
     assert any("zconv_up_f32_kernel" in k for k in fwd), fwd
     assert not any("zconv_kernel<float, true>" in k for k in fwd), fwd
-    assert any("zconv_dxup_kernel<float>" in k for k in dx), dx
+    assert any("zconv_dxup_f32_kernel" in k for k in dx), dx
+    assert not any("zconv_kernel<" in k for k in dx), dx
 
 
 # fp32 K2 runs f32conv::zconv_up_f32_kernel (csrc/zconv_f32.cu): 4 output z
@@ -573,6 +574,58 @@ def test_fp32_k1_kernel_matches_plain_and_repeats(dev, shape, cout, act):
     assert _rel(out, zconv.zconv3d_leaky_plain(x, w, bias, slope)) <= 1e-4
 
 
+# fp32 K1-dx and K2-dx run f32conv::zconv_dx_f32_kernel and
+# zconv_dxup_f32_kernel (csrc/zconv_f32.cu): fp32 K1's walk on the masked
+# cotangent, K2-dx on the small-z view with the adjoint fold's edge terms,
+# the plan from zconv.f32_dx_plan
+@pytest.mark.parametrize("kid", ["K1-dx", "K2-dx"])
+@pytest.mark.parametrize("shape,cout,act", [
+    ((3, 4, 33, 1, 8), 8, True),       # Z 1; K2: Zs 1, both edge terms
+    ((1, 4, 9, 2, 8), 8, True),        # Z / Zs 2
+    ((1, 3, 5, 3, 3), 5, True),        # odd channels: scalar loads
+    ((1, 3, 37, 33, 8), 4, True),      # Y ends mid tile, z not 4k
+    ((2, 40, 6, 7, 6), 12, True),      # z 7, runs across (b, y tile) ends
+    ((1, 4, 5, 16, 32), 16, False),    # no activation: no mask
+    ((1, 3, 4, 6, 40), 20, True),      # K2-dx: the fold's widest test
+    ((1, 96, 96, 32, 16), 16, True),   # conv2.conv2 at full width
+    ((1, 96, 96, 16, 32), 16, True),   # conv2.conv1
+    ((1, 192, 192, 64, 8), 8, True),   # conv3.conv2
+    ((1, 192, 192, 32, 16), 8, True),  # conv3.conv1
+])
+def test_fp32_dx_kernels_match_plain_and_repeat(dev, kid, shape, cout, act):
+    """fp32 K1-dx and K2-dx against their plain versions (1e-4 of max
+    |plain|), the launch counted and named, a second launch giving the same
+    bits."""
+    up = kid == "K2-dx"
+    forward, dx_k, dx_p, _, _ = BACKWARD["K2" if up else "K1"]
+    x, w, b = _inputs(dev, shape, cout, torch.float32)
+    slope = 0.2 if act else None
+    out = forward(x, w, b if act else None, slope)
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    n = dx_k.launches
+    dx = dx_k(g, out, w, slope)
+    assert dx_k.last_impl == (zconv.K2_DX_F32_IMPL if up
+                              else zconv.K1_DX_F32_IMPL)
+    again = dx_k(g, out, w, slope)
+    torch.cuda.synchronize()
+    assert dx_k.launches == n + 2
+    assert dx.shape == x.shape and dx.is_contiguous()
+    assert torch.equal(dx, again)
+    assert _rel(dx, dx_p(g, out, w, slope)) <= 1e-4
+
+
+def test_fp32_dx_refuses_what_its_plan_does_not_take(dev):
+    """A shape the plan refuses raises, with nothing launched and no other
+    kernel or plain version run in its place."""
+    x, w, _ = _inputs(dev, (1, 2, 2, 16, 32), 28, torch.float32)
+    g = torch.randn((1, 2, 2, 32, 28), device=dev)
+    n = zconv.upzconv3d_dx.launches
+    with pytest.raises(ValueError, match="fp32 K2-dx kernel"):
+        zconv.upzconv3d_dx(g, g, w, 0.2)
+    assert zconv.upzconv3d_dx.launches == n
+
+
 # bf16 K1 and K1-dx run zconv_tc_kernel with no edge terms on the view
 # zconv.k1_route picks: the pair view (z pairs folded into channels) where
 # z is even and C or Cout is below 16, else the plain view; a block covers
@@ -617,8 +670,8 @@ def test_bf16_k1_kernels_on_the_tensor_cores(dev, shape, cout, act, view):
 
 def test_k1_last_impl_names_the_route(dev):
     """Past 64 channels bf16 K1 and K1-dx take the CUDA-core kernel, as
-    k1_route says; fp32 K1-dx keeps it at every width, fp32 K1 runs
-    zconv_f32_kernel. All stay right."""
+    k1_route says; fp32 K1 runs zconv_f32_kernel and fp32 K1-dx
+    zconv_dx_f32_kernel at every width. All stay right."""
     x, w, b = _inputs(dev, (1, 3, 4, 6, 72), 8, torch.bfloat16)
     for t in (torch.bfloat16, torch.float32):
         x, w, b = x.to(t), w.to(t), b.to(t)
@@ -628,7 +681,9 @@ def test_k1_last_impl_names_the_route(dev):
         assert zconv.zconv3d_leaky.last_impl == (
             f"zconv_kernel<{name}>" if t == torch.bfloat16
             else zconv.K1_F32_IMPL)
-        assert zconv.zconv3d_dx.last_impl == f"zconv_kernel<{name}>"
+        assert zconv.zconv3d_dx.last_impl == (
+            f"zconv_kernel<{name}>" if t == torch.bfloat16
+            else zconv.K1_DX_F32_IMPL)
         assert _rel(out, zconv.zconv3d_leaky_plain(x, w, b, 0.2)) <= TOL[t]
         assert _rel(dx, zconv.zconv3d_dx_plain(out, out, w, 0.2)) <= TOL[t]
 
@@ -637,7 +692,7 @@ def test_bf16_k1_launches_the_tensor_core_kernel(dev):
     """The profile names zconv_tc_kernel<NP, KS, false, false> for bf16 K1
     and zconv_tc_kernel<NP, KS, false, true> for bf16 K1-dx (no edge
     terms) on both views, and no CUDA-core kernel; fp32 K1 runs
-    zconv_f32_kernel, fp32 K1-dx keeps zconv_kernel<float>."""
+    zconv_f32_kernel, fp32 K1-dx zconv_dx_f32_kernel."""
     for shape, cout in (((1, 6, 7, 32, 16), 16), ((1, 6, 7, 64, 8), 8)):
         x, w, b = _inputs(dev, shape, cout, torch.bfloat16)
         out = zconv.zconv3d_leaky(x, w, b, 0.2)
@@ -654,7 +709,9 @@ def test_bf16_k1_launches_the_tensor_core_kernel(dev):
         assert any("zconv_f32_kernel<" in k for k in fwd), fwd
         assert not any("zconv_kernel<" in k or "zconv_up_f32_kernel" in k
                        for k in fwd), fwd
-        assert any("zconv_kernel<float>" in k for k in dx), dx
+        assert any("zconv_dx_f32_kernel" in k for k in dx), dx
+        assert not any("zconv_kernel<" in k or "zconv_tc_kernel" in k
+                       for k in dx), dx
         assert not any("zconv_tc_kernel" in k for k in fwd + dx)
 
 

@@ -26,7 +26,8 @@ and 5) and at the card tests' shapes:
    (upzconv3d_leaky_plain) within 1e-5 of max |plain| (fp32, summation
    order only), at Zs 1-3, C 3, Cout 5, a ragged y tile and runs that end
    mid segment, on CO 4 and CO 8;
-5. ``last_impl``'s names: zconv_f32.cu's kernels for fp32 K1 and K2 only;
+5. ``last_impl``'s names: zconv_f32.cu's kernels for fp32 K1, K2, K1-dx
+   and K2-dx;
 6. the F32Shape struct and the kernel's constants match ops/zconv.py.
 """
 
@@ -342,8 +343,8 @@ def test_impl_names_the_new_kernel_for_fp32_k2_only():
     assert "zconv_f32.cu" in zconv.K2_F32_IMPL
     assert zconv._impl(None, f32, False, False) == zconv.K1_F32_IMPL
     assert zconv._impl(None, bf16, False, False) == "zconv_kernel<bf16>"
-    assert zconv._impl(None, f32, False, True) == "zconv_kernel<float>"
-    assert zconv._impl(None, f32, True, True) == "zconv_dxup_kernel<float>"
+    assert zconv._impl(None, f32, False, True) == zconv.K1_DX_F32_IMPL
+    assert zconv._impl(None, f32, True, True) == zconv.K2_DX_F32_IMPL
     view = zconv.TcView("small-z", 16, 32, 32)
     for dx in (False, True):
         assert zconv._impl(view, bf16, True, dx).startswith(

@@ -16,12 +16,13 @@ measures:
 2. kernels: torch.profiler over --steps whole train steps: the wall time,
    the device's busy time (the union of its kernels' intervals) and idle
    share, device time summed by kernel name and by group. The port's
-   kernels are named: zconv_kernel<T> (fp32; bf16 past 64 channels) and
-   zconv_tc_kernel<N, K, false, DX> (bf16, no edge terms) are K1 and K1-dx
-   (one kernel, launched on the flipped weights for dx),
-   zconv_up_f32_kernel<CO> (fp32) and zconv_tc_kernel<N, K, true, false>
-   (bf16) K2, zconv_dxup_kernel (fp32) and zconv_tc_kernel<N, K, true,
-   true> (bf16) K2-dx, dw_f32_kernel<false>
+   kernels are named: zconv_f32_kernel<CO> and zconv_dx_f32_kernel (fp32),
+   zconv_kernel<bf16> (past 64 channels) and zconv_tc_kernel<N, K, false,
+   DX> (bf16, no edge terms) are K1 and K1-dx (bf16: one kernel, launched
+   on the flipped weights for dx), zconv_up_f32_kernel<CO> (fp32) and
+   zconv_tc_kernel<N, K, true, false> (bf16) K2, zconv_dxup_f32_kernel
+   (fp32) and zconv_tc_kernel<N, K, true, true> (bf16) K2-dx,
+   dw_f32_kernel<false>
    (fp32) and dw_tc_kernel<N, MT, false> (bf16) K3, dw_f32_kernel<true>
    and dw_tc_kernel<N, MT, true> K3-up, sum_rows_kernel K3's second pass,
    flash_fwd_wgmma<D, true> (bf16) and flash_fwd_f32<D, true> K4,
@@ -65,12 +66,14 @@ GROUPS = (
     ("K6-dkv (flash_bwd_wgmma<D, false>, fp32 flash_bwd_kv_f32<D, false>)",
      r"flash_bwd_(wgmma|kv_f32)<\d+, false>"),
     ("q^ for K5 and K6-dkv (scale_q_kernel)", r"scale_q_kernel"),
-    ("K1 + K1-dx (zconv_kernel<T>, bf16 zconv_tc_kernel<N, K, false, DX>)",
-     r"zconv_kernel<[^>]*>|zconv_tc_kernel<\d+, \d+, false, "),
+    ("K1 + K1-dx (zconv_f32_kernel<CO>, zconv_dx_f32_kernel, bf16 "
+     "zconv_kernel<bf16>, zconv_tc_kernel<N, K, false, DX>)",
+     r"zconv_(dx_)?f32_kernel|zconv_kernel<[^>]*>|"
+     r"zconv_tc_kernel<\d+, \d+, false, "),
     ("K2 (zconv_up_f32_kernel<CO>, bf16 zconv_tc_kernel<N, K, true, "
      "false>)", r"zconv_up_f32_kernel|zconv_tc_kernel<\d+, \d+, true, false>"),
-    ("K2-dx (zconv_dxup_kernel, bf16 zconv_tc_kernel<N, K, true, true>)",
-     r"zconv_dxup_kernel|zconv_tc_kernel<\d+, \d+, true, true>"),
+    ("K2-dx (zconv_dxup_f32_kernel, bf16 zconv_tc_kernel<N, K, true, "
+     "true>)", r"zconv_dxup_f32_kernel|zconv_tc_kernel<\d+, \d+, true, true>"),
     ("K3 (dw_f32_kernel<false>, bf16 dw_tc_kernel<N, MT, false>)",
      r"dw_f32_kernel<false>|dw_tc_kernel<[^>]*false>"),
     ("K3-up (dw_f32_kernel<true>, bf16 dw_tc_kernel<N, MT, true>)",

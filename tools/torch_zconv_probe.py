@@ -3,11 +3,13 @@
 and K3-up (the split-K weight-gradient GEMM), bf16 K1 and K1-dx (the
 tensor-core kernel on the plain or the pair view), fp32 K2 and fp32 K1
 (the register-tiled CUDA-core kernel) and fp32 K3 and K3-up (the
-register-tiled weight gradients) on one GPU: right at the edges, then timed
-launch by launch at the voxel decoder's stages beside cuDNN.
+register-tiled weight gradients) and fp32 K1-dx and K2-dx (fp32 K1's
+register-tiled walk on the masked cotangent) on one GPU: right at the
+edges, then timed launch by launch at the voxel decoder's stages beside
+cuDNN.
 
     python3 tools/torch_zconv_probe.py [--iters 12]
-        [--parts k2,dw,k1,k2f32,k1f32,dw32] [--out PATH]
+        [--parts k2,dw,k1,k2f32,k1f32,dw32,dx32] [--out PATH]
 
 1. edges: K2 (upzconv3d_leaky) and K2-dx (upzconv3d_dx) in bf16 against
    their plain versions, relative to max |plain| (2e-2, as chip_smoke.py),
@@ -80,6 +82,24 @@ launch by launch at the voxel decoder's stages beside cuDNN.
    the bound (2 * 27 * C * Cout flops an output voxel over 67 TFLOP/s, or
    x, g, the forward output, dW and dbias over 3.35 TB/s, the larger),
    with zconv_dw.cu's ptxas lines (registers and spills).
+13. dx32 edges: fp32 K1-dx and K2-dx (zconv3d_dx, upzconv3d_dx on fp32
+   tensors) against their plain versions (1e-4 of max |plain|, TF32 off)
+   at Z and Zs 1, 2, 3 and 7, odd channels, a y tile that ends mid volume,
+   runs across (b, y tile) ends, no activation and K2-dx's widest test
+   shape, each with a second launch that must give the same bits and
+   ``last_impl`` naming f32conv::zconv_dx_f32_kernel or
+   zconv_dxup_f32_kernel.
+14. dx32 timing: fp32 K1-dx and K2-dx at batch 24 at their four stages,
+   --iters launches one event apart, through the wrapper (zconv.f32_dx_plan's
+   plan, the host's weight fold included) and on every other ty the plan
+   could take (CO 4 is the dx kernels' only tile), K2-dx's walk without
+   its edge terms (timing only: not a right result), the weight fold alone
+   (K2-dx: up_fold_weights(adjoint=True); K1-dx: the flipped, transposed
+   kernel), beside aten.convolution_backward's input gradient (TF32 off)
+   and the bound (2 * 27 * C * Cout flops an output voxel, K2-dx's
+   transpose 8 a dx value, over 67 TFLOP/s, or g, the forward output, the
+   weights and dx over 3.35 TB/s, the larger), with zconv_f32.cu's ptxas
+   lines (registers and spills).
 
 Prints one JSON object and writes it to --out. Needs CUDA; it has no CPU
 mode.
@@ -130,6 +150,26 @@ DW_EDGES = (("c3_zs3", "K3-up", (1, 5, 7, 3, 3), 5, True),
             ("zs2_y_mid_tile", "K3-up", (1, 9, 6, 2, 16), 8, True),
             ("xy_mid_tile", "K3", (1, 11, 13, 16, 16), 8, True),
             ("z1", "K3", (2, 9, 7, 1, 8), 8, True))
+# (label, kernel, forward input shape (B, X, Y, Z, C), Cout, activation);
+# K2-dx's z is the small z
+DX32_EDGES = (("z1", "K1-dx", (3, 4, 33, 1, 8), 8, True),
+              ("zs1", "K2-dx", (3, 4, 33, 1, 8), 8, True),
+              ("z2", "K1-dx", (1, 4, 9, 2, 8), 8, True),
+              ("zs2", "K2-dx", (1, 4, 9, 2, 8), 8, True),
+              ("z3_odd_c", "K1-dx", (1, 3, 5, 3, 3), 5, True),
+              ("zs3_odd_c", "K2-dx", (1, 3, 5, 3, 3), 5, True),
+              ("y_mid_tile_z33", "K1-dx", (1, 3, 37, 33, 8), 4, True),
+              ("y_mid_tile_zs16", "K2-dx", (1, 3, 37, 16, 16), 4, True),
+              ("z7_runs", "K1-dx", (2, 40, 6, 7, 6), 12, True),
+              ("zs7_runs", "K2-dx", (2, 40, 6, 7, 6), 12, True),
+              ("no_act", "K1-dx", (1, 4, 5, 16, 32), 16, False),
+              ("no_act", "K2-dx", (1, 4, 5, 16, 32), 16, False),
+              ("wide_c", "K2-dx", (1, 3, 4, 6, 40), 20, True))
+# (kernel, stage, input shape without batch, Cout)
+DX32_STAGES = (("K2-dx", "conv2.conv1", (96, 96, 16, 32), 16),
+               ("K1-dx", "conv2.conv2", (96, 96, 32, 16), 16),
+               ("K2-dx", "conv3.conv1", (192, 192, 32, 16), 8),
+               ("K1-dx", "conv3.conv2", (192, 192, 64, 8), 8))
 # (kernel, stage, input shape without batch, Cout)
 DW_STAGES = (("K3-up", "conv2.conv1", (96, 96, 16, 32), 16),
              ("K3", "conv2.conv2", (96, 96, 32, 16), 16),
@@ -642,13 +682,146 @@ def dw32_timed(dev, iters):
     return timed
 
 
+def dx32_fns(kid):
+    """(forward, dx kernel, dx plain version, the kernel's name)."""
+    from muvo_tpu_torch.ops import zconv
+
+    if kid == "K2-dx":
+        return (zconv.upzconv3d_leaky, zconv.upzconv3d_dx,
+                zconv.upzconv3d_dx_plain, zconv.K2_DX_F32_IMPL)
+    return (zconv.zconv3d_leaky, zconv.zconv3d_dx, zconv.zconv3d_dx_plain,
+            zconv.K1_DX_F32_IMPL)
+
+
+def dx32_edges(dev):
+    """Part 13: fp32 K1-dx / K2-dx against their plain versions at the
+    edges."""
+    from muvo_tpu_torch.ops import zconv
+
+    edges, failed = [], []
+    for label, kid, shape, cout, act in DX32_EDGES:
+        fwd, kern, plain, impl_want = dx32_fns(kid)
+        x, w, b = fp32_inputs(dev, shape, cout)
+        slope = 0.2 if act else None
+        out = fwd(x, w, b if act else None, slope)
+        g = torch.randn(out.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(1))
+        dx = kern(g, out, w, slope)
+        impl = kern.last_impl
+        same = torch.equal(dx, kern(g, out, w, slope))
+        want = plain(g, out, w, slope)
+        torch.cuda.synchronize()
+        plan = zconv.f32_dx_plan(*out.shape, shape[-1], kid == "K2-dx",
+                                 *zconv._f32_limits(dev.index or 0))
+        row = {"case": label, "kernel": kid, "shape": list(shape),
+               "cout": cout, "act": act, "impl": impl, "rel": rel(dx, want),
+               "repeat_equal": same,
+               "plan": {k: plan[k] for k in ("ty", "threads", "grid", "xs",
+                                             "xvec", "smem_bytes")}}
+        if not same:
+            failed.append(f"{kid} {label}: a second launch differs")
+        if impl != impl_want:
+            failed.append(f"{kid} {label}: ran {impl}")
+        if not row["rel"] <= FP32_TOL:
+            row["where"] = where(dx, want, dx.shape[3])
+            failed.append(f"{kid} {label}: {row['rel']}")
+        edges.append(row)
+        print(json.dumps(row), flush=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return edges
+
+
+def dx_walk_only(g, out, w, dx, plan):
+    """K2-dx's walk on the small-z view with the adjoint fold's main weights
+    and no edge terms: not K2-dx (its first and last small slices lack the
+    edge terms), timed for their share."""
+    from muvo_tpu_torch.ops import zconv
+
+    main, _ = zconv.up_fold_weights(w, adjoint=True)
+    with torch.cuda.device(g.device):
+        rc = zconv._library("zconv_f32").muvo_zconv3d_dx_f32(
+            g.data_ptr(), out.data_ptr(), 0.2, main.data_ptr(), None,
+            dx.data_ptr(), zconv.ctypes.byref(zconv._F32Shape(**plan)),
+            zconv._stream(g))
+    zconv._raise_if(rc, "zconv_f32", "K2-dx")
+
+
+def dx32_timed(dev, iters):
+    """Part 14: fp32 K1-dx / K2-dx per launch at batch 24 on the plan and
+    every other ty it could take, the weight fold alone, beside cuDNN and
+    the bound."""
+    from muvo_tpu_torch.models.layers import to_nchw
+    from muvo_tpu_torch.ops import _build, zconv
+
+    sms, optin = zconv._f32_limits(dev.index or 0)
+    timed = []
+    for kid, stage, shape, cout in DX32_STAGES:
+        up = kid == "K2-dx"
+        fwd, kern, _, _ = dx32_fns(kid)
+        x, w, b = fp32_inputs(dev, (BWD_BATCH, *shape), cout, seed=4)
+        out = fwd(x, w, b, 0.2)
+        g = torch.randn(out.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(5))
+        gm = zconv.leaky_mask(g, out, 0.2)
+        xin = zconv.upsample2x_z(x) if up else x
+        dx = torch.empty_like(x)
+        c = shape[-1]
+        flops = 2 * 27 * c * cout * out.numel() // cout + (
+            8 * dx.numel() if up else 0)
+        nbytes = 4 * (g.numel() + out.numel() + w.numel() + dx.numel())
+        bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        view = zconv.f32_dx_view(out.shape[3], cout, c, up)
+        plan = zconv.f32_dx_plan(*out.shape, c, up, sms, optin)
+        runs = {kid: (lambda: kern(g, out, w, 0.2), plan)}
+        for ty in range(1, 33):
+            try:
+                p = zconv._f32_plan(BWD_BATCH, *shape[:2], *view, False, sms,
+                                    optin, ty=ty, dx=True, edges=up)
+            except ValueError:  # past the most y rows a block takes
+                break
+            if ty != plan["ty"]:
+                runs[f"{kid}_ty{ty}"] = (lambda p=p: zconv._launch_dx_f32(
+                    g, out, 0.2, w, dx, p), p)
+        if up:  # the share of the edge terms: the walk without them
+            runs["K2-dx_no_edge_terms"] = (
+                lambda: dx_walk_only(g, out, w, dx, dict(plan, edges=0)),
+                plan)
+        runs[kid + "_weight_fold"] = (
+            (lambda: zconv.up_fold_weights(w, adjoint=True)) if up
+            else (lambda: zconv._kkkcn(w, adjoint=True)), None)
+        runs["cudnn_" + kid] = (
+            lambda: torch.ops.aten.convolution_backward(
+                to_nchw(gm), to_nchw(xin), w, None, **CONV,
+                output_mask=[True, False, False]), None)
+        for name, (fn, p) in runs.items():
+            ms = per_launch(fn, iters)
+            row = {"run": name, "stage": stage, "batch": BWD_BATCH,
+                   "input": [BWD_BATCH, *shape], "cout": cout, "ms": ms,
+                   "ms_median": ms_median(ms)}
+            if p is not None:
+                row["bound_ms"] = bound_ms
+                row["x_bound"] = row["ms_median"] / bound_ms
+                row["plan"] = {k: p[k] for k in ("ty", "threads", "grid",
+                                                 "xs", "smem_bytes")}
+            timed.append(row)
+            print(json.dumps(row), flush=True)
+        del x, w, b, out, g, gm, xin, dx, runs
+        torch.cuda.empty_cache()
+    ptxas = [ln.strip() for ln in _build.build_log("zconv_f32").splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    timed.append({"ptxas": ptxas})
+    print(json.dumps({"ptxas": ptxas}), flush=True)
+    return timed
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=12)
-    ap.add_argument("--parts", default="k2,dw,k1,k2f32,k1f32,dw32",
+    ap.add_argument("--parts", default="k2,dw,k1,k2f32,k1f32,dw32,dx32",
                     help="comma-separated: k2 (parts 1-2), dw (3-4), "
                          "k1 (5-6), k2f32 (7-8), k1f32 (9-10), "
-                         "dw32 (11-12)")
+                         "dw32 (11-12), dx32 (13-14)")
     ap.add_argument("--out", default=str(ROOT / "build"
                                          / "torch_zconv_probe.json"))
     args = ap.parse_args(argv)
@@ -674,6 +847,9 @@ def main(argv=None) -> int:
     if "dw32" in parts:
         result["dw32_edges"] = dw32_edges(dev)
         result["dw32_timed"] = dw32_timed(dev, args.iters)
+    if "dx32" in parts:
+        result["dx32_edges"] = dx32_edges(dev)
+        result["dx32_timed"] = dx32_timed(dev, args.iters)
     result["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
