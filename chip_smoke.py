@@ -45,8 +45,9 @@ exits nonzero (there is no CPU fallback):
    ``last_impl`` as the dispatch picks it (fp32: the register-tiled
    fp32::flash_bwd_kv_f32<D, true>). K6 in every case: each kernel
    named in ``last_impl`` as the dispatch picks it (bf16: the hopper
-   kernels, flash_bwd_dq_wgmma and flash_bwd_wgmma<D, false>), the same
-   bits on a second launch; in bf16 K6-dkv's dk and dv equal to K5's (one
+   kernels, flash_bwd_dq_wgmma and flash_bwd_wgmma<D, false>; fp32: the
+   register-tiled fp32::flash_bwd_q_f32<D> and flash_bwd_kv_f32<D,
+   false>), the same bits on a second launch; in bf16 K6-dkv's dk and dv equal to K5's (one
    kernel, the same products in the same order) and K6-dq's dq reported
    against K5's; in fp32 K6's outputs and K5's dk, dv equal to the plain
    version's.

@@ -35,8 +35,9 @@
 // 0.31 ms), so the exponentials bound it; K5 does 10 n^2 d bh flops, K6-dq
 // 6 and K6-dkv 8 (s and dp recomputed in both), each with one exponential
 // per score: the products bound them (0.63, 0.38 and 0.50 ms). In fp32 the
-// products run on the CUDA cores (67 TFLOP/s, 3.7 ms for K4): TF32 would
-// not hold the fp32 tolerance.
+// products run on the CUDA cores (67 TFLOP/s: 3.7 ms for K4, 5.5 for
+// K6-dq): TF32 would not hold the fp32 tolerance, nor the plain version's
+// bits that fp32 K5, K6-dq and K6-dkv keep.
 //
 // Designs. bf16 K4, K4-mb, K5, K6-dq and K6-dkv (namespace hopper) are
 // warp-specialised: one producer thread keeps tiles in flight by TMA into
@@ -61,10 +62,11 @@
 // (namespace fp32) hold register micro-tiles of S and O on the CUDA cores,
 // FMA-bound. fp32 K5 and K6-dkv are one key-major template there,
 // flash_bwd_kv_f32<D, FUSED>: register micro-tiles of S, dP, dK and dV (and
-// K5's dq share), each element one fmaf chain in the first design's order,
-// so dk and dv keep its bits. fp32 K6-dq keeps the first design: every
-// tile in shared memory, each product one pass of a scalar shared-memory
-// GEMM (fp32 FMAs) accumulating in shared memory.
+// K5's dq share), each element one fmaf chain in the plain version's order,
+// so dk and dv keep its bits. fp32 K6-dq, flash_bwd_q_f32<D>, is the same
+// micro-tiles with the loop roles swapped: q-major, the key tiles
+// streaming, dq in registers over all of them in the plain version's order
+// too.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
@@ -77,12 +79,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kTile = 64;      // rows of every q and key tile
-constexpr int kSS = kTile + 4;  // fp32 score tile stride
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
 template <>
@@ -94,187 +92,6 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 
 template <typename T>
 __host__ __device__ constexpr bool is_f32() { return std::is_same<T, float>::value; }
-
-// The first design (fp32 K6-dq). Strides of the staged tiles are odd,
-// since the scalar GEMM reads columns of (rows, d) tiles across threads.
-template <int D>
-__host__ __device__ constexpr int tile_stride() { return D + 1; }
-constexpr int kPStride = kTile + 1;  // p and ds tiles
-template <int D>
-__host__ __device__ constexpr int acc_stride() { return D + 4; }
-
-// C[64 x N] = (accumulate ? C : 0) + A[64 x K] B[K x N], C fp32 in shared
-// memory (row stride ldc), A and B staged fp32 tiles: A[m][k] at
-// a[m * lda + k] (a[k * lda + m] when A_T), B[k][n] at b[k * ldb + n]
-// (b[n * ldb + k] when B_NK, a (rows, d) tile used as its transpose). All
-// threads take part; the caller synchronises before and after. Each thread
-// holds rows 4 rg .. 4 rg + 3, columns cc + 16 j.
-template <typename T, int N, int K, bool A_T, bool B_NK>
-__device__ __forceinline__ void gemm(float* c, int ldc, const T* a, int lda,
-                                     const T* b, int ldb, bool accumulate) {
-  static_assert(is_f32<T>(), "bf16 runs the hopper kernels");
-  static_assert(N % 16 == 0, "tile widths are multiples of 16");
-  constexpr int NJ = N / 16;
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4, cc = tid & 15;
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = 4 * rg + i;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      acc[i][j] = accumulate ? c[m * ldc + cc + 16 * j] : 0.f;
-  }
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[4], bv[NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = 4 * rg + i;
-      av[i] = A_T ? a[k * lda + m] : a[m * lda + k];
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = cc + 16 * j;
-      bv[j] = B_NK ? b[n * ldb + k] : b[k * ldb + n];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) c[(4 * rg + i) * ldc + cc + 16 * j] = acc[i][j];
-}
-
-// rows row0 .. row0 + 63 of a (bh, n, D) tensor into a staged tile, zero
-// past n; SCALE multiplies by scale and rounds to T (q^)
-template <typename T, int D, bool SCALE>
-__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
-                                      int row0, int n, float scale) {
-  constexpr int TS = tile_stride<D>();
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i - r * D;
-    const int row = row0 + r;
-    float v = row < n ? to_float(src[(size_t)row * D + c]) : 0.f;
-    if (SCALE) v *= scale;
-    dst[r * TS + c] = from_float<T>(v);
-  }
-}
-
-// the scale as the Pallas kernels apply it: 1/sqrt(d) in q's type
-template <typename T>
-__device__ __forceinline__ float typed_scale(float scale) {
-  return to_float(from_float<T>(scale));
-}
-
-template <typename T, int D>
-struct BwdSmem {
-  static constexpr int TS = tile_stride<D>(), PS = kPStride, OS = acc_stride<D>();
-  static constexpr size_t tile = (sizeof(T) * kTile * TS + 15) & ~15;
-  static constexpr size_t ptile = (sizeof(T) * kTile * PS + 15) & ~15;
-  static constexpr size_t s_off = 0;  // scores, then p (and K5's dq tile)
-  static constexpr size_t dp_off = s_off + sizeof(float) * kTile * kSS;
-  static constexpr size_t acc1_off = dp_off + sizeof(float) * kTile * kSS;
-  static constexpr size_t acc2_off = acc1_off + sizeof(float) * kTile * OS;
-  static constexpr size_t row_off = acc2_off + sizeof(float) * kTile * OS;
-  static constexpr size_t q_off = row_off + sizeof(float) * 2 * kTile;
-  static constexpr size_t do_off = q_off + tile;
-  static constexpr size_t k_off = do_off + tile;
-  static constexpr size_t v_off = k_off + tile;
-  static constexpr size_t pc_off = v_off + tile;
-  static constexpr size_t ds_off = pc_off + ptile;
-  static constexpr size_t bytes = ds_off + ptile;
-};
-
-// The shared step of every backward kernel, for one (q tile, key tile)
-// pair already staged: S = q^ k^T, dP = dO v^T, then p = exp(S - lse)
-// (zero for masked keys and q rows past n) cast to T in Pc and
-// ds = p (dP - delta) cast to T in dSc.
-template <typename T, int D>
-__device__ __forceinline__ void scores_and_ds(unsigned char* smem, int q0,
-                                              int k0, int n, int seq_len) {
-  using L = BwdSmem<T, D>;
-  float* S = reinterpret_cast<float*>(smem + L::s_off);
-  float* dP = reinterpret_cast<float*>(smem + L::dp_off);
-  const float* lse_s = reinterpret_cast<const float*>(smem + L::row_off);
-  const float* delta_s = lse_s + kTile;
-  const T* Qs = reinterpret_cast<const T*>(smem + L::q_off);
-  const T* dOs = reinterpret_cast<const T*>(smem + L::do_off);
-  const T* Ks = reinterpret_cast<const T*>(smem + L::k_off);
-  const T* Vs = reinterpret_cast<const T*>(smem + L::v_off);
-  T* Pc = reinterpret_cast<T*>(smem + L::pc_off);
-  T* dSc = reinterpret_cast<T*>(smem + L::ds_off);
-  gemm<T, kTile, D, false, true>(S, kSS, Qs, L::TS, Ks, L::TS, false);
-  gemm<T, kTile, D, false, true>(dP, kSS, dOs, L::TS, Vs, L::TS, false);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
-    const int r = i >> 6, c = i & 63;
-    const bool valid = q0 + r < n && k0 + c < seq_len;
-    const float p = valid ? expf(S[r * kSS + c] - lse_s[r]) : 0.f;
-    const float ds = p * (dP[r * kSS + c] - delta_s[r]);
-    Pc[r * L::PS + c] = from_float<T>(p);
-    dSc[r * L::PS + c] = from_float<T>(ds);
-  }
-  __syncthreads();
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void stage_q_side(unsigned char* smem, const T* q,
-                                             const T* dout, const float* lse,
-                                             const float* delta, int q0, int n,
-                                             float scale) {
-  using L = BwdSmem<T, D>;
-  float* lse_s = reinterpret_cast<float*>(smem + L::row_off);
-  float* delta_s = lse_s + kTile;
-  stage<T, D, true>(reinterpret_cast<T*>(smem + L::q_off), q, q0, n,
-                    typed_scale<T>(scale));
-  stage<T, D, false>(reinterpret_cast<T*>(smem + L::do_off), dout, q0, n, 0.f);
-  if (threadIdx.x < kTile) {
-    const int row = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = row < n ? lse[row] : 0.f;
-    delta_s[threadIdx.x] = row < n ? delta[row] : 0.f;
-  }
-}
-
-// fp32 K6-dq: one block per (64-row q tile, bh), walking the key tiles.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int n, int seq_len, float scale) {
-  using L = BwdSmem<T, D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* dQ = reinterpret_cast<float*>(smem + L::acc1_off);
-  T* Ks = reinterpret_cast<T*>(smem + L::k_off);
-  T* Vs = reinterpret_cast<T*>(smem + L::v_off);
-  const T* dSc = reinterpret_cast<const T*>(smem + L::ds_off);
-
-  const int q0 = blockIdx.x * kTile;
-  const size_t bh = blockIdx.y;
-  const size_t base = bh * n * D;
-  const int tid = threadIdx.x;
-  stage_q_side<T, D>(smem, q + base, dout + base, lse + bh * n, delta + bh * n,
-                     q0, n, scale);
-  for (int k0 = 0; k0 < seq_len; k0 += kTile) {
-    __syncthreads();  // the previous key tile is consumed
-    stage<T, D, false>(Ks, k + base, k0, n, 0.f);
-    stage<T, D, false>(Vs, v + base, k0, n, 0.f);
-    __syncthreads();
-    scores_and_ds<T, D>(smem, q0, k0, n, seq_len);
-    gemm<T, D, kTile, false, false>(dQ, L::OS, dSc, L::PS, Ks, L::TS, k0 > 0);
-  }
-  __syncthreads();
-  for (int i = tid; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i - r * D;
-    if (q0 + r < n)
-      dq[base + (size_t)(q0 + r) * D + c] = from_float<T>(dQ[r * L::OS + c] * scale);
-  }
-}
 
 // K5's last pass: dq = (dq_acc * scale) in T
 template <typename T>
@@ -1328,9 +1145,8 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
 //      row's float4s on consecutive threads.
 // So each S, dP element is one fmaf chain over c from 0, and each dk, dv
 // element one over the q rows in ascending order, carried across tiles:
-// the order of the first design, which cuBLAS's fp32 products in
-// flash_bwd_plain keep too from bh 2 on (chip_smoke.py's check_k6 holds dk
-// and dv to them bit for bit). No sum over q is split; the 81 x 48 blocks
+// the order that cuBLAS's fp32 products in flash_bwd_plain keep from bh 2
+// on (chip_smoke.py's check_k6 holds dk and dv to them bit for bit). No sum over q is split; the 81 x 48 blocks
 // of the LARGE shape fill the card without it. q^ and dO rows have stride
 // D + 4 floats, so A's float4 reads of 4 consecutive rows lie in distinct
 // banks; k^T, v^T, P and dS rows have stride 68, so a warp's reads in A, B
@@ -1611,15 +1427,250 @@ cudaError_t bwd_kv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-}  // namespace fp32
+// ---------------------------------------------------------------------------
+// fp32 K6-dq on the CUDA cores: q-major, in the plain version's summation
+// order. A block of 256 threads takes R = kDqRows q rows of one bh and
+// walks the 64-key tiles in ascending order up to the last one that holds
+// a key below seq_len. q^ = q * scale and dO (rows of stride D + 4), lse
+// and delta are staged once, zero past n; k^T and v^T (D x 68) are
+// double-buffered, the next tile's float4s loaded into registers while
+// this one is in use. Per key tile:
+//   A. S = q^ k^T and dP = dO v^T: an R/16 q x 4 key micro-tile of each a
+//      thread (rows ra + 4 i, keys kb + j: K5's map, R/4 rows a warp pair),
+//      each element one fmaf chain over c ascending from 0; then in
+//      registers p = expf(S - lse) (0 at keys at or past seq_len and rows
+//      past n) and ds = p (dP - delta), stored as float4 rows of dS
+//      [q][key], the one exchange the register tiling needs;
+//   C. dq += dS k over the tile's 64 keys: R/16 q rows x D/16 columns a
+//      thread (rows 4 kg + i % 4 + 64 (i / 4), columns cg + 16 m), from
+//      float4s of dS rows and k^T rows, a float4's 4 keys in order; dq
+//      stays in registers over all key tiles.
+// So each S, dP element is one fmaf chain over c from 0, and each dq
+// element one over the keys ascending from 0, carried across tiles: the
+// order of cuBLAS's fp32 products in flash_bwd_plain from bh 2 on
+// (chip_smoke.py's check_k6 holds dq to it bit for bit). dq * scale is
+// stored once at the end: no atomics and no workspace, so a second launch
+// gives the same bits. A warp's 32 staging items of k and v are 16 keys x
+// 2 adjacent float4s: each key's 32 bytes are one sector of the load, and
+// the transposed stores fall in 32 distinct banks. Two block barriers a
+// key tile: dS written, and the next tile's k^T, v^T stored.
+// The products bound it: 6 n^2 d bh flops at 67 TFLOP/s, 5.545 ms at bh
+// 48, n 5184, d 48.
+// ---------------------------------------------------------------------------
+// fp32 K6-dq's plan: q rows a block, and the blocks an SM that
+// __launch_bounds__ asks for. 128 rows at one block ran fastest at every
+// d on an H100 (tools/torch_flash_probe.py --parts dq_plans: 64 rows at
+// one or two blocks an SM, 1.0-1.3x its time; at two, ptxas spills d 48)
+constexpr int kDqRows = 128, kDqBlocks = 1;
 
-template <typename K>
-cudaError_t prepare(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+template <int D, int R>
+struct DqLayout {  // in floats
+  static constexpr int QS = D + 4;              // q^ and dO rows
+  static constexpr int kt = 0;                  // 2 x k^T: D x kBS
+  static constexpr int vt = kt + 2 * D * kBS;   // 2 x v^T: D x kBS
+  static constexpr int q = vt + 2 * D * kBS;    // q^: R x QS
+  static constexpr int dout = q + R * QS;       // dO: R x QS
+  static constexpr int lse = dout + R * QS;     // R
+  static constexpr int delta = lse + R;         // R
+  static constexpr int ds = delta + R;          // dS: R x kBS
+  static constexpr size_t bytes = sizeof(float) * (ds + R * kBS);
+};
+
+// the (key, float4) of a 64-key tile that k and v staging item idx covers:
+// a warp's 32 items are 16 keys x 2 adjacent float4s
+__device__ __forceinline__ int2 kv_item(int idx) {
+  const int lane = idx & 31, wi = idx >> 5;
+  return make_int2(16 * (wi & 3) + (lane & 15), 2 * (wi >> 2) + (lane >> 4));
 }
 
-inline dim3 grid_of(int bh, int n) { return dim3((n + kTile - 1) / kTile, bh); }
+template <int D>
+__global__ void __launch_bounds__(kThreads, kDqBlocks)
+    flash_bwd_q_f32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int n, int seq_len, float scale) {
+  constexpr int R = kDqRows;
+  using L = DqLayout<D, R>;
+  constexpr int F4 = D / 4;                      // float4s a row
+  constexpr int PER = kBwdKeys * F4 / kThreads;  // k, v float4s a thread stages
+  constexpr int QPER = R * F4 / kThreads;        // q, dO float4s a thread stages
+  constexpr int RT = R / 16;                     // A's and C's q rows a thread
+  constexpr int NC = D / 16;                     // C's columns a thread
+  static_assert(kBwdKeys == 64 && F4 % 2 == 0 && R % 64 == 0, "the maps");
+  static_assert(R * F4 % kThreads == 0, "whole float4s a thread");
+  static_assert(L::bytes <= kSmemOptin, "a block's shared memory");
+  extern __shared__ __align__(16) float sm[];
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * R, bh = blockIdx.y;
+  const size_t base = (size_t)bh * n * D;
+  float* Q = sm + L::q;
+  float* O = sm + L::dout;
+  float* dS = sm + L::ds;
+#pragma unroll
+  for (int j = 0; j < QPER; ++j) {
+    const int idx = tid + kThreads * j, row = idx / F4, c4 = idx - row * F4;
+    const int r = q0 + row;
+    const float4 qx = r < n ? ld4(q + base + (size_t)r * D + 4 * c4) : zero;
+    *reinterpret_cast<float4*>(Q + row * L::QS + 4 * c4) =
+        make_float4(qx.x * scale, qx.y * scale, qx.z * scale, qx.w * scale);
+    *reinterpret_cast<float4*>(O + row * L::QS + 4 * c4) =
+        r < n ? ld4(dout + base + (size_t)r * D + 4 * c4) : zero;
+  }
+  for (int i = tid; i < 2 * R; i += kThreads) {  // lse, then delta
+    const int r = q0 + i % R;
+    sm[L::lse + i] = r < n ? (i < R ? lse : delta)[(size_t)bh * n + r] : 0.f;
+  }
+  float4 kr[PER], vr[PER];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int2 it = kv_item(tid + kThreads * j);
+      const int key = k0 + it.x;
+      kr[j] = key < n ? ld4(k + base + (size_t)key * D + 4 * it.y) : zero;
+      vr[j] = key < n ? ld4(v + base + (size_t)key * D + 4 * it.y) : zero;
+    }
+  };
+  auto store = [&](int buf) {
+    float* Kt = sm + L::kt + buf * D * kBS;
+    float* Vt = sm + L::vt + buf * D * kBS;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int2 it = kv_item(tid + kThreads * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        Kt[(4 * it.y + e) * kBS + it.x] = lane4(kr[j], e);
+        Vt[(4 * it.y + e) * kBS + it.x] = lane4(vr[j], e);
+      }
+    }
+  };
+  load(0);
+  store(0);
+  __syncthreads();
+
+  // A: rows ra + 4 i, keys kb + j; C: rows 4 kg + i % 4 + 64 (i / 4),
+  // columns cg + 16 m
+  const int w = tid >> 5, lane = tid & 31;
+  const int ra = (R / 4) * (w >> 1) + (lane >> 3);
+  const int kb = 32 * (w & 1) + 4 * (lane & 7);
+  const int kg = tid >> 4, cg = tid & 15;
+  const float* lse_s = sm + L::lse;
+  const float* delta_s = sm + L::delta;
+  float acc[RT][NC];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int m = 0; m < NC; ++m) acc[i][m] = 0.f;
+  const int tiles = (seq_len + kBwdKeys - 1) / kBwdKeys;
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1, k0 = t * kBwdKeys;
+    if (t + 1 < tiles) load(k0 + kBwdKeys);
+    const float* Kt = sm + L::kt + buf * D * kBS;
+    const float* Vt = sm + L::vt + buf * D * kBS;
+    float s[RT][4], dp[RT][4];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int c4 = 0; c4 < F4; ++c4) {
+      float4 a[RT], b[4];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) a[i] = ld4(Q + (ra + 4 * i) * L::QS + 4 * c4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) b[e] = ld4(Kt + (4 * c4 + e) * kBS + kb);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            s[i][j] = fmaf(lane4(a[i], e), lane4(b[e], j), s[i][j]);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) a[i] = ld4(O + (ra + 4 * i) * L::QS + 4 * c4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) b[e] = ld4(Vt + (4 * c4 + e) * kBS + kb);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            dp[i][j] = fmaf(lane4(a[i], e), lane4(b[e], j), dp[i][j]);
+    }
+    bool key_live[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) key_live[j] = k0 + kb + j < seq_len;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = ra + 4 * i;
+      const bool row_live = q0 + r < n;
+      const float l = lse_s[r], dl = delta_s[r];
+      float dr[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = row_live && key_live[j] ? expf(s[i][j] - l) : 0.f;
+        dr[j] = p * (dp[i][j] - dl);
+      }
+      *reinterpret_cast<float4*>(dS + r * kBS + kb) =
+          make_float4(dr[0], dr[1], dr[2], dr[3]);
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int kc = 0; kc < kBwdKeys; kc += 4) {
+      float4 a[RT], b[NC];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+        a[i] = ld4(dS + (4 * kg + i % 4 + 64 * (i / 4)) * kBS + kc);
+#pragma unroll
+      for (int m = 0; m < NC; ++m) b[m] = ld4(Kt + (cg + 16 * m) * kBS + kc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int m = 0; m < NC; ++m)
+            acc[i][m] = fmaf(lane4(a[i], e), lane4(b[m], e), acc[i][m]);
+    }
+    if (t + 1 < tiles) store(buf ^ 1);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int row = q0 + 4 * kg + i % 4 + 64 * (i / 4);
+    if (row < n) {
+#pragma unroll
+      for (int m = 0; m < NC; ++m)
+        dq[base + (size_t)row * D + cg + 16 * m] = acc[i][m] * scale;
+    }
+  }
+}
+
+template <int D>
+cudaError_t bwd_dq(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int bh, int n, int seq_len, float scale,
+                   cudaStream_t st) {
+  for (const void* p : {q, k, v, dout})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  constexpr int R = kDqRows;
+  constexpr size_t bytes = DqLayout<D, R>::bytes;
+  auto kernel = flash_bwd_q_f32<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess)  // room for kDqBlocks blocks an SM
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((n + R - 1) / R, bh), kThreads, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), n, seq_len, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace fp32
 
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
@@ -1646,26 +1697,18 @@ cudaError_t bwd_kv(const void* q, const void* k, const void* v,
                                        dv, nullptr, bh, n, seq_len, scale, st);
 }
 
-// K6-dq: bf16 flash_bwd_dq_wgmma<D>, fp32 the first design
+// K6-dq: bf16 flash_bwd_dq_wgmma<D>, fp32 fp32::flash_bwd_q_f32<D>
 template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, int bh, int n, int seq_len, float scale,
                    cudaStream_t st) {
-  if constexpr (!is_f32<T>()) {
+  if constexpr (is_f32<T>())
+    return fp32::bwd_dq<D>(q, k, v, dout, lse, delta, dq, bh, n, seq_len,
+                           scale, st);
+  else
     return hopper::bwd_dq<D>(q, k, v, dout, lse, delta, dq, bh, n, seq_len,
                              scale, st);
-  } else {
-    const size_t bytes = BwdSmem<float, D>::bytes;
-    auto kernel = flash_bwd_dq_kernel<float, D>;
-    cudaError_t err = prepare(kernel, bytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid_of(bh, n), kThreads, bytes, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), n, seq_len, scale);
-    return cudaGetLastError();
-  }
 }
 
 // K5: zero the dq workspace, the fused kernel (fp32:

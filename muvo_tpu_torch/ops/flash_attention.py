@@ -39,8 +39,11 @@ so are fp32 K5 and K6-dkv, one key-major template,
 fp32::flash_bwd_kv_f32<D, FUSED>: 64 keys a block, dk and dv in registers,
 each element one fmaf chain over the q rows in ascending order (the plain
 version's order: their bits equal flash_bwd_plain's on the card), K5's dq
-share added by float4 atomics. fp32 K6-dq keeps the first, shared-memory
-design. The products bound the backward kernels, the exponentials bound
+share added by float4 atomics; fp32 K6-dq is fp32::flash_bwd_q_f32<D>, the
+same micro-tiles q-major (64 or 128 q rows a block, the key tiles
+streaming), dq in registers over all key tiles in the plain version's
+order, so its bits equal flash_bwd_plain's dq. The products bound the
+backward kernels, the exponentials bound
 bf16 K4; the source gives the numbers. muvo_tpu's
 _FUSED_DQ_VMEM_BUDGET limits the TPU's VMEM and has no counterpart: K5's dq workspace lies in
 device memory, so K5 serves every length, and ``split`` is the port's
@@ -123,7 +126,7 @@ _KERNELS = {
     "K5": {torch.bfloat16: "hopper::flash_bwd_wgmma<{d}, true>",
            torch.float32: "fp32::flash_bwd_kv_f32<{d}, true>"},
     "K6-dq": {torch.bfloat16: "hopper::flash_bwd_dq_wgmma<{d}>",
-              torch.float32: "flash_bwd_dq_kernel<float, {d}>"},
+              torch.float32: "fp32::flash_bwd_q_f32<{d}>"},
     "K6-dkv": {torch.bfloat16: "hopper::flash_bwd_wgmma<{d}, false>",
                torch.float32: "fp32::flash_bwd_kv_f32<{d}, false>"},
 }

@@ -238,7 +238,7 @@ def test_flash_kernels_match_plain(dev, d, dtype, bh, n, seq_len):
     dq work changes nothing of them); in fp32 K6-dkv's and K5's dk and dv
     equal to each other and to the plain version's bit for bit (one
     template, fp32::flash_bwd_kv_f32, in the plain version's summation
-    order)."""
+    order), and so is K6-dq's dq (fp32::flash_bwd_q_f32, the same order)."""
     q, k, v, do = _qkv(dev, bh, n, d, dtype, count=4)
     key = str(dtype).removeprefix("torch.")
     wrappers = (fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
@@ -269,12 +269,12 @@ def test_flash_kernels_match_plain(dev, d, dtype, bh, n, seq_len):
         ref = want
         if bh == 1:
             # cuBLAS sums a single batch's products in another order than a
-            # batch of two or more (the first design's kernel differed from
-            # it there too), so at bh 1 the plain version runs on the batch
-            # doubled
+            # batch of two or more, which the kernels keep, so at bh 1 the
+            # plain version runs on the batch doubled
             ref = [w[:1] for w in fa.flash_bwd_plain(
                 *(torch.cat([t, t]) for t in (q, k, v, o, lse, do)), seq_len)]
         assert all(torch.equal(g, w) for g, w in zip(fused[1:], ref[1:]))
+        assert torch.equal(split[0], ref[0])
 
 
 @pytest.mark.parametrize("d", [32, 48])
@@ -361,11 +361,17 @@ def test_bf16_k5_repeats_without_a_race(dev):
         assert _norm_rel(dq, want[0]) <= TOL[torch.bfloat16]
 
 
+# (bh, n, seq_len) of the fp32 K6 cases: a ragged q tail; seq_len just
+# past a 64-key tile; seq_len on a key-tile edge; n a multiple of every
+# block's q rows (64 and 128)
+FP32_K6_CASES = [(3, 300, None), (2, 257, 129), (2, 257, 128), (2, 256, None)]
+
+
 @pytest.mark.parametrize("d", [32, 48, 64])
-@pytest.mark.parametrize("bh,n,seq_len", [(3, 300, None), (2, 257, 129)])
-def test_fp32_k6_keeps_the_first_design(dev, d, bh, n, seq_len):
-    """fp32 K6-dq keeps the first, shared-memory design; fp32 K5 and
-    K6-dkv run the register-tiled fp32::flash_bwd_kv_f32. All equal the
+@pytest.mark.parametrize("bh,n,seq_len", FP32_K6_CASES)
+def test_fp32_k6_runs_the_register_tiled_kernels(dev, d, bh, n, seq_len):
+    """fp32 K6-dq runs the q-major register-tiled fp32::flash_bwd_q_f32,
+    fp32 K5 and K6-dkv the key-major fp32::flash_bwd_kv_f32. All equal the
     plain version bit for bit (K5's dq, summed by atomics, aside)."""
     q, k, v, do = _qkv(dev, bh, n, d, torch.float32, count=4)
     o, lse = fa.flash_fwd(q, k, v, seq_len)
@@ -373,7 +379,7 @@ def test_fp32_k6_keeps_the_first_design(dev, d, bh, n, seq_len):
            *fa.flash_bwd_dkv(q, k, v, o, lse, do, seq_len))
     fused = fa.flash_bwd(q, k, v, o, lse, do, seq_len)
     torch.cuda.synchronize()
-    assert fa.flash_bwd_dq.last_impl == f"flash_bwd_dq_kernel<float, {d}>"
+    assert fa.flash_bwd_dq.last_impl == f"fp32::flash_bwd_q_f32<{d}>"
     assert fa.flash_bwd_dkv.last_impl == f"fp32::flash_bwd_kv_f32<{d}, false>"
     assert fa.flash_bwd.last_impl == f"fp32::flash_bwd_kv_f32<{d}, true>"
     want = fa.flash_bwd_plain(q, k, v, o, lse, do, seq_len)
@@ -381,24 +387,39 @@ def test_fp32_k6_keeps_the_first_design(dev, d, bh, n, seq_len):
     assert all(torch.equal(g, w) for g, w in zip(fused[1:], want[1:]))
 
 
+@pytest.mark.parametrize("d", [32, 48, 64])
+def test_fp32_k6_dq_repeats_bit_for_bit(dev, d):
+    """Three launches of fp32 K6-dq at the LARGE step's n (81 blocks of 64
+    q rows or 41 of 128 a head, 79 key tiles at seq_len 5000) give the same
+    bits, each counted once, and equal the plain version's dq."""
+    q, k, v, do = _qkv(dev, 4, 5184, d, torch.float32, count=4)
+    o, lse = fa.flash_fwd(q, k, v, 5000)
+    n0 = fa.flash_bwd_dq.launches
+    runs = [fa.flash_bwd_dq(q, k, v, o, lse, do, 5000) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq.launches - n0 == 3
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, 5000)[0]
+    assert torch.equal(runs[0], want)
+
+
 def test_k6_profile_names_the_kernels(dev):
     """The profiler sees flash_bwd_dq_wgmma and flash_bwd_wgmma<48, false>
-    for bf16 K6 (and no kernel of the first design), the first design's
-    flash_bwd_dq_kernel and flash_bwd_kv_f32<48, false> for fp32."""
+    for bf16 K6 (and no CUDA-core kernel), flash_bwd_q_f32<48> and
+    flash_bwd_kv_f32<48, false> for fp32 (and no wgmma kernel)."""
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do = _qkv(dev, 2, 300, 48, dtype, count=4)
         o, lse = fa.flash_fwd(q, k, v)
         names = _kernel_names(lambda: fa.flash_bwd(q, k, v, o, lse, do,
                                                    split=True))
-        first = [k for k in names
-                 if "flash_bwd_dq_kernel" in k or "flash_bwd_kv_f32" in k]
+        cores = [k for k in names
+                 if "flash_bwd_q_f32" in k or "flash_bwd_kv_f32" in k]
         if dtype == torch.bfloat16:
             assert any("flash_bwd_dq_wgmma<48>" in k for k in names), names
             assert any("flash_bwd_wgmma<48, false>" in k for k in names), names
-            assert not first, names
+            assert not cores, names
         else:
-            assert any("flash_bwd_dq_kernel<float, 48>" in k
-                       for k in names), names
+            assert any("flash_bwd_q_f32<48>" in k for k in names), names
             assert any("flash_bwd_kv_f32<48, false>" in k
                        for k in names), names
             assert not any("wgmma" in k for k in names), names

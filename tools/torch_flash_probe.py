@@ -27,18 +27,28 @@ attention.
    kernel name (the delta reduction's copies, product and reduce, the
    workspace memset, scale_q_kernel, flash_bwd_wgmma<D, DQ> or
    flash_bwd_kv_f32<D, true>, flash_dq_flush_kernel), and their sum.
+4. dq_plans (not in the default --parts): fp32 K6-dq's kernel,
+   fp32::flash_bwd_q_f32<D>, under each plan of DQ_PLANS (q rows a
+   block, blocks an SM for __launch_bounds__): flash_attention.cu with
+   kDqRows and kDqBlocks set to the plan, built by nvcc as the port's
+   build does into a library of its own, launched through its
+   muvo_flash_bwd_dq at bh 48, n 5184, d 32, 48 and 64, the plans in
+   turns (--iters launches each, twice), every plan's dq equal to the
+   port's bit for bit, with each plan's ptxas registers and spills
+   (reported: only the source's own instantiations must not spill).
 
     python3 tools/torch_flash_probe.py --parts breakdown [--reps 5]
 
 runs one part alone (--parts takes a comma-separated list of edges,
-timed, breakdown). The result also holds flash_attention.cu's ptxas lines
-(registers and spills a kernel, any warning, and the note ptxas gives
-where it serializes a kernel's wgmma for want of registers, C7512), and
-under "ptxas_bwd_kv_f32" the registers and spill bytes of each
-fp32::flash_bwd_kv_f32 instantiation. Prints one JSON object and writes
-it to --out; exits 1 if an edge case failed or a flash_bwd_kv_f32
-instantiation spills (listed under "failed"). Needs CUDA; it has no CPU
-mode.
+timed, breakdown, dq_plans). The result also holds flash_attention.cu's
+ptxas lines (registers and spills a kernel, any warning, and the note
+ptxas gives where it serializes a kernel's wgmma for want of registers,
+C7512), and under "ptxas_bwd_kv_f32" and "ptxas_bwd_q_f32" the registers
+and spill bytes of each fp32::flash_bwd_kv_f32 and fp32::flash_bwd_q_f32
+instantiation. Prints one JSON object and writes it to --out; exits 1 if
+an edge case failed, a plan's dq differs from the port's, or an
+instantiation of either fp32 backward kernel in the source spills (listed
+under "failed"). Needs CUDA; it has no CPU mode.
 """
 
 import argparse
@@ -64,6 +74,9 @@ N = 5184
 TIMED = ((torch.bfloat16, 48, 48), (torch.bfloat16, 48, 32),
          (torch.float32, 48, 48), (torch.float32, 48, 32),
          (torch.float32, 8, 48))
+# fp32 K6-dq plans (q rows a block, blocks an SM); the source's kDqRows
+# and kDqBlocks are one of them
+DQ_PLANS = ((64, 1), (64, 2), (128, 1))
 BREAKDOWN = ((torch.bfloat16, 48, ("K5", "K6-dkv")),
              (torch.bfloat16, 32, ("K5", "K6-dkv")),
              (torch.bfloat16, 64, ("K5", "K6-dkv")),
@@ -135,6 +148,45 @@ def ptxas_entries(log, name):
         if m:
             cur["registers"] = int(m.group(1))
     return out
+
+
+def build_dq_plans(out_dir):
+    """{plan: (ctypes library, ptxas entries of flash_bwd_q_f32)}: one
+    library of flash_attention.cu for each plan of DQ_PLANS, kDqRows and
+    kDqBlocks set to it, all built at once."""
+    import ctypes
+
+    from muvo_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    pattern = r"(constexpr int kDqRows = )\d+(, kDqBlocks = )\d+(;)"
+    if len(re.findall(pattern, src)) != 1:
+        raise RuntimeError("flash_attention.cu: kDqRows not found")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for rows, blocks in DQ_PLANS:
+        stem = out_dir / f"flash_attention_r{rows}_b{blocks}"
+        stem.with_suffix(".cu").write_text(
+            re.sub(pattern, rf"\g<1>{rows}\g<2>{blocks}\g<3>", src))
+        log = open(stem.with_suffix(".log"), "w")
+        jobs[(rows, blocks)] = (stem, log, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", str(stem.with_suffix(".so")), str(stem.with_suffix(".cu"))],
+            stdout=log, stderr=subprocess.STDOUT))
+    libs = {}
+    for plan, (stem, log, proc) in jobs.items():
+        rc = proc.wait()
+        log.close()
+        text = stem.with_suffix(".log").read_text()
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed for plan {plan}:\n{text}")
+        lib = ctypes.CDLL(str(stem.with_suffix(".so")))
+        lib.muvo_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p]
+        lib.muvo_flash_bwd_dq.restype = ctypes.c_int
+        libs[plan] = (lib, ptxas_entries(text, "flash_bwd_q_f32"))
+    return libs
 
 
 def inputs(dev, bh, n, d, dtype, seed=0):
@@ -224,6 +276,40 @@ def main(argv=None) -> int:
                 "ms_median": sorted(ms)[len(ms) // 2]})
         del q, k, v, do, o, lse, q4, k4, v4, runs
         torch.cuda.empty_cache()
+    plans, plan_ptxas = [], {}
+    if "dq_plans" in parts:
+        libs = build_dq_plans(Path(args.out).parent / "dq_plans")
+        # reported, not failed: a plan that spills is one the source
+        # does not take
+        plan_ptxas = {f"rows {r}, blocks {b}": entries
+                      for (r, b), (_, entries) in libs.items()}
+        for d in (48, 32, 64):
+            q, k, v, do = inputs(dev, 48, N, d, torch.float32)
+            o, lse = fa.flash_fwd(q, k, v)
+            want = fa.flash_bwd_dq(q, k, v, o, lse, do)
+            _, _, (delta, head, tail) = fa._backward_args(q, k, v, o, lse,
+                                                          do, None)
+            ms = defaultdict(list)
+            for _ in range(2):  # the plans in turns
+                for plan, (lib, _) in libs.items():
+                    dq = torch.empty_like(q)
+
+                    def launch():
+                        rc = lib.muvo_flash_bwd_dq(*head, dq.data_ptr(),
+                                                   *tail)
+                        if rc:
+                            raise RuntimeError(f"plan {plan}: error {rc}")
+
+                    ms[plan] += per_launch(launch, args.iters)
+                    torch.cuda.synchronize()
+                    if not torch.equal(dq, want):
+                        failed.append(f"plan {plan} d {d}: dq differs")
+            for (rows, blocks), t in ms.items():
+                plans.append({"rows": rows, "blocks": blocks, "bh": 48,
+                              "n": N, "d": d, "ms": t,
+                              "ms_median": sorted(t)[len(t) // 2]})
+            del q, k, v, do, o, lse, want, delta, head
+            torch.cuda.empty_cache()
     launches = []
     for dtype, d, kids in (BREAKDOWN if "breakdown" in parts else ()):
         q, k, v, do = inputs(dev, 48, N, d, dtype)
@@ -243,18 +329,19 @@ def main(argv=None) -> int:
                          timeout=60).stdout.strip().splitlines()[0]
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "edges": edges, "timed": timed, "breakdown": launches,
+              "dq_plans": plans, "ptxas_dq_plans": plan_ptxas,
               "failed": failed}
     log = build_log("flash_attention")
     result["ptxas"] = [ln.strip() for ln in log.splitlines()
                        if "registers" in ln or "spill" in ln
                        or "Compiling entry" in ln or "warning" in ln
                        or "Performance Loss" in ln]
-    result["ptxas_bwd_kv_f32"] = ptxas_entries(log, "flash_bwd_kv_f32")
-    spilled = [e for e in result["ptxas_bwd_kv_f32"]
-               if e["spill_stores"] or e["spill_loads"]]
-    if len(result["ptxas_bwd_kv_f32"]) != 6 or spilled:
-        failed.append(f"flash_bwd_kv_f32's ptxas: "
-                      f"{result['ptxas_bwd_kv_f32']}")
+    for name, count in (("bwd_kv_f32", 6), ("bwd_q_f32", 3)):
+        entries = ptxas_entries(log, f"flash_{name}")
+        result[f"ptxas_{name}"] = entries
+        if len(entries) != count or any(e["spill_stores"] or e["spill_loads"]
+                                        for e in entries):
+            failed.append(f"flash_{name}'s ptxas: {entries}")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))
     print(json.dumps(result))

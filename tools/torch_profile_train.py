@@ -28,7 +28,7 @@ measures:
    flash_fwd_wgmma<D, true> (bf16) and flash_fwd_f32<D, true> K4,
    flash_bwd_wgmma<D, true> (bf16, with flash_dq_flush_kernel, its last
    pass) and flash_bwd_kv_f32<D, true> (fp32) K5,
-   flash_bwd_dq_wgmma<D> (bf16) and flash_bwd_dq_kernel (fp32) K6-dq,
+   flash_bwd_dq_wgmma<D> (bf16) and flash_bwd_q_f32<D> (fp32) K6-dq,
    flash_bwd_wgmma<D, false> (bf16) and flash_bwd_kv_f32<D, false> (fp32)
    K6-dkv, and scale_q_kernel the first pass of bf16 K5 and K6-dkv
    (q^ for their TMA), a group of its own.
@@ -61,8 +61,8 @@ GROUPS = (
     ("K5 (flash_bwd_wgmma<D, true> or flash_bwd_kv_f32<D, true>, "
      "with flash_dq_flush_kernel)",
      r"flash_bwd_(wgmma|kv_f32)<\d+, true>|flash_dq_flush_kernel"),
-    ("K6-dq (flash_bwd_dq_wgmma<D>, fp32 flash_bwd_dq_kernel)",
-     r"flash_bwd_dq_wgmma|flash_bwd_dq_kernel"),
+    ("K6-dq (flash_bwd_dq_wgmma<D>, fp32 flash_bwd_q_f32<D>)",
+     r"flash_bwd_dq_wgmma|flash_bwd_q_f32"),
     ("K6-dkv (flash_bwd_wgmma<D, false>, fp32 flash_bwd_kv_f32<D, false>)",
      r"flash_bwd_(wgmma|kv_f32)<\d+, false>"),
     ("q^ for K5 and K6-dkv (scale_q_kernel)", r"scale_q_kernel"),
