@@ -18,7 +18,11 @@ exits nonzero (there is no CPU fallback):
    zconv_up_f32_kernel (zconv_f32.cu). Each row names the kernel that ran
    in ``impl``; a bf16 row must name the tensor-core kernel, an fp32 K1
    row zconv_f32_kernel, an fp32 K2 row zconv_up_f32_kernel, and for each
-   a second launch must give the same bits.
+   a second launch must give the same bits. Then K1 and K2 as the eval
+   step calls them (no autograd, inside bf16 autocast, fp32 activations,
+   weights and bias that the wrapper casts and folds itself) at the
+   observation decode's batch and their main stages, held against the
+   plain version on the bf16-cast inputs.
 4. backward_kernels: K1-dx, K2-dx, K3 and K3-up at the four training shapes
    (batch 24 = 4 sequences of 6 frames), bf16 and fp32, held against their
    plain versions and timed beside them, one library call
@@ -64,18 +68,28 @@ exits nonzero (there is no CPU fallback):
    (voxel 64^3: conv2 and conv3 take the kernels) on the card against the
    same step on the host CPU, same weights and batch, no sampling noise or
    dropout.
-8. serving_large: muvo.yml with MODEL.TRANSFORMER.LARGE (stride-8 features,
+8. train_entry: ``python -m muvo_tpu_torch.train``'s ``main`` on a
+   recorded drive written at muvo.yml's sizes (24 frames of 600x960 RGB,
+   60,000 LiDAR points and 192x192x64 voxel rows each, and a val0 drive):
+   muvo.yml as it is (batch 1, ACCUMULATE_GRAD_BATCHES 16, bf16, remat
+   off), 18 steps with one optimizer update, validation and a checkpoint
+   at 16, then a second run resumed from that checkpoint (restored bit for
+   bit on the card) to step 20. Every logged loss finite; bf16 K1, K2,
+   K1-dx, K2-dx, K3 and K3-up launched as predicted in the training and
+   the validation steps; no flash kernel. Step ms, frames/s, peak MiB and
+   the checkpoints' seconds.
+9. serving_large: muvo.yml with MODEL.TRANSFORMER.LARGE (stride-8 features,
    5,184 fusion tokens a frame) through DeploymentSession, fp32: K4 must be
    launched once a layer for each encode, outputs must be finite with
    muvo_tpu's shapes, and one frame's embedding on the card must match the
    port's host run (the math attention path).
-9. training_large: build_flagship_step(large=True) (1 x 6 frames, bf16),
+10. training_large: build_flagship_step(large=True) (1 x 6 frames, bf16),
    3 warm-up steps, then timed steps with K4 and K5 launched once a layer a
    step; then gradients with the split backward (K6, not K5) against the
    fused backward's, each leaf within 2e-2 plus 8x the fused gradient's
    own noise (its change on a rerun, or from a scaled loss, the larger).
    tools/torch_large_grad_check.py repeats this phase alone.
-10. microbench: tools/torch_flash_microbench.py, K4-mb and K4 at bh 16.
+11. microbench: tools/torch_flash_microbench.py, K4-mb and K4 at bh 16.
 
 Each main path's launch counts are set to 0 just before it runs and read
 just after; each wrapper counts its launches by the tensors' type. The
@@ -86,9 +100,12 @@ The last three lines are the kernels summary, nvidia-smi's name and power
 limit, and {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import copy
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -138,6 +155,9 @@ MAIN_SHAPE = {"K1": "conv3.conv2", "K2": "conv3.conv1", "K1-dx": "conv3.conv2",
 MAIN_BATCH = 5  # the imagination rollout decodes 5 states at once
 TRAIN_BATCH = 24  # the flagship train step decodes 4 x 6 frames
 TRAIN_STEPS = 5   # timed flagship steps
+# train_entry: a first run of 18 steps, saved at 16 (VAL_CHECK_INTERVAL),
+# resumed from there to 20
+TRAIN_ENTRY_STEPS, RESUME_STEP, RESUME_STEPS = 18, 16, 20
 # the backward kernels by the forward kernel they differentiate
 BACKWARD = {"K1": ("K1-dx", "K3"), "K2": ("K2-dx", "K3-up")}
 ZCONV_KERNELS = ("K1", "K2", "K1-dx", "K2-dx", "K3", "K3-up")
@@ -311,7 +331,47 @@ def kernel_phase(dev):
                                          f"relative error {rel} > {tol}")
                 results[(kid, stage, b, dtype)] = row
                 del x, w, bias, out, ref
+    autocast_rows(dev, gen, fns)
     return results
+
+
+def autocast_rows(dev, gen, fns):
+    """K1 and K2 as the eval step calls them: no autograd, inside bf16
+    autocast, on fp32 activations, weights and bias (the wrapper casts
+    them and folds the weights itself), at the observation decode's batch
+    (muvo.yml's BATCHSIZE x RECEPTIVE_FIELD) and the MAIN_SHAPE stages;
+    each held against its plain version on the bf16-cast inputs."""
+    cfg = muvo_cfg()
+    b = cfg.BATCHSIZE * cfg.RECEPTIVE_FIELD
+    for kid, stage, shape, cout in SHAPES:
+        if MAIN_SHAPE[kid] != stage:
+            continue
+        kernel, plain = fns[kid]
+        c = shape[-1]
+        x = torch.randn((b, *shape), generator=gen, device=dev)
+        w = torch.randn((cout, c, 3, 3, 3), generator=gen, device=dev) / (
+            27 * c) ** 0.5
+        bias = torch.randn((cout,), generator=gen, device=dev)
+        with torch.no_grad():
+            with torch.autocast("cuda", torch.bfloat16):
+                out = kernel(x, w, bias, 0.2)
+                impl = kernel.last_impl
+                again = kernel(x, w, bias, 0.2)
+            what = f"{kid} {stage} B={b} fp32 under bf16 autocast"
+            require_kernel(what, impl, TC_IMPL, out, again)
+            if out.dtype != torch.bfloat16:
+                raise AssertionError(f"{what}: output is {out.dtype}")
+            ref = plain(x.bfloat16(), w.bfloat16(), bias.bfloat16(), 0.2)
+            err = (out.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+        emit({"phase": "kernel_autocast", "kernel": kid, "stage": stage,
+              "shape": [b, *shape], "cout": cout, "dtype": "float32",
+              "autocast": "bfloat16", "impl": impl, "repeat_equal": True,
+              "max_abs_err": err, "rel_err": rel, "tol": BF16_TOL})
+        if not (rel <= BF16_TOL):
+            raise AssertionError(f"{what}: relative error {rel} > "
+                                 f"{BF16_TOL}")
+        del x, w, bias, out, again, ref
 
 
 def backward_kernel_phase(dev):
@@ -468,6 +528,16 @@ def predicted_launches(cfg):
     return {"K1": fwd * blocks, "K2": fwd * blocks, "K1-dx": blocks,
             "K2-dx": blocks, "K3": blocks, "K3-up": blocks,
             "K4": layers, "K5": layers, "K6-dq": 0, "K6-dkv": 0, "K4-mb": 0}
+
+
+def predicted_eval_launches(cfg):
+    """Kernel launches per eval step: the observation's decode and the
+    imagination's decode run K2 then K1 in each kernel-path block,
+    forward only, never rematerialised."""
+    blocks = predicted_launches(cfg)["K3"]
+    decodes = 2 if cfg.FUTURE_HORIZON > 0 else 1
+    return {kid: blocks * decodes if kid in ("K1", "K2") else 0
+            for kid in KERNEL_NAMES}
 
 
 def norm_rel(got, want):
@@ -635,6 +705,294 @@ def card_vs_host(dev):
         raise AssertionError(f"card loss differs from host: {loss_rel}")
     if bad:
         raise AssertionError(f"card gradients differ from host: {bad}")
+
+
+def record_drive(run_dir: Path, cfg, n_frames: int, seed: int) -> int:
+    """A recorded drive at ``cfg``'s sizes in the CARLA dataset's layout
+    (muvo_tpu_torch/data/dataset.py's module docstring), written with PIL
+    and pandas from a numpy seed: RGB PNGs of IMAGE.SIZE, route-map PNGs,
+    POINTS.N_PER_SECOND / CARLA_FPS semantic LiDAR points a frame inside
+    the sensor's field of view, sparse voxel rows (x, y, z, tag) on
+    VOXEL.SIZE (a ground plane and scattered cells), and the actions,
+    speed, a reward of at least 0.6 and the value. Returns the bytes
+    written."""
+    import numpy as np
+    import pandas as pd
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    h, w = cfg.IMAGE.SIZE
+    n_points = int(cfg.POINTS.N_PER_SECOND / 10)  # CARLA_FPS
+    vx, vy, vz = cfg.VOXEL.SIZE
+    down, up = (math.radians(a) for a in cfg.POINTS.FOV)
+    for sub in ("image", "routemap", "points_semantic", "voxel"):
+        (run_dir / sub).mkdir(parents=True, exist_ok=True)
+    rows = []
+    for t in range(n_frames):
+        row = {k: f"{k}/{k}_{t:09d}.{ext}" for k, ext in (
+            ("image", "png"), ("routemap", "png"), ("points_semantic", "npy"),
+            ("voxel", "npy"))}
+        Image.fromarray(rs.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            run_dir / row["image"])
+        route = np.zeros((192, 192), np.uint8)
+        route[rs.randint(40, 90):150, 90:102] = 255
+        Image.fromarray(route, mode="L").save(run_dir / row["routemap"])
+        azimuth = rs.uniform(-math.pi, math.pi, n_points)
+        elevation = rs.uniform(down, up, n_points)
+        rng = rs.uniform(2.0, 60.0, n_points)
+        xyz = np.stack([rng * np.cos(elevation) * np.cos(azimuth),
+                        rng * np.cos(elevation) * np.sin(azimuth),
+                        rng * np.sin(elevation)], -1).astype(np.float32)
+        np.save(run_dir / row["points_semantic"],
+                {"points_xyz": xyz,
+                 "ObjTag": rs.randint(0, 23, n_points).astype(np.uint8)})
+        ground = np.stack(np.meshgrid(np.arange(vx), np.arange(vy),
+                                      indexing="ij"), -1).reshape(-1, 2)
+        scattered = rs.randint(0, [vx, vy, vz], (20000, 3))
+        cells = np.concatenate([np.c_[ground, np.full(len(ground), 10)],
+                                scattered])
+        tags = rs.choice(np.r_[np.arange(23), 255], len(cells))
+        np.save(run_dir / row["voxel"],
+                np.c_[cells, tags].astype(np.uint16))
+        throttle = rs.uniform(-0.5, 1.0)
+        rows.append({**{f"{k}_path": v for k, v in row.items()},
+                     "action": np.array([max(throttle, 0.0),
+                                         rs.uniform(-1, 1),
+                                         max(-throttle, 0.0)], np.float32),
+                     "speed": np.array([rs.uniform(0, 10)], np.float32),
+                     "reward": rs.uniform(0.6, 1.0),
+                     "value": np.array([rs.uniform(-1, 1)], np.float32)})
+    pd.DataFrame(rows).to_pickle(run_dir / "pd_dataframe.pkl")
+    return sum(f.stat().st_size for f in run_dir.rglob("*") if f.is_file())
+
+
+def _tree_diff(got, want, path=""):
+    """Paths where ``got`` (tensors anywhere) and ``want`` (host tensors)
+    differ in structure, dtype or bits."""
+    if torch.is_tensor(want):
+        if not (torch.is_tensor(got) and got.dtype == want.dtype
+                and torch.equal(got.detach().cpu(), want)):
+            return [path]
+        return []
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [path + " (keys)"]
+        return [d for k in want for d in _tree_diff(got[k], want[k],
+                                                     f"{path}.{k}")]
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return [path + " (length)"]
+        return [d for i, (g, v) in enumerate(zip(got, want))
+                for d in _tree_diff(g, v, f"{path}[{i}]")]
+    return [] if got == want else [path]
+
+
+@contextlib.contextmanager
+def instrumented_train_loop(dev):
+    """Wraps what muvo_tpu_torch.train calls: each train and eval step is
+    timed on the host clock ending in a synchronize, with the host time
+    between two train steps (loader, copies, logging, validation,
+    checkpoints); the eval steps' kernel launches are counted apart; each
+    checkpoint save and restore is timed, and every restored state is held
+    to the checkpoint it came from, bit for bit: the model's parameters and
+    buffers, AdamW's moments, the accumulated gradients and counts."""
+    from muvo_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                    strip_prefix)
+    from muvo_tpu_torch.training.trainer import WorldModelTrainer
+
+    rec = {"train_ms": [], "gap_ms": [], "eval_ms": [], "save_s": [],
+           "restore_s": [], "restored": [], "val_launches": {}}
+    originals = (WorldModelTrainer.train_step, WorldModelTrainer.eval_step,
+                 CheckpointManager.save, CheckpointManager.restore)
+    train_step, eval_step, save, restore = originals
+    last_end = []
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def timed_train_step(self, *args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        if last_end:
+            rec["gap_ms"].append((t0 - last_end.pop()) * 1e3)
+        out = train_step(self, *args, **kwargs)
+        sync()
+        last_end.append(time.perf_counter())
+        rec["train_ms"].append((last_end[0] - t0) * 1e3)
+        return out
+
+    def counted_eval_step(self, *args, **kwargs):
+        before = read_typed_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = eval_step(self, *args, **kwargs)
+        sync()
+        rec["eval_ms"].append((time.perf_counter() - t0) * 1e3)
+        for kid, types in read_typed_launches().items():
+            for dtype, n in types.items():
+                n -= before.get(kid, {}).get(dtype, 0)
+                if n:
+                    counts = rec["val_launches"].setdefault(kid, {})
+                    counts[dtype] = counts.get(dtype, 0) + n
+        return out
+
+    def timed_save(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = save(self, *args, **kwargs)
+        rec["save_s"].append(time.perf_counter() - t0)
+        rec["ckpt_mib"] = Path(out).stat().st_size / 2 ** 20
+        return out
+
+    def checked_restore(self, step=None, state=None):
+        t0 = time.perf_counter()
+        payload = restore(self, step, state)
+        sync()
+        seconds = time.perf_counter() - t0
+        if payload is not None and state is not None:
+            rec["restore_s"].append(seconds)
+            diff = (_tree_diff(state.model.state_dict(),
+                               strip_prefix(payload["state_dict"]), "model")
+                    + _tree_diff(state.optimizer.state_dict(),
+                                 payload["optimizer"], "optimizer"))
+            rec["restored"].append({"step": payload["step"],
+                                    "state_step": state.step,
+                                    "differ": diff[:10]})
+        return payload
+
+    (WorldModelTrainer.train_step, WorldModelTrainer.eval_step,
+     CheckpointManager.save, CheckpointManager.restore) = (
+        timed_train_step, counted_eval_step, timed_save, checked_restore)
+    try:
+        yield rec
+    finally:
+        (WorldModelTrainer.train_step, WorldModelTrainer.eval_step,
+         CheckpointManager.save, CheckpointManager.restore) = originals
+
+
+def logged_losses(log_dir: str):
+    """Every record of a run's metrics.jsonl; raises on a non-finite
+    loss."""
+    with open(Path(log_dir) / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    for r in records:
+        bad = [k for k, v in r.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"step {r['step']}: non-finite {bad}")
+    return records
+
+
+def train_entry_phase(dev):
+    """``muvo_tpu_torch.train.main`` on a recorded drive at muvo.yml's full
+    width (pandas and Pillow import on the card machine, so the drive is
+    written in the dataset's on-disk layout and decoded by the loader, not
+    made on the device): muvo.yml as it is (batch 1, ACCUMULATE_GRAD_BATCHES
+    16, bf16 autocast, remat off) but for the data root, the log dir, the
+    run's length and its intervals. A first run of TRAIN_ENTRY_STEPS steps
+    crosses an epoch (12 sequences of 6 frames at stride 2 in 24 frames),
+    makes its one optimizer update and validates and saves at step 16; a
+    second run resumes from that checkpoint (restored bit for bit on the
+    card) at epoch 1, batch 4, and takes 4 steps. Every logged loss must be
+    finite; bf16 K1, K2, K1-dx, K2-dx, K3 and K3-up must be launched as
+    predicted for remat off over the training steps and, K1 and K2, over
+    the validation steps, and no flash kernel."""
+    from muvo_tpu_torch.train import main as train_main
+    from muvo_tpu_torch.training.flagship import MUVO_YML
+
+    cfg = muvo_cfg()
+    work = (Path(__file__).resolve().parent / "build"
+            / f"train_entry_{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        data = work / "drives"
+        written = sum(record_drive(data / "trainval" / split / "Town01"
+                                   / "0000", cfg, frames, seed)
+                      for split, frames, seed in (("train", 24, 0),
+                                                  ("val0", 14, 1)))
+        write_s = time.perf_counter() - t0
+        base = ["--config-file", str(MUVO_YML),
+                "DATASET.DATAROOT", str(data),
+                "DATASET.FILTER_BEGINNING_OF_RUN_SEC", "0.0",
+                "LOGGING_INTERVAL", "4", "VAL_CHECK_INTERVAL", "16",
+                "LIMIT_VAL_BATCHES", "1"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        with instrumented_train_loop(dev) as rec:
+            t0 = time.perf_counter()
+            first = train_main(base + ["LOG_DIR", str(work / "first"),
+                                       "STEPS", str(TRAIN_ENTRY_STEPS)],
+                               device=dev)
+            first_s = time.perf_counter() - t0
+            first_steps = len(rec["train_ms"])
+            updates = first.trainer.state.optimizer.updates
+            first_log = first.log_dir
+            ckpts = Path(first_log) / "checkpoints"
+            resume = work / "resume"
+            resume.mkdir()
+            for name in (f"ckpt_{RESUME_STEP}.pt", f"meta_{RESUME_STEP}.json"):
+                os.link(ckpts / name, resume / name)
+            del first
+            t0 = time.perf_counter()
+            second = train_main(base + ["LOG_DIR", str(work / "second"),
+                                        "STEPS", str(RESUME_STEPS),
+                                        "PRETRAINED.PATH", str(resume)],
+                                device=dev)
+            second_s = time.perf_counter() - t0
+        typed = read_typed_launches()
+        peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        records = logged_losses(first_log) + logged_losses(second.log_dir)
+        start, end = second.start_step, second.step
+        del second
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    n_train, n_val = len(rec["train_ms"]), len(rec["eval_ms"])
+    val = rec["val_launches"]
+    train = {kid: {t: n - val.get(kid, {}).get(t, 0) for t, n in types.items()
+                   if n - val.get(kid, {}).get(t, 0)}
+             for kid, types in typed.items()}
+    per_step, per_eval = predicted_launches(cfg), predicted_eval_launches(cfg)
+    timed = rec["train_ms"][3:first_steps]
+    median = statistics.median(timed)
+    frames = cfg.BATCHSIZE * (cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON)
+    emit({"phase": "train_entry", "config": "muvo.yml",
+          "batch": cfg.BATCHSIZE, "frames_per_step": frames,
+          "precision": str(cfg.PRECISION), "remat": bool(cfg.MODEL.REMAT),
+          "accumulate": cfg.OPTIMIZER.ACCUMULATE_GRAD_BATCHES,
+          "recording_mb": written / 1e6, "write_s": write_s,
+          "first_run_s": first_s, "second_run_s": second_s,
+          "train_steps": n_train, "val_steps": n_val, "updates": updates,
+          "resumed_at": start, "ended_at": end,
+          "step_ms": rec["train_ms"], "step_ms_median": median,
+          "frames_per_s": frames / (median / 1e3),
+          "host_gap_ms_median": statistics.median(rec["gap_ms"]),
+          "eval_ms": rec["eval_ms"], "peak_mib": peak_mib,
+          "ckpt_save_s": rec["save_s"], "ckpt_restore_s": rec["restore_s"],
+          "ckpt_mib": rec.get("ckpt_mib"), "restored": rec["restored"],
+          "launches_train_by_type": train, "launches_val_by_type": val,
+          "launches_per_step_predicted": per_step,
+          "launches_per_eval_predicted": per_eval,
+          "logged_records": len(records)})
+    if updates != 1 or (start, end) != (RESUME_STEP, RESUME_STEPS):
+        raise AssertionError(f"{updates} updates in the first run; the "
+                             f"second ran from {start} to {end}")
+    if n_train != TRAIN_ENTRY_STEPS + RESUME_STEPS - RESUME_STEP or n_val != 1:
+        raise AssertionError(f"{n_train} train and {n_val} eval steps")
+    if [r["step"] for r in rec["restored"]] != [RESUME_STEP] or any(
+            r["differ"] for r in rec["restored"]):
+        raise AssertionError(f"the restore was not bit-equal to the "
+                             f"checkpoint: {rec['restored']}")
+    if not any("train_loss" in r for r in records):
+        raise AssertionError("no training loss was logged")
+    for kid in KERNEL_NAMES:
+        for what, counts, want in (
+                ("training", train, per_step[kid] * n_train),
+                ("validation", val, per_eval[kid] * n_val)):
+            got = counts.get(kid, {})
+            if got.get("bfloat16", 0) != want or set(got) - {"bfloat16"}:
+                raise AssertionError(f"{kid}: {got} launches in the "
+                                     f"{what} steps, predicted {want} bf16")
+    return typed
 
 
 def muvo_cfg():
@@ -1174,6 +1532,7 @@ def main() -> int:
     flash = flash_kernel_phase(dev)
     paths = {"serving": serving_phase(dev, muvo_cfg()),
              "training": training_phase(dev),
+             "train_entry": train_entry_phase(dev),
              "serving_large": serving_large_phase(dev)}
     paths["training_large"], paths["training_large_split"] = (
         training_large_phase(dev))

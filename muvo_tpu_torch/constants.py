@@ -12,3 +12,21 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 # class weights of the segmentation losses: sqrt of inverse class frequency
 SEMANTIC_SEG_WEIGHTS = np.array([1.0, 1.0, 1.0, 2.0, 3.0, 1.0, 1.0, 1.0])
 VOXEL_SEG_WEIGHTS = np.array([1.0, 1.0, 1.0, 1.5, 2.0, 3.0, 1.0, 1.0, 1.0])
+
+# ego-vehicle bounding box (length, width, height) in metres
+EGO_VEHICLE_DIMENSION = [4.902, 2.128, 1.511]
+
+# CARLA semantic tag -> training label (binary occupancy; Sky -> background)
+LABEL_MAP = {
+    0: 0, 1: 1, 2: 1, 3: 1, 4: 1, 5: 1, 6: 1, 7: 1, 8: 1, 9: 1, 10: 1,
+    11: 1, 12: 1, 13: 0, 14: 1, 15: 1, 16: 1, 17: 1, 18: 1, 19: 1, 20: 1,
+    21: 1, 22: 1,
+}
+
+
+def label_remap_table() -> np.ndarray:
+    """uint8 lookup table applying LABEL_MAP (unknown tags -> max value)."""
+    remap = np.full((max(LABEL_MAP.keys()) + 1,), max(LABEL_MAP.values()),
+                    dtype=np.uint8)
+    remap[list(LABEL_MAP.keys())] = list(LABEL_MAP.values())
+    return remap

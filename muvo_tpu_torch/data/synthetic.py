@@ -12,26 +12,7 @@ from typing import Dict
 import numpy as np
 
 from muvo_tpu_torch.constants import CARLA_FPS
-
-
-def calculate_geometry_from_config(cfg):
-    """Pinhole intrinsics and camera->ego extrinsics of the front camera."""
-    fov = cfg.IMAGE.FOV
-    h, w = cfg.IMAGE.SIZE
-    forward, right, up = cfg.IMAGE.CAMERA_POSITION
-    pitch, yaw, roll = cfg.IMAGE.CAMERA_ROTATION
-    if not pitch == yaw == roll == 0.0:
-        raise ValueError("only zero-rotation camera rigs are supported")
-    f = w / (2 * np.tan(fov * np.pi / 360.0))
-    intrinsics = np.float32([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
-    # camera frame (right, down, forward) -> ego frame (forward, left, up)
-    extrinsics = np.float32([
-        [0, 0, 1, forward],
-        [-1, 0, 0, -right],
-        [0, -1, 0, up],
-        [0, 0, 0, 1],
-    ])
-    return intrinsics, extrinsics
+from muvo_tpu_torch.geometry.camera import calculate_geometry_from_config
 
 
 def synthetic_batch(cfg, batch_size: int = 1, sequence_length: int = None,

@@ -1,0 +1,2 @@
+"""Host geometry of the input pipeline (numpy): camera intrinsics and
+extrinsics, the LiDAR range-view projection, voxel grids."""

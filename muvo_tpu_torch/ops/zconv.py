@@ -228,10 +228,13 @@ def up_fold_weights(weight, adjoint: bool = False):
     w = weight.detach().float().permute(2, 3, 4, 1, 0)  # kx ky dz C Cout
     e, d = _fold_tables(w.device)
     c, cout = w.shape[3], w.shape[4]
-    main = torch.einsum("ptd,xydce->xytcpe", e, w).reshape(3, 3, 3, c,
-                                                           2 * cout)
-    edges = torch.einsum("qpd,xydce->qxycpe", d, w).reshape(2, 3, 3, c,
-                                                            2 * cout)
+    # fp32 under autocast too: einsum's products would come out bf16 there,
+    # and the kernels read the fold as fp32
+    with torch.autocast(w.device.type, enabled=False):
+        main = torch.einsum("ptd,xydce->xytcpe", e, w).reshape(3, 3, 3, c,
+                                                               2 * cout)
+        edges = torch.einsum("qpd,xydce->qxycpe", d, w).reshape(2, 3, 3, c,
+                                                                2 * cout)
     if adjoint:
         main = main.flip(0, 1, 2).transpose(-1, -2)
         edges = edges.flip(1, 2).transpose(-1, -2)
@@ -583,6 +586,8 @@ def _tc_weights(weight, view: TcView, adjoint: bool):
 
 def _launch_tc(x, mask, mslope, w, bias32, out, view: TcView, cb: int,
                dx: bool, slope, what: str):
+    if w.dtype != torch.float32:  # the kernel reads the fold as fp32
+        raise TypeError(f"{what}: folded weights are {w.dtype}, not fp32")
     b, X, Y = x.shape[:3]
     with torch.cuda.device(x.device):
         rc = _library("zconv").muvo_zconv3d_tc(

@@ -83,7 +83,10 @@ class Optimizer:
     """AdamW on the schedule, with optax.MultiSteps' gradient accumulation:
     ``step`` takes one micro-batch's gradients (in the parameters' .grad);
     every ACCUMULATE_GRAD_BATCHES-th call applies their mean at the
-    learning rate of the update count, which advances once per update."""
+    learning rate of the update count, which advances once per update.
+    ``state_dict`` holds all of it, the accumulated gradients included
+    (keyed by parameter name), so a run resumed between two updates goes
+    on as if it had not stopped."""
 
     def __init__(self, cfg, model: nn.Module):
         self.model = model
@@ -119,3 +122,23 @@ class Optimizer:
         self.model.zero_grad(set_to_none=True)
         self.updates += 1
         return True
+
+    def state_dict(self) -> Dict:
+        """AdamW's state, the micro-batch and update counts, and the
+        accumulated gradients by parameter name."""
+        names = {p: n for n, p in self.model.named_parameters()}
+        return {"adamw": self.adamw.state_dict(),
+                "mini_step": self.mini_step, "updates": self.updates,
+                "acc": {names[p]: t for p, t in self.acc.items()}}
+
+    def load_state_dict(self, state: Dict) -> None:
+        params = dict(self.model.named_parameters())
+        unknown = set(state["acc"]) - set(params)
+        if unknown:
+            raise KeyError(f"accumulated gradients of unknown parameters: "
+                           f"{sorted(unknown)[:5]}")
+        self.adamw.load_state_dict(state["adamw"])
+        self.mini_step = int(state["mini_step"])
+        self.updates = int(state["updates"])
+        self.acc = {params[n]: t.to(params[n].device)
+                    for n, t in state["acc"].items()}

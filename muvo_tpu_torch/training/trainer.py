@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from muvo_tpu_torch.device import resolve_device
@@ -22,9 +23,18 @@ from muvo_tpu_torch.training.optim import Optimizer
 from muvo_tpu_torch.utils.precision import autocast, compute_dtype_from_cfg
 
 
+def step_generator(device, step: int, seed: int = 42) -> torch.Generator:
+    """The random stream of train step ``step``: a generator on ``device``
+    seeded from (seed, step) alone, as muvo_tpu folds the step into one key
+    (``fold_in(PRNGKey(42), step)``), so that a resumed run draws at each
+    step what an uninterrupted run draws there."""
+    entropy = np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(entropy[0]))
+
+
 class TrainState:
     """The model (fp32 parameters, BatchNorm statistics), its optimizer and
-    the number of train steps taken."""
+    the number of train steps taken (micro-batches, as muvo_tpu counts)."""
 
     def __init__(self, model: MuvoWorldModel, optimizer: Optimizer):
         self.model = model

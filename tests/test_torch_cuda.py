@@ -185,6 +185,25 @@ def test_autocast_gives_the_kernels_bf16(dev):
     assert zconv.zconv3d_dw.launches == n + 1
 
 
+@pytest.mark.parametrize("kid", ["K1", "K2"])
+def test_kernels_without_grad_under_autocast_match_plain(dev, kid):
+    """An eval or inference step in bf16 calls K1 and K2 without autograd,
+    inside autocast (the wrapper casts): the same result as the plain
+    version on the bf16 inputs, at an eval step's batch of 4 frames."""
+    up = kid == "K2"
+    shape = (4, 24, 20, 16, 32) if up else (4, 24, 20, 32, 16)
+    x, w, b = _inputs(dev, shape, 16, torch.float32)
+    fn = zconv.upzconv3d_leaky if up else zconv.zconv3d_leaky
+    plain = zconv.upzconv3d_leaky_plain if up else zconv.zconv3d_leaky_plain
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        got = fn(x, w, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert fn.last_impl.startswith("tc::zconv_tc_kernel")
+    want = plain(*(t.to(torch.bfloat16) for t in (x, w, b)), 0.2)
+    assert _rel(got.float(), want.float()) <= 2e-2
+
+
 def _norm_rel(got, want):
     got, want = got.double().cpu(), want.double().cpu()
     return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()

@@ -64,11 +64,38 @@ def test_get_cfg_equals_muvo_tpu(config_file):
 
 
 @pytest.mark.parametrize("name", ["CARLA_FPS", "SEMANTIC_SEG_WEIGHTS",
-                                  "VOXEL_SEG_WEIGHTS"])
+                                  "VOXEL_SEG_WEIGHTS",
+                                  "EGO_VEHICLE_DIMENSION"])
 def test_constants_equal_muvo_tpus(name):
     got, want = getattr(port_constants, name), getattr(jax_constants, name)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
     assert np.asarray(got).dtype == np.asarray(want).dtype
+
+
+def test_label_remap_table_equals_muvo_tpus():
+    assert port_constants.LABEL_MAP == jax_constants.LABEL_MAP
+    got, want = (port_constants.label_remap_table(),
+                 jax_constants.label_remap_table())
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("copy,original", [
+    ("muvo_tpu_torch/native/range_view.cpp", "muvo_tpu/native/range_view.cpp"),
+    ("muvo_tpu_torch/utils/hostmem.py", "muvo_tpu/utils/hostmem.py"),
+])
+def test_host_sources_are_muvo_tpus(copy, original):
+    assert (ROOT / copy).read_bytes() == (ROOT / original).read_bytes()
+
+
+def test_native_library_builds_under_build_dir():
+    from muvo_tpu_torch import native
+
+    assert native.available()
+    lib = native.library_path()
+    assert lib.parent == ROOT / "build" / "muvo_tpu_torch"
+    assert lib.is_file()
+    assert not list((ROOT / "muvo_tpu_torch" / "native").glob("*.so"))
 
 
 def test_muvo_yml_is_muvo_tpus():

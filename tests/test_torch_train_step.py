@@ -53,12 +53,12 @@ from muvo_tpu.models.rssm import RSSM as JaxRSSM
 from muvo_tpu.training.optim import make_optimizer as jax_make_optimizer
 from muvo_tpu_torch.data.synthetic import synthetic_batch
 from muvo_tpu_torch.models.rssm import RSSM
-from muvo_tpu_torch.training.objectives import compute_loss, reduce_loss
 from muvo_tpu_torch.training.optim import Optimizer
 from muvo_tpu_torch.training.trainer import WorldModelTrainer
 from muvo_tpu_torch.weights import running_stats, state_dict_from_jax
 from torch_port_common import (
     deterministic_jax,
+    float64_step,
     fp32_cfgs,
     import_torch_dynamo,
     jax_trainer_and_state,
@@ -100,23 +100,6 @@ def _port_update(model, optimizer, grads):
     assert optimizer.step()
     return {n: p.detach().double() - before[n]
             for n, p in model.named_parameters()}
-
-
-def _float64_grads(port, batch):
-    """The port's gradients of the same step (no noise or dropout) in
-    float64, on a copy of its model."""
-    model = copy.deepcopy(port.state.model).double().train()
-    default = torch.get_default_dtype()
-    torch.set_default_dtype(torch.float64)
-    try:
-        pb = port.preprocess(port.to_device(batch), training=False)
-        pb = {k: v.double() if v.is_floating_point() else v
-              for k, v in pb.items()}
-        output, _ = model(pb, training=True, stochastic=False)
-        reduce_loss(compute_loss(port.cfg, pb, output)).backward()
-    finally:
-        torch.set_default_dtype(default)
-    return {n: p.grad for n, p in model.named_parameters()}
 
 
 def _step_pair(large: bool):
@@ -178,7 +161,7 @@ def _step_pair(large: bool):
     port = WorldModelTrainer(pcfg, device="cpu")
     port.init_state(model=port_model(state, pcfg))
     if large:
-        exact = _float64_grads(port, batch)
+        exact = float64_step(port, batch)[1]
     metrics, grads = port.grads(batch, stochastic=False)
     if large:
         want["noise"] = {k: _norm_rel(g.detach(), exact[k])

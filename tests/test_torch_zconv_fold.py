@@ -142,3 +142,32 @@ def test_the_checks_catch_a_broken_fold(fault, zs):
         edges = torch.cat([edges[..., cout:], edges[..., :cout]], -1)
     assert _rel(_folded_forward(x, w, bias, 0.2), want) <= TOL
     assert _rel(_folded_forward(x, w, bias, 0.2, main, edges), want) > 1e-2
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_fold_stays_fp32_under_autocast(adjoint):
+    """An eval or inference step in bf16 calls K2 without autograd, inside
+    autocast, where einsum's products come out bf16: the fold (which the
+    tensor-core kernels read as fp32) must be the same fp32 bits there."""
+    _, w, _ = _data((1, 4, 4, 16, 5), 7, 3)
+    w = w.to(torch.bfloat16)
+    want = zconv.up_fold_weights(w, adjoint)
+    view = zconv.TcView("small-z", 16, 5, 14)
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        got = zconv.up_fold_weights(w, adjoint)
+        flat = zconv._tc_weights(w, view, adjoint)
+    for g, v in zip(got, want):
+        assert g.dtype == v.dtype == torch.float32
+        assert torch.equal(g, v)
+    assert flat.dtype == torch.float32
+    assert torch.equal(flat, torch.cat([v.reshape(-1) for v in want]))
+
+
+def test_tc_launch_refuses_a_fold_that_is_not_fp32():
+    """The tensor-core kernels read their weights as fp32: a fold of any
+    other type is refused before the launch, wherever it came from."""
+    x = torch.zeros((1, 4, 4, 16, 5), dtype=torch.bfloat16)
+    w = torch.zeros(9 * 3 * 5 * 14, dtype=torch.bfloat16)
+    view = zconv.TcView("small-z", 16, 5, 14)
+    with pytest.raises(TypeError, match="not fp32"):
+        zconv._launch_tc(x, None, None, w, None, x, view, 7, False, 0.2, "K2")

@@ -115,6 +115,33 @@ def deterministic_jax(monkeypatch):
                         lambda rate, deterministic=None: (lambda x: x))
 
 
+def float64_step(port, batch):
+    """The losses and gradients of the port trainer's step (no noise or
+    dropout) in float64, on a copy of its model: ({"loss", every loss
+    term}, {parameter name: gradient})."""
+    import copy
+
+    import torch
+
+    from muvo_tpu_torch.training.objectives import compute_loss, reduce_loss
+
+    model = copy.deepcopy(port.state.model).double().train()
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        pb = port.preprocess(port.to_device(batch), training=False)
+        pb = {k: v.double() if v.is_floating_point() else v
+              for k, v in pb.items()}
+        output, _ = model(pb, training=True, stochastic=False)
+        losses = compute_loss(port.cfg, pb, output)
+        total = reduce_loss(losses)
+        total.backward()
+    finally:
+        torch.set_default_dtype(default)
+    return ({"loss": total.item(), **{k: v.item() for k, v in losses.items()}},
+            {n: p.grad for n, p in model.named_parameters()})
+
+
 def port_model(state, port_cfg):
     """The port's MuvoWorldModel with the JAX state's weights."""
     from muvo_tpu_torch.models.world_model import MuvoWorldModel
@@ -125,3 +152,79 @@ def port_model(state, port_cfg):
         state_dict_from_jax(state.params, state.batch_stats, port_cfg),
         strict=True)
     return model.eval()
+
+
+def _recorded_obs(rs, h, w, n_points):
+    """One tick of CARLA-like observations for muvo_tpu's DataWriter."""
+    masks = (rs.uniform(size=(15, 64, 64)) < 0.2).astype(np.uint8) * 255
+    masks[-1] = rs.choice(np.array([0, 80, 170, 255], np.uint8), (64, 64))
+    points = rs.uniform(-30, 30, (n_points, 3)).astype(np.float32)
+    points[: n_points // 20] *= 0.05  # some inside the ego box
+    depth_semantic = rs.randint(0, 255, (h, w, 4), dtype=np.uint8)
+    depth_semantic[..., 3] = rs.randint(0, 23, (h, w))  # CARLA's tags
+    return {"ego": {
+        "central_rgb": {"data": rs.randint(0, 255, (h, w, 3), dtype=np.uint8)},
+        "depth_semantic": {"data": depth_semantic},
+        "gnss": {"gnss": np.zeros(3), "target_gps": np.zeros(3),
+                 "imu": np.zeros(7), "command": np.array([4]),
+                 "target_gps_next": np.zeros(3),
+                 "command_next": np.array([4])},
+        "speed": {"forward_speed": np.array([5.0])},
+        "route_plan": None,
+        "birdview": {"masks": masks},
+        "lidar_points_semantic": {"data": {
+            "points_xyz": points,
+            "ObjTag": rs.randint(0, 23, n_points).astype(np.uint8),
+            "ObjIdx": np.zeros(n_points, np.uint32),
+            "CosAngle": np.ones(n_points, np.float32)}},
+    }}
+
+
+def write_recorded_run(run_dir, n_frames, seed, voxel_size=(64, 64, 64),
+                       image_hw=(96, 160), n_points=500, reward=1.0):
+    """A recorded drive in the CARLA dataset's on-disk layout, written by
+    muvo_tpu's DataWriter (as tests/test_data_roundtrip.py does), plus the
+    ``voxel_path`` column that the offline tool adds: sparse (K, 4) uint16
+    rows (x, y, z, CARLA tag; 255 unlabelled) saved with np.save, as
+    tools/generate_voxels.py writes them. Frames, actions, speeds and
+    voxels come from ``seed``."""
+    import os
+
+    import pandas as pd
+
+    from muvo_tpu.sim.data_writer import DataWriter
+
+    rs = np.random.RandomState(seed)
+    run_dir = str(run_dir)
+    writer = DataWriter(run_dir, "ego", run_info={"town": "Town01"})
+    for t in range(n_frames):
+        throttle = float(rs.uniform(-0.5, 1.0))
+        sup = {"ego": {
+            "action": np.array([max(throttle, 0.0), rs.uniform(-1, 1),
+                                max(-throttle, 0.0)], np.float32),
+            "action_mu": np.zeros(2, np.float32),
+            "action_sigma": np.ones(2, np.float32),
+            "value": np.array([rs.uniform(-1, 1)], np.float32),
+            "features": np.zeros(4, np.float32),
+            "speed": np.array([rs.uniform(0, 10)], np.float32),
+        }}
+        writer.write({"step": t}, _recorded_obs(rs, *image_hw, n_points),
+                     sup, {"ego": float(reward + rs.uniform(-0.05, 0.05))})
+    assert writer.close({"traffic_rule_violated": False, "blocked": False,
+                         "route_deviation": False}, remove_final_steps=True)
+    df_path = os.path.join(run_dir, "pd_dataframe.pkl")
+    df = pd.read_pickle(df_path)
+    os.makedirs(os.path.join(run_dir, "voxel"), exist_ok=True)
+    paths = []
+    for t in range(len(df)):
+        k = 300
+        rows = np.empty((k, 4), np.uint16)
+        for axis, size in enumerate(voxel_size):
+            rows[:, axis] = rs.randint(0, size, k)
+        rows[:, 3] = rs.choice(np.r_[np.arange(23), 255], k)
+        path = os.path.join("voxel", f"voxel_{t:09d}.npy")
+        np.save(os.path.join(run_dir, path), rows)
+        paths.append(path)
+    df["voxel_path"] = paths
+    df.to_pickle(df_path)
+    return df
