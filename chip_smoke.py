@@ -21,8 +21,9 @@ exits nonzero (there is no CPU fallback):
    a second launch must give the same bits. Then K1 and K2 as the eval
    step calls them (no autograd, inside bf16 autocast, fp32 activations,
    weights and bias that the wrapper casts and folds itself) at the
-   observation decode's batch and their main stages, held against the
-   plain version on the bf16-cast inputs.
+   observation decode's batch (4) and their main stages, and at the
+   imagination decode's batch (2) at every stage, held against the plain
+   version on the bf16-cast inputs.
 4. backward_kernels: K1-dx, K2-dx, K3 and K3-up at the four training shapes
    (batch 24 = 4 sequences of 6 frames), bf16 and fp32, held against their
    plain versions and timed beside them, one library call
@@ -77,19 +78,31 @@ exits nonzero (there is no CPU fallback):
    bit on the card) to step 20. Every logged loss finite; bf16 K1, K2,
    K1-dx, K2-dx, K3 and K3-up launched as predicted in the training and
    the validation steps; no flash kernel. Step ms, frames/s, peak MiB and
-   the checkpoints' seconds.
-9. serving_large: muvo.yml with MODEL.TRANSFORMER.LARGE (stride-8 features,
+   the checkpoints' seconds. The validation logs the panels of its first
+   batch (those whose package is installed, by importlib's find_spec).
+9. prediction: ``python -m muvo_tpu_torch.prediction``'s ``main`` on that
+   drive, restoring the step-16 checkpoint: the three test samplers, one
+   batch each, observed once and imagined PREDICTION.N_SAMPLES (1) times,
+   bf16; then ``python -m muvo_tpu_torch.sim_run``'s ``main`` over the
+   drive's 12 sequences (fp32 serving). Every metric finite; bf16 K1 and
+   K2 launched 4 times a test batch, fp32 K1 and K2 4 times a sim_run
+   step, nothing else; the card's metric suite against the host's on the
+   same outputs, labels and LiDAR columns (confusion matrices and SSC
+   counts equal, SSIM, PSNR and Chamfer within 1e-4). The metrics, the
+   median ms of observe_step, imagine_step and MetricSuite.update, test
+   batches a second, peak MiB, the panels drawn and the packages found.
+10. serving_large: muvo.yml with MODEL.TRANSFORMER.LARGE (stride-8 features,
    5,184 fusion tokens a frame) through DeploymentSession, fp32: K4 must be
    launched once a layer for each encode, outputs must be finite with
    muvo_tpu's shapes, and one frame's embedding on the card must match the
    port's host run (the math attention path).
-10. training_large: build_flagship_step(large=True) (1 x 6 frames, bf16),
+11. training_large: build_flagship_step(large=True) (1 x 6 frames, bf16),
    3 warm-up steps, then timed steps with K4 and K5 launched once a layer a
    step; then gradients with the split backward (K6, not K5) against the
    fused backward's, each leaf within 2e-2 plus 8x the fused gradient's
    own noise (its change on a rerun, or from a scaled loss, the larger).
    tools/torch_large_grad_check.py repeats this phase alone.
-11. microbench: tools/torch_flash_microbench.py, K4-mb and K4 at bh 16.
+12. microbench: tools/torch_flash_microbench.py, K4-mb and K4 at bh 16.
 
 Each main path's launch counts are set to 0 just before it runs and read
 just after; each wrapper counts its launches by the tensors' type. The
@@ -339,13 +352,17 @@ def autocast_rows(dev, gen, fns):
     """K1 and K2 as the eval step calls them: no autograd, inside bf16
     autocast, on fp32 activations, weights and bias (the wrapper casts
     them and folds the weights itself), at the observation decode's batch
-    (muvo.yml's BATCHSIZE x RECEPTIVE_FIELD) and the MAIN_SHAPE stages;
-    each held against its plain version on the bf16-cast inputs."""
+    (muvo.yml's BATCHSIZE x RECEPTIVE_FIELD) at the MAIN_SHAPE stages, and
+    at the imagination decode's batch (BATCHSIZE x FUTURE_HORIZON) at
+    every stage; each held against its plain version on the bf16-cast
+    inputs."""
     cfg = muvo_cfg()
-    b = cfg.BATCHSIZE * cfg.RECEPTIVE_FIELD
-    for kid, stage, shape, cout in SHAPES:
-        if MAIN_SHAPE[kid] != stage:
-            continue
+    observe_b = cfg.BATCHSIZE * cfg.RECEPTIVE_FIELD
+    imagine_b = cfg.BATCHSIZE * cfg.FUTURE_HORIZON
+    rows = [(observe_b, case) for case in SHAPES
+            if MAIN_SHAPE[case[0]] == case[1]]
+    rows += [(imagine_b, case) for case in SHAPES]
+    for b, (kid, stage, shape, cout) in rows:
         kernel, plain = fns[kid]
         c = shape[-1]
         x = torch.randn((b, *shape), generator=gen, device=dev)
@@ -795,16 +812,20 @@ def instrumented_train_loop(dev):
     checkpoints); the eval steps' kernel launches are counted apart; each
     checkpoint save and restore is timed, and every restored state is held
     to the checkpoint it came from, bit for bit: the model's parameters and
-    buffers, AdamW's moments, the accumulated gradients and counts."""
+    buffers, AdamW's moments, the accumulated gradients and counts; the
+    names of the validation's logged panels are kept."""
     from muvo_tpu_torch.training.checkpoint import (CheckpointManager,
                                                     strip_prefix)
+    from muvo_tpu_torch.training.logging import MetricsLogger
     from muvo_tpu_torch.training.trainer import WorldModelTrainer
 
     rec = {"train_ms": [], "gap_ms": [], "eval_ms": [], "save_s": [],
-           "restore_s": [], "restored": [], "val_launches": {}}
+           "restore_s": [], "restored": [], "val_launches": {},
+           "panels": []}
     originals = (WorldModelTrainer.train_step, WorldModelTrainer.eval_step,
-                 CheckpointManager.save, CheckpointManager.restore)
-    train_step, eval_step, save, restore = originals
+                 CheckpointManager.save, CheckpointManager.restore,
+                 MetricsLogger.log_image, MetricsLogger.log_video)
+    train_step, eval_step, save, restore, log_image, log_video = originals
     last_end = []
 
     def sync():
@@ -843,30 +864,46 @@ def instrumented_train_loop(dev):
         rec["ckpt_mib"] = Path(out).stat().st_size / 2 ** 20
         return out
 
-    def checked_restore(self, step=None, state=None):
+    def checked_restore(self, step=None, state=None, with_optimizer=True):
         t0 = time.perf_counter()
-        payload = restore(self, step, state)
+        payload = restore(self, step, state, with_optimizer)
         sync()
         seconds = time.perf_counter() - t0
         if payload is not None and state is not None:
             rec["restore_s"].append(seconds)
-            diff = (_tree_diff(state.model.state_dict(),
-                               strip_prefix(payload["state_dict"]), "model")
-                    + _tree_diff(state.optimizer.state_dict(),
-                                 payload["optimizer"], "optimizer"))
+            diff = _tree_diff(state.model.state_dict(),
+                              strip_prefix(payload["state_dict"]), "model")
+            # a resume restores the optimizer too
+            diff += (_tree_diff(state.optimizer.state_dict(),
+                                payload["optimizer"], "optimizer")
+                     if with_optimizer else ["optimizer not restored"])
             rec["restored"].append({"step": payload["step"],
                                     "state_step": state.step,
                                     "differ": diff[:10]})
         return payload
 
-    (WorldModelTrainer.train_step, WorldModelTrainer.eval_step,
-     CheckpointManager.save, CheckpointManager.restore) = (
-        timed_train_step, counted_eval_step, timed_save, checked_restore)
+    def named_image(self, step, name, image):
+        if not name.endswith("_strip"):  # a video's film strip: logged
+            rec["panels"].append(name)
+        return log_image(self, step, name, image)
+
+    def named_video(self, step, name, frames, fps=2):
+        rec["panels"].append(name)
+        return log_video(self, step, name, frames, fps)
+
+    patched = (WorldModelTrainer, "train_step", timed_train_step), (
+        WorldModelTrainer, "eval_step", counted_eval_step), (
+        CheckpointManager, "save", timed_save), (
+        CheckpointManager, "restore", checked_restore), (
+        MetricsLogger, "log_image", named_image), (
+        MetricsLogger, "log_video", named_video)
+    for owner, name, fn in patched:
+        setattr(owner, name, fn)
     try:
         yield rec
     finally:
-        (WorldModelTrainer.train_step, WorldModelTrainer.eval_step,
-         CheckpointManager.save, CheckpointManager.restore) = originals
+        for (owner, name, _), fn in zip(patched, originals):
+            setattr(owner, name, fn)
 
 
 def logged_losses(log_dir: str):
@@ -881,7 +918,7 @@ def logged_losses(log_dir: str):
     return records
 
 
-def train_entry_phase(dev):
+def train_entry_phase(dev, work: Path):
     """``muvo_tpu_torch.train.main`` on a recorded drive at muvo.yml's full
     width (pandas and Pillow import on the card machine, so the drive is
     written in the dataset's on-disk layout and decoded by the loader, not
@@ -894,58 +931,58 @@ def train_entry_phase(dev):
     card) at epoch 1, batch 4, and takes 4 steps. Every logged loss must be
     finite; bf16 K1, K2, K1-dx, K2-dx, K3 and K3-up must be launched as
     predicted for remat off over the training steps and, K1 and K2, over
-    the validation steps, and no flash kernel."""
+    the validation steps, and no flash kernel. The validation logs the
+    panels of its first batch: every panel but those whose package
+    ``undrawable_panels`` finds missing. The drive and the step-16
+    checkpoint stay in ``work`` for the prediction phase. Returns the
+    launches by type and the panels."""
     from muvo_tpu_torch.train import main as train_main
     from muvo_tpu_torch.training.flagship import MUVO_YML
+    from muvo_tpu_torch.training.visualise import undrawable_panels
 
     cfg = muvo_cfg()
-    work = (Path(__file__).resolve().parent / "build"
-            / f"train_entry_{os.getpid()}")
-    shutil.rmtree(work, ignore_errors=True)
-    try:
+    undrawable = undrawable_panels()
+    t0 = time.perf_counter()
+    data = work / "drives"
+    written = sum(record_drive(data / "trainval" / split / "Town01"
+                               / "0000", cfg, frames, seed)
+                  for split, frames, seed in (("train", 24, 0),
+                                              ("val0", 14, 1)))
+    write_s = time.perf_counter() - t0
+    base = ["--config-file", str(MUVO_YML),
+            "DATASET.DATAROOT", str(data),
+            "DATASET.FILTER_BEGINNING_OF_RUN_SEC", "0.0",
+            "LOGGING_INTERVAL", "4", "VAL_CHECK_INTERVAL", "16",
+            "LIMIT_VAL_BATCHES", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    with instrumented_train_loop(dev) as rec:
         t0 = time.perf_counter()
-        data = work / "drives"
-        written = sum(record_drive(data / "trainval" / split / "Town01"
-                                   / "0000", cfg, frames, seed)
-                      for split, frames, seed in (("train", 24, 0),
-                                                  ("val0", 14, 1)))
-        write_s = time.perf_counter() - t0
-        base = ["--config-file", str(MUVO_YML),
-                "DATASET.DATAROOT", str(data),
-                "DATASET.FILTER_BEGINNING_OF_RUN_SEC", "0.0",
-                "LOGGING_INTERVAL", "4", "VAL_CHECK_INTERVAL", "16",
-                "LIMIT_VAL_BATCHES", "1"]
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_launches()
-        with instrumented_train_loop(dev) as rec:
-            t0 = time.perf_counter()
-            first = train_main(base + ["LOG_DIR", str(work / "first"),
-                                       "STEPS", str(TRAIN_ENTRY_STEPS)],
-                               device=dev)
-            first_s = time.perf_counter() - t0
-            first_steps = len(rec["train_ms"])
-            updates = first.trainer.state.optimizer.updates
-            first_log = first.log_dir
-            ckpts = Path(first_log) / "checkpoints"
-            resume = work / "resume"
-            resume.mkdir()
-            for name in (f"ckpt_{RESUME_STEP}.pt", f"meta_{RESUME_STEP}.json"):
-                os.link(ckpts / name, resume / name)
-            del first
-            t0 = time.perf_counter()
-            second = train_main(base + ["LOG_DIR", str(work / "second"),
-                                        "STEPS", str(RESUME_STEPS),
-                                        "PRETRAINED.PATH", str(resume)],
-                                device=dev)
-            second_s = time.perf_counter() - t0
-        typed = read_typed_launches()
-        peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
-        records = logged_losses(first_log) + logged_losses(second.log_dir)
-        start, end = second.start_step, second.step
-        del second
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+        first = train_main(base + ["LOG_DIR", str(work / "first"),
+                                   "STEPS", str(TRAIN_ENTRY_STEPS)],
+                           device=dev)
+        first_s = time.perf_counter() - t0
+        first_steps = len(rec["train_ms"])
+        updates = first.trainer.state.optimizer.updates
+        first_log = first.log_dir
+        ckpts = Path(first_log) / "checkpoints"
+        resume = work / "resume"
+        resume.mkdir()
+        for name in (f"ckpt_{RESUME_STEP}.pt", f"meta_{RESUME_STEP}.json"):
+            os.link(ckpts / name, resume / name)
+        del first
+        t0 = time.perf_counter()
+        second = train_main(base + ["LOG_DIR", str(work / "second"),
+                                    "STEPS", str(RESUME_STEPS),
+                                    "PRETRAINED.PATH", str(resume)],
+                            device=dev)
+        second_s = time.perf_counter() - t0
+    typed = read_typed_launches()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    records = logged_losses(first_log) + logged_losses(second.log_dir)
+    start, end = second.start_step, second.step
+    del second
     n_train, n_val = len(rec["train_ms"]), len(rec["eval_ms"])
     val = rec["val_launches"]
     train = {kid: {t: n - val.get(kid, {}).get(t, 0) for t, n in types.items()
@@ -972,7 +1009,8 @@ def train_entry_phase(dev):
           "launches_train_by_type": train, "launches_val_by_type": val,
           "launches_per_step_predicted": per_step,
           "launches_per_eval_predicted": per_eval,
-          "logged_records": len(records)})
+          "logged_records": len(records), "panels": rec["panels"],
+          "panels_undrawable": undrawable})
     if updates != 1 or (start, end) != (RESUME_STEP, RESUME_STEPS):
         raise AssertionError(f"{updates} updates in the first run; the "
                              f"second ran from {start} to {end}")
@@ -992,7 +1030,283 @@ def train_entry_phase(dev):
             if got.get("bfloat16", 0) != want or set(got) - {"bfloat16"}:
                 raise AssertionError(f"{kid}: {got} launches in the "
                                      f"{what} steps, predicted {want} bf16")
-    return typed
+    drawn = {name.split("/", 1)[1] for name in rec["panels"]}
+    if not drawn or drawn & set(undrawable):
+        raise AssertionError(f"panels {sorted(drawn)} with {undrawable} "
+                             f"undrawable")
+    return typed, {"drawn": rec["panels"], "undrawable": undrawable}
+
+
+METRIC_TOL = 1e-4  # card against host suite: SSIM, PSNR, Chamfer, relative
+
+
+@contextlib.contextmanager
+def instrumented_prediction(dev):
+    """Wraps what muvo_tpu_torch.prediction calls: each observe_step,
+    imagine_step and MetricSuite.update timed on the host clock ending in a
+    synchronize, each Evaluator.run timed with its batches counted and the
+    host ms its loop waited for each batch from device_prefetch, host
+    copies of the first two updates' outputs and labels kept, the last
+    Evaluator that ran, and what restore_pretrained restored."""
+    from muvo_tpu_torch import prediction
+    from muvo_tpu_torch.training import evaluator
+    from muvo_tpu_torch.training.evaluator import Evaluator, MetricSuite
+    from muvo_tpu_torch.training.trainer import WorldModelTrainer
+
+    rec = {"observe_ms": [], "imagine_ms": [], "update_ms": [], "run_s": [],
+           "run_batches": [], "wait_ms": [], "updates": [], "restored": [],
+           "evaluator": None}
+    originals = (WorldModelTrainer.observe_step,
+                 WorldModelTrainer.imagine_step, MetricSuite.update,
+                 Evaluator.run, prediction.restore_pretrained,
+                 evaluator.device_prefetch)
+    observe, imagine, update, run, restore, prefetch = originals
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize(dev)
+            rec[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    def kept_update(self, batch, output, generator=None):
+        if len(rec["updates"]) < 2:
+            rec["updates"].append(tuple(
+                {k: v.cpu() for k, v in tree.items() if torch.is_tensor(v)}
+                for tree in (batch, output)))
+        return timed(update, "update_ms")(self, batch, output, generator)
+
+    def waited_prefetch(iterator, device):
+        # the loop's wait for each batch: the loader's decode the step
+        # did not hide, the pinning and the copies' queueing
+        inner = prefetch(iterator, device)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(inner)
+                except StopIteration:
+                    return
+                rec["wait_ms"][-1].append((time.perf_counter() - t0) * 1e3)
+                yield batch
+        finally:
+            inner.close()
+
+    def counted_run(self, loader, max_batches=None):
+        rec["evaluator"] = self
+        rec["wait_ms"].append([])
+        before = len(rec["observe_ms"])
+        t0 = time.perf_counter()
+        out = run(self, loader, max_batches)
+        rec["run_s"].append(time.perf_counter() - t0)
+        rec["run_batches"].append(len(rec["observe_ms"]) - before)
+        return out
+
+    def recorded_restore(path, state, with_optimizer=True):
+        restored = restore(path, state, with_optimizer)
+        rec["restored"].append({"checkpoint": restored, "step": state.step,
+                                "optimizer": with_optimizer})
+        return restored
+
+    WorldModelTrainer.observe_step = timed(observe, "observe_ms")
+    WorldModelTrainer.imagine_step = timed(imagine, "imagine_ms")
+    MetricSuite.update = kept_update
+    Evaluator.run = counted_run
+    prediction.restore_pretrained = recorded_restore
+    evaluator.device_prefetch = waited_prefetch
+    try:
+        yield rec
+    finally:
+        (WorldModelTrainer.observe_step, WorldModelTrainer.imagine_step,
+         MetricSuite.update, Evaluator.run, prediction.restore_pretrained,
+         evaluator.device_prefetch) = originals
+
+
+def suite_card_vs_host(cfg, dev, updates):
+    """The metric suite on the card against the same suite on the host, on
+    copies of the same outputs and labels, each update's LiDAR columns
+    drawn from one host generator: confusion matrices and SSC counts
+    equal, the running SSIM, PSNR and Chamfer totals within METRIC_TOL
+    relative. Returns {state key: relative error, or "equal"}."""
+    from muvo_tpu_torch.training.evaluator import MetricSuite
+
+    card, host = MetricSuite(cfg, dev), MetricSuite(cfg, "cpu")
+    for i, (labels, output) in enumerate(updates):
+        card.update({k: v.to(dev) for k, v in labels.items()},
+                    {k: v.to(dev) for k, v in output.items()},
+                    torch.Generator().manual_seed(i))
+        host.update(labels, output, torch.Generator().manual_seed(i))
+    found, bad = {}, []
+    for key, want in host.state.items():
+        got = card.state[key]
+        if torch.is_tensor(want):  # a confusion matrix
+            found[key] = "equal" if torch.equal(got.cpu(), want) else "differ"
+        elif "total" in want:  # a running mean
+            rel = abs(got["total"].item() - want["total"].item()) / max(
+                abs(want["total"].item()), 1e-30)
+            found[key] = rel
+            if not (rel <= METRIC_TOL and got["count"].item()
+                    == want["count"].item()):
+                bad.append(key)
+            continue
+        else:  # the SSC counts
+            found[key] = ("equal" if all(torch.equal(got[k].cpu(), v)
+                                          for k, v in want.items())
+                          else "differ")
+        if found[key] != "equal":
+            bad.append(key)
+    if bad:
+        raise AssertionError(f"card metric suite differs from host: {found}")
+    return found
+
+
+def chamfer_ms(cfg, dev, labels, output):
+    """Mean ms of metrics.chamfer_batch on the card at an update's shapes
+    and the evaluator's 10,000 columns, and its samples (b x s)."""
+    from muvo_tpu_torch import metrics
+    from muvo_tpu_torch.training.evaluator import CHAMFER_COLUMNS
+
+    scale = cfg.LIDAR_RE.SCALE
+    pred = output["lidar_reconstruction_1"].to(dev) * scale
+    target = labels["range_view_label_1"].to(dev) * scale
+    b, s, h, w, c = pred.shape
+    idx = torch.randint(0, h * w, (CHAMFER_COLUMNS,), device=dev)
+    p = pred.reshape(b * s, h * w, c)[:, idx, :-1]
+    t = target.reshape(b * s, h * w, c)[:, idx, :-1]
+    return time_ms(lambda: metrics.chamfer_batch(p, t)), b * s
+
+
+def steady_evaluation(argv, evaluator):
+    """``evaluator`` over every sequence of the drive of ``argv``, in
+    order, from one loader as prediction.main builds it: the test batches
+    a second once the loader's decode thread runs ahead of the steps."""
+    from muvo_tpu_torch.config import get_cfg, get_parser
+    from muvo_tpu_torch.data.dataset import make_dataset
+    from muvo_tpu_torch.data.loader import DataLoader
+
+    cfg = get_cfg(get_parser().parse_args(argv))
+    ds = make_dataset(cfg, "train", cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON)
+    evaluator.run(DataLoader(ds, cfg.BATCHSIZE, shuffle=False,
+                             sampler=range(len(ds)),
+                             num_workers=min(cfg.N_WORKERS, 1)))
+
+
+def prediction_phase(dev, work: Path, panels):
+    """``python -m muvo_tpu_torch.prediction``'s ``main`` on the drive of
+    the train_entry phase, restoring its step-16 checkpoint (muvo.yml as
+    it is: batch 1, bf16, remat off, PREDICTION.N_SAMPLES 1; the three
+    test samplers yield one batch each on its 12 sequences, each from a
+    cold loader), then the same Evaluator over all 12 sequences in turn
+    (steady_evaluation), then ``muvo_tpu_torch.sim_run``'s over the same
+    drive. Every metric must be finite; bf16 K1 and K2 launched as
+    predicted_eval_launches says for each test batch and nothing else;
+    fp32 K1 and K2 twice a block for each sim_run step (its decode and its
+    imagination's) and nothing else; the card's metric suite equal to the
+    host's on the first two updates' outputs and labels. Prints the
+    metrics, the median ms of observe_step and imagine_step (cold and
+    steady) and of MetricSuite.update, the mean ms of the
+    Chamfer distance at the reconstruction's shapes, test batches a
+    second (cold: the three samplers; steady: the 12 sequences), the
+    loop's waits for the loader, the peak MiB of prediction.main, and the
+    panels of train_entry's validation. Returns the launches by type of
+    each run."""
+    import importlib.util
+
+    from muvo_tpu_torch import prediction, sim_run
+    from muvo_tpu_torch.training.flagship import MUVO_YML
+
+    cfg = muvo_cfg()
+    if cfg.PREDICTION.N_SAMPLES != 1:
+        raise AssertionError(f"N_SAMPLES {cfg.PREDICTION.N_SAMPLES}: the "
+                             f"launch counts assume 1")
+    argv = ["--config-file", str(MUVO_YML),
+            "DATASET.DATAROOT", str(work / "drives"),
+            "DATASET.FILTER_BEGINNING_OF_RUN_SEC", "0.0",
+            "PRETRAINED.PATH", str(work / "resume")]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    with instrumented_prediction(dev) as rec:
+        t0 = time.perf_counter()
+        results = prediction.main(argv, device=dev)
+        prediction_s = time.perf_counter() - t0
+        peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        steady_evaluation(argv, rec["evaluator"])
+    typed = read_typed_launches()
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = sim_run.main(argv, device=dev)
+    sim_s = time.perf_counter() - t0
+    sim_typed = read_typed_launches()
+    suite = suite_card_vs_host(cfg, dev, rec["updates"])
+    cd_ms, cd_samples = chamfer_ms(cfg, dev, *rec["updates"][-1])
+
+    n_batches = sum(rec["run_batches"])  # the steady run's too
+    cold_batches, cold_s = rec["run_batches"][:3], rec["run_s"][:3]
+    steady_batches, steady_s = rec["run_batches"][3], rec["run_s"][3]
+    steady_wait = rec["wait_ms"][3]
+    n_cold = sum(cold_batches)  # one imagination a batch: N_SAMPLES 1
+    observe_ms, imagine_ms = rec["observe_ms"], rec["imagine_ms"]
+    per_eval = predicted_eval_launches(cfg)  # one imagination a batch
+    want = {kid: {"bfloat16": n * n_batches} for kid, n in per_eval.items()
+            if n}
+    want_sim = {kid: {"float32": n * len(stats)}
+                for kid, n in per_eval.items() if n}
+    emit({"phase": "prediction", "config": "muvo.yml",
+          "batch": cfg.BATCHSIZE, "precision": str(cfg.PRECISION),
+          "n_samples": cfg.PREDICTION.N_SAMPLES, "results": results,
+          "restored": rec["restored"], "batches_by_sampler": rec["run_batches"],
+          "observe_ms": rec["observe_ms"], "imagine_ms": rec["imagine_ms"],
+          "update_ms": rec["update_ms"],
+          # cold: the three samplers' batches; steady: the steady run's,
+          # while the loader's decode thread works beside the steps
+          "observe_ms_median": statistics.median(observe_ms[:n_cold]),
+          "imagine_ms_median": statistics.median(imagine_ms[:n_cold]),
+          "steady_observe_ms_median": statistics.median(observe_ms[n_cold:]),
+          "steady_imagine_ms_median": statistics.median(imagine_ms[n_cold:]),
+          "update_ms_median": statistics.median(rec["update_ms"]),
+          "evaluator_s": rec["run_s"],
+          "cold_test_batches_per_s": sum(cold_batches) / sum(cold_s),
+          "steady_batches": steady_batches,
+          "steady_batches_per_s": steady_batches / steady_s,
+          "loader_wait_ms": rec["wait_ms"],
+          "steady_wait_ms_median": statistics.median(steady_wait[1:]),
+          "steady_wait_share": sum(steady_wait) / (steady_s * 1e3),
+          "prediction_main_s": prediction_s, "peak_mib": peak_mib,
+          "launches_by_type": typed, "launches_predicted": want,
+          "sim_run_steps": len(stats), "sim_run_s": sim_s,
+          "sim_run_launches_by_type": sim_typed,
+          "sim_run_launches_predicted": want_sim,
+          "chamfer_ms": cd_ms, "chamfer_samples": cd_samples,
+          "suite_card_vs_host": suite, "metric_tol": METRIC_TOL,
+          "panels_drawn": panels["drawn"],
+          "panels_undrawable": panels["undrawable"],
+          "packages": {name: importlib.util.find_spec(name) is not None
+                       for name in ("cv2", "matplotlib", "PIL")}})
+    if rec["restored"] != [{"checkpoint": True, "step": RESUME_STEP,
+                            "optimizer": False}]:
+        raise AssertionError(f"restored {rec['restored']}, not the step "
+                             f"{RESUME_STEP} checkpoint's model")
+    if [len(w) for w in rec["wait_ms"]] != rec["run_batches"]:
+        raise AssertionError(f"loader waits {rec['wait_ms']} for "
+                             f"{rec['run_batches']} batches")
+    if len(results) != 6 or min(rec["run_batches"]) < 1:
+        raise AssertionError(f"{rec['run_batches']} batches by sampler; "
+                             f"results {sorted(results)}")
+    bad = [(name, key) for name, scores in results.items()
+           for key, v in scores.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite metrics: {bad}")
+    if typed != want or sim_typed != want_sim:
+        raise AssertionError(f"launches {typed} and {sim_typed} in sim_run, "
+                             f"predicted {want} and {want_sim}")
+    if not stats or not all(math.isfinite(v) for s in stats
+                            for v in s.values()):
+        raise AssertionError(f"sim_run: {stats}")
+    return typed, sim_typed
 
 
 def muvo_cfg():
@@ -1531,9 +1845,16 @@ def main() -> int:
     backward = backward_kernel_phase(dev)
     flash = flash_kernel_phase(dev)
     paths = {"serving": serving_phase(dev, muvo_cfg()),
-             "training": training_phase(dev),
-             "train_entry": train_entry_phase(dev),
-             "serving_large": serving_large_phase(dev)}
+             "training": training_phase(dev)}
+    work = Path(__file__).resolve().parent / "build" / f"run_{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        paths["train_entry"], panels = train_entry_phase(dev, work)
+        paths["prediction"], paths["sim_run"] = prediction_phase(dev, work,
+                                                                 panels)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    paths["serving_large"] = serving_large_phase(dev)
     paths["training_large"], paths["training_large_split"] = (
         training_large_phase(dev))
     paths["microbench"] = microbench_phase()

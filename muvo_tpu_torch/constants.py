@@ -9,6 +9,28 @@ CARLA_FPS = 10
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
+# colours of the BEV classes and of the voxel labels in the panels
+BIRDVIEW_COLOURS = np.array(
+    [
+        [255, 255, 255],  # Background
+        [225, 225, 225],  # Road
+        [160, 160, 160],  # Lane marking
+        [0, 83, 138],     # Vehicle
+        [127, 255, 212],  # Pedestrian
+        [50, 205, 50],    # Green light
+        [255, 215, 0],    # Yellow light
+        [220, 20, 60],    # Red light and stop sign
+    ],
+    dtype=np.uint8,
+)
+VOXEL_COLOURS = np.array(
+    [
+        [255, 255, 255],  # Background
+        [115, 115, 115],  # Occupancy
+    ],
+    dtype=np.uint8,
+)
+
 # class weights of the segmentation losses: sqrt of inverse class frequency
 SEMANTIC_SEG_WEIGHTS = np.array([1.0, 1.0, 1.0, 2.0, 3.0, 1.0, 1.0, 1.0])
 VOXEL_SEG_WEIGHTS = np.array([1.0, 1.0, 1.0, 1.5, 2.0, 3.0, 1.0, 1.0, 1.0])

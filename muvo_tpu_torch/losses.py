@@ -3,8 +3,7 @@
 Every loss upcasts its inputs to fp32 at first use, as muvo_tpu's do, so a
 bf16 model output feeds them directly. The data-dependent guards of
 upstream MUVO (an empty mask, SemScal's per-class count guards) are masked
-arithmetic with the same values, as in muvo_tpu. chamfer_distance_loss
-belongs with the metrics and is not ported here.
+arithmetic with the same values, as in muvo_tpu.
 """
 
 from __future__ import annotations
@@ -245,3 +244,16 @@ def ssim(prediction, target, channel: int = 3, window_size: int = 11,
     if non_negative:
         per_image = per_image.clamp_min(0.0)
     return per_image.mean()
+
+
+def chamfer_distance_loss(prediction, target):
+    """Symmetric point-to-point Chamfer distance over (b, s, n, d), in the
+    explicit difference form (b*s, n, n, d) of muvo_tpu's."""
+    b, s, n, d = prediction.shape
+    pred = prediction.reshape(b * s, n, d).float()
+    targ = target.reshape(b * s, n, d).float()
+    diff = pred[:, :, None, :] - targ[:, None, :, :]
+    dist = (diff ** 2).sum(-1).clamp_min(_EPS).sqrt()
+    dl = dist.min(dim=1).values
+    dr = dist.min(dim=2).values
+    return (dl.mean(dim=1) + dr.mean(dim=1)).mean()

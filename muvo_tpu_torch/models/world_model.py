@@ -300,3 +300,44 @@ class MuvoWorldModel(nn.Module):
         output["steering"] = unpack_sequence_dim(steering, b, fh)
         output.update(self.decode_state(packed_state, b, fh))
         return output
+
+    def observe_and_imagine(self, batch: Dict, predict_action: bool = False,
+                            future_horizon: Optional[int] = None,
+                            generator: Optional[torch.Generator] = None,
+                            stochastic: bool = True) -> Tuple[Dict, Dict]:
+        """Posterior observation of the first RECEPTIVE_FIELD frames of a
+        preprocessed batch, then the prior imagination from its last state
+        (upstream mile.py:684-769): (output_observe, output_imagine).
+        ``generator`` draws the observation's noise, then the
+        imagination's; ``stochastic=False`` takes the mean of every latent
+        distribution in both."""
+        s = self.cfg.RECEPTIVE_FIELD
+        past = {k: v[:, :s] for k, v in batch.items()}
+        future = {k: v[:, s:] for k, v in batch.items()}
+        output_observe, state_dict = self(past, training=False,
+                                          generator=generator,
+                                          stochastic=stochastic)
+        start = imagine_inputs(*last_state(state_dict),
+                               None if predict_action else future)
+        output_imagine = self.imagine(start, predict_action, future_horizon,
+                                      generator, stochastic)
+        return output_observe, output_imagine
+
+
+def last_state(state_dict: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The last posterior (hidden_state, sample) of a forward's
+    ``state_dict``: where an imagination starts."""
+    posterior = state_dict["posterior"]
+    return posterior["hidden_state"][:, -1], posterior["sample"][:, -1]
+
+
+def imagine_inputs(hidden_state: torch.Tensor, sample: torch.Tensor,
+                   future: Optional[Dict] = None) -> Dict:
+    """The batch of ``MuvoWorldModel.imagine``: the state it starts from
+    and, where ``future`` (the frames to imagine) is given, their actions;
+    without it the policy predicts them."""
+    inputs = {"hidden_state": hidden_state, "sample": sample}
+    if future is not None:
+        inputs["throttle_brake"] = future["throttle_brake"]
+        inputs["steering"] = future["steering"]
+    return inputs

@@ -11,8 +11,9 @@ Resume: ``PRETRAINED.PATH <run dir>/checkpoints`` restores the latest step
 there (weights, optimizer, step) and goes on with the batch the stopped
 run would have taken next; a ``.ckpt`` / ``.pt`` / ``.pth`` file (an
 upstream MUVO Lightning checkpoint, or a port checkpoint) loads its weights
-alone. It runs on the GPU unless ``main`` is given ``device="cpu"``.
-The validation image panels of the root train.py are not ported yet.
+alone. Each validation logs the panels of each val loader's first batch
+(training/visualise.py). It runs on the GPU unless ``main`` is given
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -30,10 +31,11 @@ from muvo_tpu_torch.data.datamodule import make_val_samplers
 from muvo_tpu_torch.data.dataset import make_dataset
 from muvo_tpu_torch.data.loader import DataLoader, device_prefetch
 from muvo_tpu_torch.training.checkpoint import (CheckpointManager,
-                                                load_torch_state_dict)
+                                                restore_pretrained)
 from muvo_tpu_torch.training.logging import MetricsLogger, StepTimer
 from muvo_tpu_torch.training.optim import make_schedule
 from muvo_tpu_torch.training.trainer import WorldModelTrainer, step_generator
+from muvo_tpu_torch.training.visualise import visualise_step
 from muvo_tpu_torch.utils.hostmem import cap_malloc_arenas, trim_host_heap
 
 EVAL_SEED = 42  # muvo_tpu's eval step takes the unfolded PRNGKey(42)
@@ -64,28 +66,16 @@ def _memdebug(step: int) -> None:
 
 
 def _restore(cfg, state, ckpt: CheckpointManager) -> bool:
-    """Own run directory first, else PRETRAINED.PATH: a checkpoint
-    directory (the whole state), or a weights file (the model alone)."""
+    """Own run directory first, else PRETRAINED.PATH (restore_pretrained).
+    True where a whole state was restored."""
     if ckpt.restore(state=state) is not None:
         return True
-    path = cfg.PRETRAINED.PATH
-    if not path:
-        return False
-    if os.path.isdir(path):
-        return CheckpointManager(path).restore(state=state) is not None
-    if path.endswith((".ckpt", ".pt", ".pth")) and os.path.isfile(path):
-        missing, _ = state.model.load_state_dict(load_torch_state_dict(path),
-                                                 strict=False)
-        if missing:
-            print(f"Warning - {len(missing)} parameters not found in "
-                  f"checkpoint")
-        print(f"Loaded reference weights from {path}")
-        return False
-    raise FileNotFoundError(f"PRETRAINED.PATH {path!r} is neither a "
-                            f"checkpoint directory nor a weights file")
+    return restore_pretrained(cfg.PRETRAINED.PATH, state)
 
 
 def _validate(cfg, trainer, val_loaders, logger, step: int) -> None:
+    """LIMIT_VAL_BATCHES eval steps of each val loader: the sums of their
+    losses, and the panels of each loader's first batch."""
     for vi, val_loader in val_loaders:
         val_metrics = {}
         with contextlib.closing(device_prefetch(iter(val_loader),
@@ -98,7 +88,19 @@ def _validate(cfg, trainer, val_loaders, logger, step: int) -> None:
                 out = trainer.eval_step(vbatch, generator)
                 for k, v in out["losses"].items():
                     val_metrics[k] = val_metrics.get(k, 0) + float(v)
+                if i == 0:
+                    _log_panels(cfg, out, logger, step, f"val{vi}")
         logger.log(step, val_metrics, prefix=f"val{vi}")
+
+
+def _log_panels(cfg, out, logger, step: int, prefix: str) -> None:
+    panels = visualise_step(cfg, out["pb"], out["output"],
+                            out.get("output_imagine"))
+    for name, image in panels.items():
+        if name.startswith("video/"):
+            logger.log_video(step, f"{prefix}/{name[6:]}", image)
+        else:
+            logger.log_image(step, f"{prefix}/{name}", image)
 
 
 def main(argv=None, device=None) -> TrainRun:

@@ -98,12 +98,12 @@ class CheckpointManager:
                 os.remove(meta)
         return path
 
-    def restore(self, step: Optional[int] = None, state=None
-                ) -> Optional[Dict]:
+    def restore(self, step: Optional[int] = None, state=None,
+                with_optimizer: bool = True) -> Optional[Dict]:
         """The payload of ``step`` (default: the latest), with the sidecar's
         "metadata" and "config"; None if there is no checkpoint. Given a
-        TrainState, loads the model (strictly), the optimizer and the step
-        count into it."""
+        TrainState, loads the model (strictly), the optimizer (unless
+        ``with_optimizer`` is False) and the step count into it."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
@@ -112,7 +112,8 @@ class CheckpointManager:
         if state is not None:
             state.model.load_state_dict(strip_prefix(payload["state_dict"]),
                                         strict=True)
-            state.optimizer.load_state_dict(payload["optimizer"])
+            if with_optimizer:
+                state.optimizer.load_state_dict(payload["optimizer"])
             state.step = int(payload["step"])
         meta = os.path.join(self.directory, f"meta_{step}.json")
         if os.path.isfile(meta):
@@ -137,3 +138,27 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     ckpt = torch.load(path, map_location="cpu")
     state = ckpt.get("state_dict", ckpt)
     return {k: v.detach() for k, v in strip_prefix(state).items()}
+
+
+def restore_pretrained(path: str, state, with_optimizer: bool = True
+                       ) -> bool:
+    """PRETRAINED.PATH ``path`` into ``state``: a checkpoint directory (its
+    latest step: the model, the step count and, unless ``with_optimizer`` is
+    False, the optimizer; True), or a weights file, an upstream MUVO
+    Lightning checkpoint or a port checkpoint (the model alone; False).
+    False without a path."""
+    if not path:
+        return False
+    if os.path.isdir(path):
+        return CheckpointManager(path).restore(
+            state=state, with_optimizer=with_optimizer) is not None
+    if path.endswith((".ckpt", ".pt", ".pth")) and os.path.isfile(path):
+        missing, _ = state.model.load_state_dict(load_torch_state_dict(path),
+                                                 strict=False)
+        if missing:
+            print(f"Warning - {len(missing)} parameters not found in "
+                  f"checkpoint")
+        print(f"Loaded reference weights from {path}")
+        return False
+    raise FileNotFoundError(f"PRETRAINED.PATH {path!r} is neither a "
+                            f"checkpoint directory nor a weights file")

@@ -1,15 +1,18 @@
 """Training observability: scalar logging (JSONL + TensorBoard) and step
 timing / throughput (frames per second per device).
 
-An own copy of muvo_tpu/training/logging.py's scalar logging and step
-timing: the same JSONL record, and TensorBoard only where
-``torch.utils.tensorboard`` imports. Its image and video panels come with
-the validation panels that use them.
+An own copy of muvo_tpu/training/logging.py's scalar logging, image and
+video panels and step timing: the same JSONL record, and TensorBoard only
+where ``torch.utils.tensorboard`` imports. Without TensorBoard an image
+panel is a PNG under ``images/``; a video panel is a TensorBoard video
+where moviepy (its GIF encoder) is installed, else a film strip of its
+frames logged as an image.
 Reference: TensorBoardLogger + 'simple' profiler (train.py:72-75, 111).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import time
@@ -39,6 +42,34 @@ class MetricsLogger:
                 self._tb.add_scalar(name, value, step)
         self._jsonl.write(json.dumps(record) + "\n")
         self._jsonl.flush()
+
+    def log_image(self, step: int, name: str, image):
+        """image: (H, W, 3) uint8."""
+        if self._tb is not None:
+            self._tb.add_image(name, image, step, dataformats="HWC")
+            return
+        import numpy as np
+        from PIL import Image
+
+        out_dir = os.path.join(self.log_dir, "images")
+        os.makedirs(out_dir, exist_ok=True)
+        Image.fromarray(np.asarray(image)).save(
+            os.path.join(out_dir, f"{name.replace('/', '_')}_{step}.png"))
+
+    def log_video(self, step: int, name: str, frames, fps: int = 2):
+        """frames: (T, H, W, 3) uint8."""
+        import numpy as np
+
+        frames = np.asarray(frames)
+        if (self._tb is not None
+                and importlib.util.find_spec("moviepy") is not None):
+            import torch
+
+            video = torch.from_numpy(frames.transpose(0, 3, 1, 2)[None])
+            self._tb.add_video(name, video, step, fps=fps)
+            return
+        self.log_image(step, f"{name}_strip",
+                       np.concatenate(list(frames), axis=1))
 
     def close(self):
         self._jsonl.close()

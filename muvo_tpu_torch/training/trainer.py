@@ -4,12 +4,15 @@
 the model forward over the sequence, every loss of ``compute_loss``, the
 backward pass and the AdamW / OneCycle update, on one device. The compute
 type follows PRECISION (utils/precision.py): bf16 autocast on the card
-with fp32 master weights. ``eval_step`` observes the receptive field,
-imagines the future horizon, and returns the losses of both.
+with fp32 master weights. ``observe_step`` observes the receptive field
+once a batch and ``imagine_step`` imagines the future horizon from it, as
+often as a caller wants imagination samples; ``eval_step`` is one of each
+and returns the losses of both.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -17,7 +20,8 @@ import torch
 
 from muvo_tpu_torch.device import resolve_device
 from muvo_tpu_torch.models.preprocess import PreProcess
-from muvo_tpu_torch.models.world_model import MuvoWorldModel
+from muvo_tpu_torch.models.world_model import (MuvoWorldModel,
+                                               imagine_inputs, last_state)
 from muvo_tpu_torch.training.objectives import compute_loss, reduce_loss
 from muvo_tpu_torch.training.optim import Optimizer
 from muvo_tpu_torch.utils.precision import autocast, compute_dtype_from_cfg
@@ -107,41 +111,80 @@ class WorldModelTrainer:
         self.state.step += 1
         return metrics
 
-    @torch.no_grad()
-    def eval_step(self, batch: Dict,
-                  generator: Optional[torch.Generator] = None,
-                  stochastic: bool = True) -> Dict:
-        """Observe the receptive field (losses of the reconstruction), then
-        imagine the future horizon from the last posterior state (losses of
-        the imagination), as muvo_tpu's eval step. ``stochastic=False``
-        takes the mean of every latent distribution, for checks."""
+    @contextlib.contextmanager
+    def _evaluating(self):
+        """No autograd and the model in eval mode, back in training mode
+        afterwards."""
         model = self.state.model.eval()
         try:
+            with torch.no_grad():
+                yield model
+        finally:
+            model.train()
+
+    def observe_step(self, batch: Dict,
+                     generator: Optional[torch.Generator] = None,
+                     stochastic: bool = True) -> Dict:
+        """The posterior observation of the receptive field of a raw batch
+        and its reconstruction losses, once a batch: {pb (the preprocessed
+        batch, every frame), losses, output (fp32), hidden_state, sample
+        (the last posterior state, when there is a horizon to imagine)}.
+        ``stochastic=False`` takes the mean of every latent distribution,
+        for checks."""
+        with self._evaluating() as model:
             pb = self.preprocess(self.to_device(batch), training=False)
             batch_rf = {k: v[:, :self.rf] for k, v in pb.items()}
-            batch_fh = {k: v[:, self.rf:] for k, v in pb.items()}
             with autocast(self.device, self.compute_dtype):
                 output, state_dict = model(batch_rf, training=False,
                                            generator=generator,
                                            stochastic=stochastic)
-            out = {"losses": compute_loss(self.cfg, batch_rf, output),
+            output = _to_fp32(output)
+            out = {"pb": pb,
+                   "losses": compute_loss(self.cfg, batch_rf, output),
                    "output": output}
             if self.fh > 0:
-                posterior = state_dict["posterior"]
-                imagine_batch = {
-                    "hidden_state": posterior["hidden_state"][:, -1],
-                    "sample": posterior["sample"][:, -1],
-                    "throttle_brake": batch_fh["throttle_brake"],
-                    "steering": batch_fh["steering"],
-                }
-                with autocast(self.device, self.compute_dtype):
-                    imagined = model.imagine(imagine_batch,
-                                             future_horizon=self.fh,
-                                             generator=generator,
-                                             use_sample=stochastic)
-                out["losses_imagine"] = compute_loss(self.cfg, batch_fh,
-                                                     imagined)
-                out["output_imagine"] = imagined
+                out["hidden_state"], out["sample"] = last_state(state_dict)
             return out
-        finally:
-            model.train()
+
+    def imagine_step(self, pb: Dict, hidden_state, sample,
+                     generator: Optional[torch.Generator] = None,
+                     stochastic: bool = True) -> Dict:
+        """One imagination of the future horizon from ``observe_step``'s
+        last posterior state, and its losses against ``pb``'s future
+        frames: {losses_imagine, output_imagine (fp32)}. Run it once for
+        each imagination sample of a batch."""
+        batch_fh = {k: v[:, self.rf:] for k, v in pb.items()}
+        imagine_batch = imagine_inputs(hidden_state, sample, batch_fh)
+        with self._evaluating() as model:
+            with autocast(self.device, self.compute_dtype):
+                imagined = model.imagine(imagine_batch,
+                                         future_horizon=self.fh,
+                                         generator=generator,
+                                         use_sample=stochastic)
+            imagined = _to_fp32(imagined)
+            return {"losses_imagine": compute_loss(self.cfg, batch_fh,
+                                                   imagined),
+                    "output_imagine": imagined}
+
+    def eval_step(self, batch: Dict,
+                  generator: Optional[torch.Generator] = None,
+                  stochastic: bool = True) -> Dict:
+        """Observe the receptive field (losses of the reconstruction), then
+        imagine the future horizon once from the last posterior state
+        (losses of the imagination), as muvo_tpu's eval step: {pb,
+        losses, output, losses_imagine, output_imagine}."""
+        out = self.observe_step(batch, generator, stochastic)
+        if self.fh > 0:
+            out.update(self.imagine_step(out["pb"], out.pop("hidden_state"),
+                                         out.pop("sample"), generator,
+                                         stochastic))
+        return out
+
+
+def _to_fp32(tree):
+    """Every floating tensor of a (nested) dict in fp32."""
+    if isinstance(tree, dict):
+        return {k: _to_fp32(v) for k, v in tree.items()}
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return tree.float()
+    return tree

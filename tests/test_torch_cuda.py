@@ -853,3 +853,77 @@ def test_dw_launches_the_tensor_core_kernel_in_bf16_only(dev):
     with pytest.raises(ValueError):
         zconv.upzconv3d_dw(big, gb, gb, 0.2)
     assert zconv.upzconv3d_dw.launches == n
+
+
+def _suite_inputs(seed, b=1, s=2):
+    """Seeded labels and outputs at muvo.yml's output shapes (rgb at its
+    IMAGE.CROP, the range view, the voxels of 2 classes with 10% of the
+    labels 255), on the host."""
+    from muvo_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(os.path.dirname(__file__), "..",
+                                     "muvo_tpu_torch", "configs", "muvo.yml"))
+    gen = torch.Generator().manual_seed(seed)
+    ih = cfg.IMAGE.CROP[3] - cfg.IMAGE.CROP[1]
+    iw = cfg.IMAGE.CROP[2] - cfg.IMAGE.CROP[0]
+    h, w = cfg.POINTS.CHANNELS, cfg.POINTS.HORIZON_RESOLUTION
+    rgb = torch.rand((b, s, ih, iw, 3), generator=gen)
+    rv = torch.rand((b, s, h, w, 4), generator=gen) * 2 - 1
+    voxel = torch.randint(0, 2, (b, s, *cfg.VOXEL.SIZE), generator=gen,
+                          dtype=torch.uint8)
+    voxel[torch.rand(voxel.shape, generator=gen) < 0.1] = 255
+    labels = {"rgb_label_1": rgb, "range_view_label_1": rv,
+              "voxel_label_1": voxel}
+    output = {
+        "rgb_1": (rgb + 0.1 * torch.randn(rgb.shape, generator=gen)).clamp(
+            0, 1),
+        "lidar_reconstruction_1": rv + 0.05 * torch.randn(rv.shape,
+                                                          generator=gen),
+        "voxel_1": torch.randn((b, s, *cfg.VOXEL.SIZE, 2), generator=gen)}
+    return cfg, labels, output
+
+
+def test_metric_suite_on_the_card_matches_the_host(dev):
+    """muvo.yml's metric suite (SSIM, PSNR, Chamfer at 10,000 columns, the
+    SSC counts) on the card against the host, two updates, the same
+    outputs, labels and columns: the counts equal, the running totals
+    within 1e-4 relative (fp32, TF32 off)."""
+    from muvo_tpu_torch.training.evaluator import MetricSuite
+
+    card, host = None, None
+    for seed in (0, 1):
+        cfg, labels, output = _suite_inputs(seed)
+        if card is None:
+            card, host = MetricSuite(cfg, dev), MetricSuite(cfg, "cpu")
+        card.update({k: v.to(dev) for k, v in labels.items()},
+                    {k: v.to(dev) for k, v in output.items()},
+                    torch.Generator().manual_seed(seed))
+        host.update(labels, output, torch.Generator().manual_seed(seed))
+    for key, v in host.state["ssc"].items():
+        assert torch.equal(card.state["ssc"][key].cpu(), v), key
+    for key in ("ssim", "psnr", "cd"):
+        got, want = (card.state[key]["total"].item(),
+                     host.state[key]["total"].item())
+        assert abs(got - want) <= 1e-4 * abs(want), (key, got, want)
+    assert card.state["cd"]["total"].device.type == "cuda"
+
+
+def test_chamfer_at_10000_columns_matches_the_host(dev):
+    """chamfer_batch's Gram form at the evaluator's 10,000 columns: the
+    card against the host within 1e-4 relative, with TF32 off inside
+    chamfer_batch even where the caller turned it on."""
+    from muvo_tpu_torch import metrics
+
+    gen = torch.Generator().manual_seed(3)
+    pred = 50 * (torch.rand((2, 10000, 3), generator=gen) * 2 - 1)
+    target = pred + torch.randn(pred.shape, generator=gen)
+    want = metrics.chamfer_batch(pred, target).item()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = metrics.chamfer_batch(pred.to(dev), target.to(dev)).item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert torch.backends.cuda.matmul.allow_tf32 == saved
+    assert abs(got - want) <= 1e-4 * abs(want), (got, want)

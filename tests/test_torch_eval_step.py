@@ -7,6 +7,9 @@ Pallas kernels in interpret mode), with the same seeded weights and batch
 and sampling at the mean on both sides (tests/torch_port_common.py).
 The same holds with MODEL.TRANSFORMER.LARGE (stride-8 features through the
 top-down Decoder; on the CPU both sides take their math attention path).
+The port's split steps (observe_step once, then imagine_step) and its
+model's observe_and_imagine are held against the same muvo_tpu eval
+outputs: they compute the same quantities.
 Tolerance: each loss term of both passes 1e-4 relative (fp32, summation
 order), as the train step's; the decoded outputs 1e-3 norm-relative
 (|got - want| / |want|, Frobenius norms).
@@ -33,6 +36,7 @@ import_torch_dynamo()  # WorldModelTrainer builds a torch.optim optimizer
 
 LOSS_TOL = 1e-4
 OUTPUT_TOL = 1e-3
+BATCH_SEED = 4
 
 
 def _eval_pair(large: bool):
@@ -41,7 +45,7 @@ def _eval_pair(large: bool):
         deterministic_jax(mp)
         jcfg, pcfg = fp32_cfgs()
         jcfg.MODEL.TRANSFORMER.LARGE = pcfg.MODEL.TRANSFORMER.LARGE = large
-        batch = synthetic_batch(pcfg, 2, 3, seed=4)
+        batch = synthetic_batch(pcfg, 2, 3, seed=BATCH_SEED)
         trainer, state = jax_trainer_and_state(jcfg, batch)
         trainer.compute_dtype = jnp.float32
         eval_fn = trainer.make_eval_step()
@@ -115,3 +119,45 @@ def test_eval_step_returns_to_train_mode(eval_pair):
     model = port.state.model
     assert model.training
     assert all(m.training for m in model.modules())
+
+
+def _split_steps(port):
+    """observe_step, then one imagine_step from its last posterior state."""
+    batch = synthetic_batch(port.cfg, 2, 3, seed=BATCH_SEED)
+    obs = port.observe_step(batch, stochastic=False)
+    imagined = port.imagine_step(obs["pb"], obs["hidden_state"],
+                                 obs["sample"], stochastic=False)
+    return {"losses": obs["losses"], "output": obs["output"], **imagined}
+
+
+def _observe_and_imagine(port):
+    batch = synthetic_batch(port.cfg, 2, 3, seed=BATCH_SEED)
+    model = port.state.model.eval()
+    try:
+        with torch.no_grad():
+            pb = port.preprocess(port.to_device(batch), training=False)
+            output, imagined = model.observe_and_imagine(pb,
+                                                         stochastic=False)
+    finally:
+        model.train()
+    return {"output": output, "output_imagine": imagined}
+
+
+@pytest.mark.parametrize("pair", ["eval_pair", "eval_pair_large"])
+def test_split_eval_steps_match(request, pair):
+    _, want, port = request.getfixturevalue(pair)
+    got = _split_steps(port)
+    for part in ("losses", "losses_imagine"):
+        _assert_losses_match((got, want, port), part)
+    for part in ("output", "output_imagine"):
+        _assert_outputs_match((got, want, port), part)
+        assert all(v.dtype == torch.float32 for v in got[part].values()
+                   if torch.is_tensor(v) and v.is_floating_point())
+
+
+@pytest.mark.parametrize("pair", ["eval_pair", "eval_pair_large"])
+def test_observe_and_imagine_matches(request, pair):
+    _, want, port = request.getfixturevalue(pair)
+    got = _observe_and_imagine(port)
+    for part in ("output", "output_imagine"):
+        _assert_outputs_match((got, want, port), part)

@@ -65,7 +65,8 @@ def test_get_cfg_equals_muvo_tpu(config_file):
 
 @pytest.mark.parametrize("name", ["CARLA_FPS", "SEMANTIC_SEG_WEIGHTS",
                                   "VOXEL_SEG_WEIGHTS",
-                                  "EGO_VEHICLE_DIMENSION"])
+                                  "EGO_VEHICLE_DIMENSION",
+                                  "BIRDVIEW_COLOURS", "VOXEL_COLOURS"])
 def test_constants_equal_muvo_tpus(name):
     got, want = getattr(port_constants, name), getattr(jax_constants, name)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
@@ -83,9 +84,31 @@ def test_label_remap_table_equals_muvo_tpus():
 @pytest.mark.parametrize("copy,original", [
     ("muvo_tpu_torch/native/range_view.cpp", "muvo_tpu/native/range_view.cpp"),
     ("muvo_tpu_torch/utils/hostmem.py", "muvo_tpu/utils/hostmem.py"),
+    ("muvo_tpu_torch/geometry/icp.py", "muvo_tpu/geometry/icp.py"),
 ])
 def test_host_sources_are_muvo_tpus(copy, original):
     assert (ROOT / copy).read_bytes() == (ROOT / original).read_bytes()
+
+
+def test_visualisation_is_muvo_tpus_but_for_its_imports():
+    """The panel helpers are muvo_tpu's, line for line, but for the
+    constants' import and the 3-D voxel render's one rescale of the view
+    (the same pixels: tests/test_torch_visualise.py)."""
+    got = (ROOT / "muvo_tpu_torch/visualisation.py").read_text()
+    want = (ROOT / "muvo_tpu/visualisation.py").read_text()
+    one_rescale = """    # ax.voxels adds one collection a voxel and rescales the view after
+    # each, over every collection so far: quadratic in the voxels. The view
+    # is rescaled once, over the same data limits, after the last.
+    ax.autoscale_view = lambda *args, **kwargs: None
+    ax.voxels(occupancy, facecolors=facecolors, shade=False)
+    del ax.autoscale_view
+    ax.autoscale_view()
+"""
+    want = want.replace(
+        "from muvo_tpu.constants import", "from muvo_tpu_torch.constants import"
+    ).replace("    ax.voxels(occupancy, facecolors=facecolors, shade=False)\n",
+              one_rescale)
+    assert got == want
 
 
 def test_native_library_builds_under_build_dir():

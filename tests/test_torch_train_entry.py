@@ -17,11 +17,12 @@ frames at stride 2) and a val0 run of 8.
   layer4.0 bn2 bias rounds by 1.9e-2 (fp32 against float64, in the port
   alone), and the two packages' fp32 gradients differ there by 2.0e-2.
 - Resume: ``main(device="cpu")`` with ACCUMULATE_GRAD_BATCHES 2, 5 steps
-  in one run against 3 steps and a resume to 5 (the checkpoint holds one
-  update's AdamW moments and a gradient waiting for the next; the resume
-  crosses an epoch and ends between two updates): every parameter,
-  buffer, AdamW moment and accumulated gradient bit-equal, the same
-  logged losses.
+  in one run against a resume to 5 from that run's checkpoint of step 3,
+  saved at its validation as a run stopped there saves it (the checkpoint
+  holds one update's AdamW moments and a gradient waiting for the next;
+  the resume crosses an epoch and ends between two updates): every
+  parameter, buffer, AdamW moment and accumulated gradient bit-equal, the
+  same logged losses.
 - Checkpoints: a port checkpoint read by muvo_tpu's
   ``load_reference_weights`` and carried back by ``state_dict_from_jax``
   is the port's state_dict; an upstream-style ``model.``-prefixed ``.ckpt``
@@ -32,6 +33,7 @@ AdamW moments, the accumulated gradients), so each test removes its runs.
 
 import json
 import math
+import os
 import shutil
 
 import jax
@@ -43,7 +45,6 @@ import torch
 from muvo_tpu.data.dataset import CarlaDataset as JaxCarlaDataset
 from muvo_tpu.data.loader import DataLoader as JaxDataLoader
 from muvo_tpu.training.weight_convert import load_reference_weights
-from muvo_tpu_torch.config import get_cfg
 from muvo_tpu_torch.data.dataset import CarlaDataset
 from muvo_tpu_torch.data.loader import DataLoader
 from muvo_tpu_torch.data.synthetic import tiny_test_cfg
@@ -56,7 +57,7 @@ from test_torch_train_step import (LOSS_TOL, NOISE_DRAWS, NOISE_FACTOR,
                                    NORM_TOL, ULP, _grad_ok, _norm_rel)
 from torch_port_common import (deterministic_jax, float64_step, fp32_cfgs,
                                import_torch_dynamo, jax_trainer_and_state,
-                               port_model, write_recorded_run)
+                               port_model, tiny_argv, write_recorded_run)
 
 import_torch_dynamo()  # the train loop steps torch.optim's AdamW
 
@@ -184,32 +185,14 @@ def test_recorded_batch_gradients_match(slice_pair):
     assert not bad, sorted(bad.items(), key=lambda kv: -kv[1][0])[:5]
 
 
-def _flat(d, prefix=""):
-    out = {}
-    for k, v in d.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, prefix + k + "."))
-        else:
-            out[prefix + k] = v
-    return out
-
-
 def _argv(recording, log_dir, steps, **extra):
     """The command line of a tiny_test_cfg run on ``recording``."""
-    tiny = _flat(tiny_test_cfg().convert_to_dict())
-    default = _flat(get_cfg().convert_to_dict())
-    argv = []
-    for key, value in tiny.items():
-        if value != default[key]:
-            argv += [key, repr(value)]
-    opts = {"DATASET.DATAROOT": recording,
-            "DATASET.FILTER_BEGINNING_OF_RUN_SEC": 0.0, "LOG_DIR": log_dir,
-            "STEPS": steps, "LOGGING_INTERVAL": 1, "VAL_CHECK_INTERVAL": 3,
-            "LIMIT_VAL_BATCHES": 1, "OPTIMIZER.ACCUMULATE_GRAD_BATCHES": 2,
-            **extra}
-    for key, value in opts.items():
-        argv += [key, repr(value)]
-    return argv
+    return tiny_argv(**{"DATASET.DATAROOT": recording,
+                        "DATASET.FILTER_BEGINNING_OF_RUN_SEC": 0.0,
+                        "LOG_DIR": log_dir, "STEPS": steps,
+                        "LOGGING_INTERVAL": 1, "VAL_CHECK_INTERVAL": 3,
+                        "LIMIT_VAL_BATCHES": 1,
+                        "OPTIMIZER.ACCUMULATE_GRAD_BATCHES": 2, **extra})
 
 
 def _records(log_dir):
@@ -233,20 +216,30 @@ def test_resumed_run_ends_bit_equal_to_an_uninterrupted_one(
     try:
         whole = main(_argv(recording, str(tmp_path / "whole"), 5),
                      device="cpu")
-        shutil.rmtree(tmp_path / "whole")
-        first = main(_argv(recording, str(tmp_path / "first"), 3),
-                     device="cpu")
-        assert CheckpointManager(f"{first.log_dir}/checkpoints").steps() == [3]
+        # the whole run saved at its validation at step 3, as a run that
+        # stopped there would have: the resume starts from that checkpoint
+        saved = CheckpointManager(f"{whole.log_dir}/checkpoints")
+        assert saved.steps() == [3, 5]
+        stopped = tmp_path / "stopped"
+        stopped.mkdir()
+        for name in ("ckpt_3.pt", "meta_3.json"):
+            os.link(f"{saved.directory}/{name}", stopped / name)
+        # the resumed run ends on a validation step, which saves once:
+        # the end of the run does not save that step again (validation
+        # leaves the trained state as it was)
         resumed = main(_argv(recording, str(tmp_path / "resumed"), 5,
-                             **{"PRETRAINED.PATH":
-                                f"{first.log_dir}/checkpoints"}),
+                             **{"PRETRAINED.PATH": str(stopped),
+                                "VAL_CHECK_INTERVAL": 5}),
                        device="cpu")
-        first_records = _records(first.log_dir)
+        resumed_saves = CheckpointManager(
+            f"{resumed.log_dir}/checkpoints").steps()
+        whole_records = _records(whole.log_dir)
         resumed_records = _records(resumed.log_dir)
     finally:
         shutil.rmtree(tmp_path, ignore_errors=True)
-    assert (first.start_step, first.step) == (0, 3)
+    assert (whole.start_step, whole.step) == (0, 5)
     assert (resumed.start_step, resumed.step) == (3, 5)
+    assert resumed_saves == [5]
     # 4 sequences an epoch: the resume goes on with epoch 0's last batch
     # and epoch 1's first; the updates fall at steps 2 and 4, and one
     # gradient waits at step 5
@@ -265,16 +258,21 @@ def test_resumed_run_ends_bit_equal_to_an_uninterrupted_one(
         assert torch.equal(got_sd[name], v), name
 
     loss_keys = {"train_" + k for k in slice_pair["want"]}
-    train = [r for r in first_records + resumed_records
-             if "train_loss" in r]
+    train = [r for r in whole_records if "train_loss" in r]
     assert [r["step"] for r in train] == [1, 2, 3, 4, 5]
     for record in train:
         assert set(record) == loss_keys | {"step", "train_fps_per_chip",
                                            "train_lr"}
         assert all(math.isfinite(v) for v in record.values())
-    val = [r for r in first_records + resumed_records
-           if any(k.startswith("val0_") for k in r)]
-    assert [r["step"] for r in val] == [3]
+    resumed_train = [r for r in resumed_records if "train_loss" in r]
+    assert [r["step"] for r in resumed_train] == [4, 5]
+    for record, want in zip(resumed_train, train[3:]):
+        assert {k: record[k] for k in loss_keys} == {
+            k: want[k] for k in loss_keys}
+    val = [[r for r in records if any(k.startswith("val0_") for k in r)]
+           for records in (whole_records, resumed_records)]
+    assert [[r["step"] for r in v] for v in val] == [[3], [5]]
+    assert all(math.isfinite(v) for rs in val for r in rs for v in r.values())
 
 
 def test_port_checkpoint_loads_into_muvo_tpu_and_back(slice_pair, tmp_path):

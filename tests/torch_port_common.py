@@ -8,12 +8,30 @@ kernels N(0, 1/fan_in), biases, BatchNorm affine parameters and statistics
 spread around their neutral values, so that every carried leaf matters.
 """
 
+import os
 import sys
 from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
+
+
+def share_cores_among_workers():
+    """Under pytest-xdist, torch's intra-op threads in each worker: the
+    cores shared among the workers, at least 2. torch's default, a thread
+    for each core in every worker, oversubscribes the cores as many times
+    as there are workers, and its OpenMP threads spin while they wait: six
+    of the port's test files took 391 s summed with the default and 276 s
+    with 2 threads, in 6 workers on 8 cores. Every worker imports this
+    module when it collects the port's tests."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers > 1:
+        torch.set_num_threads(max(2, (os.cpu_count() or 1) // workers))
+
+
+share_cores_among_workers()
 
 
 def import_torch_dynamo():
@@ -121,8 +139,6 @@ def float64_step(port, batch):
     term}, {parameter name: gradient})."""
     import copy
 
-    import torch
-
     from muvo_tpu_torch.training.objectives import compute_loss, reduce_loss
 
     model = copy.deepcopy(port.state.model).double().train()
@@ -152,6 +168,34 @@ def port_model(state, port_cfg):
         state_dict_from_jax(state.params, state.batch_stats, port_cfg),
         strict=True)
     return model.eval()
+
+
+def _flat(d, prefix=""):
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + k + "."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def tiny_argv(**opts):
+    """The command line of the port's entry points for tiny_test_cfg: its
+    keys that differ from get_cfg()'s, then ``opts`` (dotted keys), each
+    as ``KEY repr(value)``."""
+    from muvo_tpu_torch.config import get_cfg
+    from muvo_tpu_torch.data.synthetic import tiny_test_cfg
+
+    tiny = _flat(tiny_test_cfg().convert_to_dict())
+    default = _flat(get_cfg().convert_to_dict())
+    argv = []
+    for key, value in tiny.items():
+        if value != default[key]:
+            argv += [key, repr(value)]
+    for key, value in opts.items():
+        argv += [key, repr(value)]
+    return argv
 
 
 def _recorded_obs(rs, h, w, n_points):
