@@ -91,18 +91,33 @@ exits nonzero (there is no CPU fallback):
    counts equal, SSIM, PSNR and Chamfer within 1e-4). The metrics, the
    median ms of observe_step, imagine_step and MetricSuite.update, test
    batches a second, peak MiB, the panels drawn and the packages found.
-10. serving_large: muvo.yml with MODEL.TRANSFORMER.LARGE (stride-8 features,
+10. train_heads: ``main`` again on that drive (its integer BEV PNGs and
+   depth-semantic PNGs), muvo.yml with the BEV decoder and its instance
+   heads, the LiDAR segmentation, semantic-image and depth decoders, the
+   RGB instance loss, EVAL.MASK_VIEW and PointPillars on 60,000 points a
+   frame: 10 steps (batch 1, bf16, remat off) with one validation. Every
+   logged loss finite and each new term logged at the three scales; bf16
+   K1, K2, K1-dx, K2-dx, K3 and K3-up launched as predicted; the trained
+   PointPillarNet on the drive's first frame, card against host in fp32
+   within 1e-5. Step ms, frames/s, host ms between steps, peak MiB, and
+   the loader's decode ms a frame beside muvo.yml's.
+11. serving_mobilevit: test_mobilevit_2d.yml (MobileViTV2 camera and
+   LiDAR trunks) at full width through DeploymentSession, fp32: fp32 K1
+   and K2 4 launches each a sim tick, K4 none, outputs finite with
+   muvo_tpu's shapes, one frame's embedding and one decode on the card
+   against the port's host run within 1e-3. Tick ms and peak MiB.
+12. serving_large: muvo.yml with MODEL.TRANSFORMER.LARGE (stride-8 features,
    5,184 fusion tokens a frame) through DeploymentSession, fp32: K4 must be
    launched once a layer for each encode, outputs must be finite with
    muvo_tpu's shapes, and one frame's embedding on the card must match the
    port's host run (the math attention path).
-11. training_large: build_flagship_step(large=True) (1 x 6 frames, bf16),
+13. training_large: build_flagship_step(large=True) (1 x 6 frames, bf16),
    3 warm-up steps, then timed steps with K4 and K5 launched once a layer a
    step; then gradients with the split backward (K6, not K5) against the
    fused backward's, each leaf within 2e-2 plus 8x the fused gradient's
    own noise (its change on a rerun, or from a scaled loss, the larger).
    tools/torch_large_grad_check.py repeats this phase alone.
-12. microbench: tools/torch_flash_microbench.py, K4-mb and K4 at bh 16.
+14. microbench: tools/torch_flash_microbench.py, K4-mb and K4 at bh 16.
 
 Each main path's launch counts are set to 0 just before it runs and read
 just after; each wrapper counts its launches by the tensors' type. The
@@ -724,33 +739,88 @@ def card_vs_host(dev):
         raise AssertionError(f"card gradients differ from host: {bad}")
 
 
+BEV_CLASSES = 8  # background, road, lane markings, vehicle, pedestrian,
+                 # green, yellow and red light (dataset_utils' stack)
+
+
+def birdview_masks(rs, bev_h: int, bev_w: int):
+    """One frame's BEV_CLASSES binary masks (C, h, w) with a road, lane
+    markings on it, a few dozen vehicles and pedestrians (separate boxes,
+    so the instance labels count more than 32 in some frames) and a light,
+    background where nothing else is."""
+    import numpy as np
+
+    masks = np.zeros((BEV_CLASSES, bev_h, bev_w), np.uint8)
+    masks[1, :, bev_w // 3:2 * bev_w // 3] = 1
+    masks[2, ::8, bev_w // 2 - 1:bev_w // 2 + 1] = 1
+    for cls, count, size in ((3, rs.randint(10, 40), 8), (4, 12, 3)):
+        for _ in range(count):
+            y, x = rs.randint(0, bev_h - size), rs.randint(0, bev_w - size)
+            masks[cls, y:y + size, x:x + size - 2] = 1
+    masks[5 + rs.randint(3), 4:8, 4:8] = 1
+    masks[0] = masks[1:].sum(0) == 0
+    return masks
+
+
+def depth_semantic_frame(rs, h: int, w: int):
+    """One frame of CARLA's depth-semantic camera (h, w, 4) uint8: depth
+    in [0, 1] coded in 24 bits (R * 65536 + G * 256 + B over 2^24 - 1;
+    sky past 0.999) over rows, and the tag channel in blocks of CARLA's
+    tags 0..22 (vehicles 10 and pedestrians 4 among them)."""
+    import numpy as np
+
+    depth = np.linspace(1.0, 0.002, h)[:, None] * rs.uniform(0.5, 1.0, w)
+    depth[: h // 6] = 1.0
+    code = np.round(depth * (256 ** 3 - 1)).astype(np.int64)
+    frame = np.empty((h, w, 4), np.uint8)
+    frame[..., 0] = code // 65536
+    frame[..., 1] = code // 256 % 256
+    frame[..., 2] = code % 256
+    tags = rs.randint(0, 23, (h // 20 + 1, w // 20 + 1))
+    frame[..., 3] = np.kron(tags, np.ones((20, 20), np.int64))[:h, :w]
+    return frame
+
+
 def record_drive(run_dir: Path, cfg, n_frames: int, seed: int) -> int:
     """A recorded drive at ``cfg``'s sizes in the CARLA dataset's layout
     (muvo_tpu_torch/data/dataset.py's module docstring), written with PIL
     and pandas from a numpy seed: RGB PNGs of IMAGE.SIZE, route-map PNGs,
-    POINTS.N_PER_SECOND / CARLA_FPS semantic LiDAR points a frame inside
-    the sensor's field of view, sparse voxel rows (x, y, z, tag) on
-    VOXEL.SIZE (a ground plane and scattered cells), and the actions,
-    speed, a reward of at least 0.6 and the value. Returns the bytes
-    written."""
+    the bit-packed integer BEV PNGs of BEV.SIZE (BEV_CLASSES bits), the
+    depth-semantic PNGs of IMAGE.SIZE, POINTS.N_PER_SECOND / CARLA_FPS
+    semantic LiDAR points a frame inside the sensor's field of view,
+    sparse voxel rows (x, y, z, tag) on VOXEL.SIZE (a ground plane and
+    scattered cells), and the actions, speed, a reward of at least 0.6 and
+    the value. Returns the bytes written."""
     import numpy as np
     import pandas as pd
     from PIL import Image
 
+    from muvo_tpu_torch.data.dataset_utils import binary_to_integer
+
     rs = np.random.RandomState(seed)
     h, w = cfg.IMAGE.SIZE
+    bev_w, bev_h = cfg.BEV.SIZE
     n_points = int(cfg.POINTS.N_PER_SECOND / 10)  # CARLA_FPS
     vx, vy, vz = cfg.VOXEL.SIZE
     down, up = (math.radians(a) for a in cfg.POINTS.FOV)
-    for sub in ("image", "routemap", "points_semantic", "voxel"):
+    files = (("image", "png"), ("routemap", "png"), ("birdview", "png"),
+             ("depth_semantic", "png"), ("points_semantic", "npy"),
+             ("voxel", "npy"))
+    for sub, _ in files:
         (run_dir / sub).mkdir(parents=True, exist_ok=True)
     rows = []
     for t in range(n_frames):
-        row = {k: f"{k}/{k}_{t:09d}.{ext}" for k, ext in (
-            ("image", "png"), ("routemap", "png"), ("points_semantic", "npy"),
-            ("voxel", "npy"))}
+        row = {k: f"{k}/{k}_{t:09d}.{ext}" for k, ext in files}
         Image.fromarray(rs.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(
             run_dir / row["image"])
+        masks = birdview_masks(rs, bev_h, bev_w)
+        packed = binary_to_integer(masks.reshape(BEV_CLASSES, -1).T,
+                                   BEV_CLASSES).reshape(bev_h, bev_w)
+        # 16-bit grayscale: PNG's integer mode that Pillow keeps saving
+        Image.fromarray(packed.astype(np.uint16)).save(
+            run_dir / row["birdview"])
+        Image.fromarray(depth_semantic_frame(rs, h, w)).save(
+            run_dir / row["depth_semantic"])
         route = np.zeros((192, 192), np.uint8)
         route[rs.randint(40, 90):150, 90:102] = 255
         Image.fromarray(route, mode="L").save(run_dir / row["routemap"])
@@ -773,6 +843,7 @@ def record_drive(run_dir: Path, cfg, n_frames: int, seed: int) -> int:
                 np.c_[cells, tags].astype(np.uint16))
         throttle = rs.uniform(-0.5, 1.0)
         rows.append({**{f"{k}_path": v for k, v in row.items()},
+                     "n_classes": BEV_CLASSES,
                      "action": np.array([max(throttle, 0.0),
                                          rs.uniform(-1, 1),
                                          max(-throttle, 0.0)], np.float32),
@@ -1035,6 +1106,138 @@ def train_entry_phase(dev, work: Path):
         raise AssertionError(f"panels {sorted(drawn)} with {undrawable} "
                              f"undrawable")
     return typed, {"drawn": rec["panels"], "undrawable": undrawable}
+
+
+HEADS_STEPS = 10  # train_heads: 3 warm-up steps, 7 timed, one validation
+# the label branches, heads and LiDAR encoder train_heads adds to muvo.yml
+HEADS = ("SEMANTIC_SEG.ENABLED", "LIDAR_SEG.ENABLED", "SEMANTIC_IMAGE.ENABLED",
+         "DEPTH.ENABLED", "LOSSES.RGB_INSTANCE", "EVAL.MASK_VIEW",
+         "MODEL.LIDAR.POINT_PILLAR.ENABLED")
+HEAD_TERMS = ("bev_segmentation", "bev_center", "bev_offset", "lidar_seg",
+              "semantic_image", "depth")
+PILLAR_TOL = 1e-5  # PointPillarNet card against host, fp32, norm-relative
+
+
+def train_heads_phase(dev, work: Path):
+    """``muvo_tpu_torch.train.main`` on the train_entry phase's drive
+    (its integer BEV PNGs and depth-semantic PNGs decoded by the loader)
+    with muvo.yml plus HEADS: the BEV decoder with its instance heads, the
+    LiDAR segmentation, semantic-image and depth decoders, the RGB
+    instance loss, the out-of-view BEV mask, and PointPillars on 60,000
+    points a frame in place of the range view (which stays the LiDAR
+    labels'). Batch 1, bf16, remat off: HEADS_STEPS steps, validation and
+    a checkpoint at the last. Every logged loss finite and each of
+    HEAD_TERMS present at the three scales, in training and validation;
+    bf16 K1, K2, K1-dx, K2-dx, K3 and K3-up launched as predicted, no
+    flash kernel. Then the loader's decode ms a frame under muvo.yml and
+    under this config, and the trained PointPillarNet on the drive's
+    first frame, card against host in fp32 (eval and training mode),
+    within PILLAR_TOL. Returns the launches by type."""
+    from muvo_tpu_torch.data.dataset import CarlaDataset
+    from muvo_tpu_torch.train import main as train_main
+    from muvo_tpu_torch.training.flagship import MUVO_YML
+
+    heads = [x for key in HEADS for x in (key, "True")]
+    data = ["DATASET.DATAROOT", str(work / "drives"),
+            "DATASET.FILTER_BEGINNING_OF_RUN_SEC", "0.0"]
+    cfg = muvo_cfg()
+    cfg.merge_from_list(heads + data)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    with instrumented_train_loop(dev) as rec:
+        t0 = time.perf_counter()
+        run = train_main(["--config-file", str(MUVO_YML), *data, *heads,
+                          "LOG_DIR", str(work / "heads"),
+                          "STEPS", str(HEADS_STEPS),
+                          "LOGGING_INTERVAL", "1",
+                          "VAL_CHECK_INTERVAL", str(HEADS_STEPS),
+                          "LIMIT_VAL_BATCHES", "1"], device=dev)
+        run_s = time.perf_counter() - t0
+    typed = read_typed_launches()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    records = logged_losses(run.log_dir)
+    n_train, n_val = len(rec["train_ms"]), len(rec["eval_ms"])
+    val = rec["val_launches"]
+    train = {kid: {t: n - val.get(kid, {}).get(t, 0) for t, n in types.items()
+                   if n - val.get(kid, {}).get(t, 0)}
+             for kid, types in typed.items()}
+    per_step, per_eval = predicted_launches(cfg), predicted_eval_launches(cfg)
+
+    # the loader's decode of a frame, muvo.yml's against this config's
+    # (one thread decodes a step's 6 frames): the mean of 6 frames, after
+    # a first, untimed one, in turns (muvo.yml, heads, heads, muvo.yml)
+    base = muvo_cfg()
+    base.merge_from_list(data)
+    datasets = {"muvo.yml": CarlaDataset(base, "train", 1),
+                "heads": CarlaDataset(cfg, "train", 1)}
+    decode_ms = {name: [] for name in datasets}
+    for name in ("muvo.yml", "heads", "heads", "muvo.yml"):
+        frame = datasets[name][0]
+        t0 = time.perf_counter()
+        for i in range(1, 7):
+            frame = datasets[name][i]
+        decode_ms[name].append((time.perf_counter() - t0) * 1e3 / 6)
+
+    # PointPillarNet of the trained model on the drive's first frame
+    frame = datasets["heads"][0]
+    points = torch.from_numpy(frame["points_raw"])
+    num = torch.from_numpy(frame["num_points"])
+    net = run.trainer.state.model.point_pillars
+    pillar_err = {}
+    for mode in ("eval", "train"):
+        card, host = copy.deepcopy(net), copy.deepcopy(net).cpu()
+        card.train(mode == "train")
+        host.train(mode == "train")
+        with torch.no_grad():
+            got = card(points.to(dev), num.to(dev)).cpu()
+            pillar_err[mode] = norm_rel(got, host(points, num))
+    del run, net
+    median = statistics.median(rec["train_ms"][3:])
+    frames = cfg.BATCHSIZE * (cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON)
+    losses = {k for r in records for k in r}
+    want_terms = {f"{split}_{term}_{k}" for split in ("train", "val0")
+                  for term in HEAD_TERMS for k in (1, 2, 4)}
+    emit({"phase": "train_heads", "config": "muvo.yml + " + " ".join(HEADS),
+          "batch": cfg.BATCHSIZE, "frames_per_step": frames,
+          "points_per_frame": int(frame["num_points"][0]),
+          "precision": str(cfg.PRECISION), "remat": bool(cfg.MODEL.REMAT),
+          "run_s": run_s, "train_steps": n_train, "val_steps": n_val,
+          "step_ms": rec["train_ms"], "step_ms_median": median,
+          "frames_per_s": frames / (median / 1e3),
+          "host_gap_ms_median": statistics.median(rec["gap_ms"]),
+          "decode_ms_a_frame": decode_ms,
+          "eval_ms": rec["eval_ms"], "peak_mib": peak_mib,
+          "launches_train_by_type": train, "launches_val_by_type": val,
+          "launches_per_step_predicted": per_step,
+          "launches_per_eval_predicted": per_eval,
+          "logged_records": len(records),
+          "head_terms_missing": sorted(want_terms - losses),
+          "last_train_losses": next(r for r in reversed(records)
+                                    if "train_loss" in r),
+          "val_losses": next((r for r in records if "val0_loss" in r
+                              or any(k.startswith("val0_") for k in r)),
+                             None),
+          "point_pillars_vs_host_norm_rel": pillar_err, "tol": PILLAR_TOL,
+          "panels": rec["panels"]})
+    if n_train != HEADS_STEPS or n_val != 1:
+        raise AssertionError(f"{n_train} train and {n_val} eval steps")
+    if want_terms - losses:
+        raise AssertionError(f"loss terms not logged: "
+                             f"{sorted(want_terms - losses)}")
+    for kid in KERNEL_NAMES:
+        for what, counts, want in (
+                ("training", train, per_step[kid] * n_train),
+                ("validation", val, per_eval[kid] * n_val)):
+            got = counts.get(kid, {})
+            if got.get("bfloat16", 0) != want or set(got) - {"bfloat16"}:
+                raise AssertionError(f"{kid}: {got} launches in the "
+                                     f"{what} steps, predicted {want} bf16")
+    if not max(pillar_err.values()) <= PILLAR_TOL:
+        raise AssertionError(f"PointPillarNet card differs from host: "
+                             f"{pillar_err}")
+    torch.cuda.empty_cache()
+    return typed
 
 
 METRIC_TOL = 1e-4  # card against host suite: SSIM, PSNR, Chamfer, relative
@@ -1309,18 +1512,59 @@ def prediction_phase(dev, work: Path, panels):
     return typed, sim_typed
 
 
-def muvo_cfg():
+def muvo_cfg(name: str = "muvo.yml"):
+    """A config of muvo_tpu_torch/configs (muvo.yml unless named)."""
     from muvo_tpu_torch.config import get_cfg
 
     cfg = get_cfg()
     cfg.merge_from_file(str(Path(__file__).resolve().parent / "muvo_tpu_torch"
-                            / "configs" / "muvo.yml"))
+                            / "configs" / name))
     return cfg
+
+
+def decode_vs_host(session, host_model, cfg):
+    """The card's decode of the session's carry (K1/K2 inside) against the
+    port's host decode (plain versions) on the same carry and weights:
+    ({output: norm-relative error}, host seconds)."""
+    from muvo_tpu_torch.inference import DeploymentSession, LatentCarry
+
+    carry = session.carry
+    card = session.decode(carry)
+    host = DeploymentSession(host_model, cfg, device="cpu")
+    t0 = time.perf_counter()
+    on_host = host.decode(LatentCarry(*(t.cpu() for t in carry)))
+    host_s = time.perf_counter() - t0
+    err = {}
+    for key, want in on_host.items():
+        got = card[key].float().cpu()
+        err[key] = ((got - want).abs().max()
+                    / want.abs().max().clamp_min(1e-12)).item()
+    return err, host_s
+
+
+def embedding_vs_host(session, host_model, batch, cfg):
+    """One frame's embedding on the card against the port's host run, same
+    weights and preprocessed input: (norm-relative error, host seconds,
+    the card encode's launches)."""
+    from muvo_tpu_torch.utils.network import remove_past
+
+    one = session._tensors(remove_past(batch, cfg.RECEPTIVE_FIELD))
+    with torch.inference_mode():
+        pb = session.preprocess(one, labels=False)
+        before = read_launches()
+        card = session.model.encode_frame(pb)
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in read_launches().items()}
+        t0 = time.perf_counter()
+        host = host_model.encode_frame(
+            {k: v.cpu() if torch.is_tensor(v) else v for k, v in pb.items()})
+        host_s = time.perf_counter() - t0
+    return norm_rel(card, host), host_s, launches
 
 
 def serving_phase(dev, cfg):
     from muvo_tpu_torch.data.synthetic import synthetic_batch
-    from muvo_tpu_torch.inference import DeploymentSession, LatentCarry
+    from muvo_tpu_torch.inference import DeploymentSession
     from muvo_tpu_torch.models.world_model import MuvoWorldModel
     from muvo_tpu_torch.ops import zconv
 
@@ -1367,20 +1611,7 @@ def serving_phase(dev, cfg):
         raise AssertionError(f"flash attention ran on muvo.yml's 648 tokens: "
                              f"{launches}")
     check_serving_outputs(cfg, out, sim_out, imagined)
-
-    # the card's decode (K1/K2 inside) against the port's host decode
-    # (plain versions) on the same carry and weights
-    carry = session.carry
-    card = session.decode(carry)
-    host = DeploymentSession(host_model, cfg, device="cpu")
-    t0 = time.perf_counter()
-    on_host = host.decode(LatentCarry(*(t.cpu() for t in carry)))
-    host_s = time.perf_counter() - t0
-    decode_err = {}
-    for key, want in on_host.items():
-        got = card[key].float().cpu()
-        decode_err[key] = ((got - want).abs().max()
-                           / want.abs().max().clamp_min(1e-12)).item()
+    decode_err, host_s = decode_vs_host(session, host_model, cfg)
     worst = max(decode_err.values())
     emit({"phase": "serving", "batch": 1,
           "sequence": seq, "deployment_tick_ms": deploy_ms,
@@ -1398,10 +1629,100 @@ def serving_phase(dev, cfg):
     return typed
 
 
-def check_serving_outputs(cfg, out, sim_out, imagined):
+SERVE_SEQ = 6  # frames a serving tick sees: a 5-step imagination
+
+
+def serving_mobilevit_phase(dev):
+    """test_mobilevit_2d.yml (muvo.yml with MobileViTV2 camera and LiDAR
+    trunks) at full width through DeploymentSession, fp32, batch 1,
+    seeded random weights: 3 deployment_forward ticks, then 3 sim_forward
+    ticks on a SERVE_SEQ-frame batch (the frame at RECEPTIVE_FIELD 6
+    observed, 5 imagined). fp32 K1 and K2 must be launched twice a block
+    each sim tick (the decode and the imagination's), K4 not (648 tokens a
+    frame); outputs finite with muvo_tpu's shapes; one frame's embedding
+    and one decode on the card against the port's host run within
+    DECODE_TOL."""
+    from muvo_tpu_torch.data.synthetic import synthetic_batch
+    from muvo_tpu_torch.inference import DeploymentSession
+    from muvo_tpu_torch.models.world_model import MuvoWorldModel
+    from muvo_tpu_torch.ops import zconv
+
+    cfg = muvo_cfg("test_mobilevit_2d.yml")
+    torch.manual_seed(2)
+    model = MuvoWorldModel(cfg)
+    host_model = copy.deepcopy(model).eval().requires_grad_(False)
+    session = DeploymentSession(
+        model, cfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    batch = synthetic_batch(cfg, batch_size=1, sequence_length=SERVE_SEQ,
+                            seed=0)
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    deploy_ms, sim_ms, per_tick = [], [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = session.deployment_forward(batch, is_dreaming=False)
+        torch.cuda.synchronize()
+        deploy_ms.append((time.perf_counter() - t0) * 1e3)
+    session.reset()
+    for _ in range(3):
+        before = read_launches()
+        t0 = time.perf_counter()
+        sim_out, imagined = session.sim_forward(batch, is_dreaming=False)
+        torch.cuda.synchronize()
+        sim_ms.append((time.perf_counter() - t0) * 1e3)
+        per_tick.append({k: v - before[k] for k, v in read_launches().items()
+                         if v - before[k]})
+    launches, typed = read_launches(), read_typed_launches()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    blocks = predicted_launches(cfg)["K3"]
+    check_serving_outputs(cfg, out, sim_out, imagined, SERVE_SEQ)
+    embed_err, embed_host_s, _ = embedding_vs_host(session, host_model,
+                                                   batch, cfg)
+    decode_err, decode_host_s = decode_vs_host(session, host_model, cfg)
+    emit({"phase": "serving_mobilevit", "config": "test_mobilevit_2d.yml",
+          "encoders": [cfg.MODEL.ENCODER.NAME, cfg.MODEL.LIDAR.ENCODER],
+          "batch": 1, "sequence": SERVE_SEQ,
+          "deployment_tick_ms": deploy_ms, "sim_tick_ms": sim_ms,
+          "sim_tick_ms_median": statistics.median(sim_ms),
+          "deployment_tick_ms_median": statistics.median(deploy_ms),
+          "peak_mib": peak_mib, "launches": launches,
+          "launches_by_type": typed, "launches_per_sim_tick": per_tick,
+          "K1_impl": zconv.zconv3d_leaky.last_impl,
+          "K2_impl": zconv.upzconv3d_leaky.last_impl,
+          "embedding_vs_host_norm_rel": embed_err,
+          "decode_vs_host_norm_rel": decode_err, "tol": DECODE_TOL,
+          "host_encode_s": embed_host_s, "host_decode_s": decode_host_s})
+    want = {"K1": 2 * blocks, "K2": 2 * blocks}
+    if any(tick != want for tick in per_tick):
+        raise AssertionError(f"launches a sim tick {per_tick}, predicted "
+                             f"{want}")
+    if set(typed) != {"K1", "K2"} or any(set(t) != {"float32"}
+                                         for t in typed.values()):
+        raise AssertionError(f"serving launched {typed}, predicted fp32 K1 "
+                             f"and K2 only")
+    for kernel, impl in ((zconv.zconv3d_leaky, zconv.K1_F32_IMPL),
+                         (zconv.upzconv3d_leaky, zconv.K2_F32_IMPL)):
+        if kernel.last_impl != impl:
+            raise AssertionError(f"serving ran {kernel.last_impl}, not "
+                                 f"{impl}")
+    worst = max(embed_err, *decode_err.values())
+    if not worst <= DECODE_TOL:
+        raise AssertionError(f"card differs from host: embedding "
+                             f"{embed_err}, decode {decode_err}")
+    del session, model, host_model
+    torch.cuda.empty_cache()
+    return typed
+
+
+def check_serving_outputs(cfg, out, sim_out, imagined, seq=None):
     """muvo_tpu's shapes and finite values for a deployment_forward output,
-    a sim_forward output and its imagination."""
-    seq = cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON
+    a sim_forward output and its imagination of a ``seq``-frame batch
+    (RECEPTIVE_FIELD + FUTURE_HORIZON unless given)."""
+    seq = seq or cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON
     fh = seq - 1
     s_h, s_w = (cfg.IMAGE.CROP[3] - cfg.IMAGE.CROP[1],
                 cfg.IMAGE.CROP[2] - cfg.IMAGE.CROP[0])
@@ -1605,7 +1926,6 @@ def serving_large_phase(dev):
     from muvo_tpu_torch.data.synthetic import synthetic_batch
     from muvo_tpu_torch.inference import DeploymentSession
     from muvo_tpu_torch.models.world_model import MuvoWorldModel
-    from muvo_tpu_torch.utils.network import remove_past
 
     cfg = muvo_cfg()
     cfg.MODEL.TRANSFORMER.LARGE = True
@@ -1643,18 +1963,8 @@ def serving_large_phase(dev):
 
     # one frame: the card's embedding (K4 in every layer) against the
     # port's host run (the math path), same weights and preprocessed input
-    one = session._tensors(remove_past(batch, cfg.RECEPTIVE_FIELD))
-    with torch.inference_mode():
-        pb = session.preprocess(one, labels=False)
-        before = read_launches()["K4"]
-        card = session.model.encode_frame(pb)
-        torch.cuda.synchronize()
-        frame_k4 = read_launches()["K4"] - before
-        t0 = time.perf_counter()
-        host = host_model.encode_frame(
-            {k: v.cpu() if torch.is_tensor(v) else v for k, v in pb.items()})
-        host_s = time.perf_counter() - t0
-    err = norm_rel(card, host)
+    err, host_s, frame = embedding_vs_host(session, host_model, batch, cfg)
+    frame_k4 = frame["K4"]
     tokens = (cfg.IMAGE.CROP[3] - cfg.IMAGE.CROP[1]) // 8 * (
         (cfg.IMAGE.CROP[2] - cfg.IMAGE.CROP[0]) // 8) + (
         cfg.POINTS.CHANNELS // 8) * (cfg.POINTS.HORIZON_RESOLUTION // 8)
@@ -1852,8 +2162,10 @@ def main() -> int:
         paths["train_entry"], panels = train_entry_phase(dev, work)
         paths["prediction"], paths["sim_run"] = prediction_phase(dev, work,
                                                                  panels)
+        paths["train_heads"] = train_heads_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    paths["serving_mobilevit"] = serving_mobilevit_phase(dev)
     paths["serving_large"] = serving_large_phase(dev)
     paths["training_large"], paths["training_large_split"] = (
         training_large_phase(dev))

@@ -1,4 +1,4 @@
-"""Camera and BEV geometry: intrinsics and extrinsics (numpy).
+"""Camera and BEV geometry: intrinsics, extrinsics, view masks (numpy).
 
 An own copy of the numpy functions of muvo_tpu/geometry/camera.py (a test
 holds them equal). Semantics match the reference
@@ -54,3 +54,31 @@ def bev_params_to_intrinsics(size, scale, offsetx):
         ],
         dtype=np.float32,
     )
+
+
+def get_out_of_view_mask(cfg) -> np.ndarray:
+    """Mask of BEV pixels invisible from the (cropped) front camera."""
+    fov = cfg.IMAGE.FOV
+    w = cfg.IMAGE.SIZE[1]
+    resolution = cfg.BEV.RESOLUTION
+
+    f = w / (2 * np.tan(fov * np.pi / 360.0))
+    c_u = w / 2 - cfg.IMAGE.CROP[0]  # adjust optical centre for the crop
+
+    bev_left = -np.round((cfg.BEV.SIZE[0] // 2) * resolution, decimals=1)
+    bev_right = np.round((cfg.BEV.SIZE[0] // 2) * resolution, decimals=1)
+    bev_bottom = 0.01
+    camera_offset = (
+        cfg.BEV.SIZE[1] / 2 + cfg.BEV.OFFSET_FORWARD
+    ) * resolution + cfg.IMAGE.CAMERA_POSITION[0]
+    bev_top = np.round(cfg.BEV.SIZE[1] * resolution - camera_offset, decimals=1)
+
+    x = np.arange(bev_left, bev_right, resolution)
+    z = np.arange(bev_bottom, bev_top, resolution)
+    ucoords = x / z[:, None] * f + c_u
+
+    new_w = cfg.IMAGE.CROP[2] - cfg.IMAGE.CROP[0]
+    mask = (ucoords >= 0) & (ucoords < new_w)
+    mask = ~mask[::-1]
+    behind = np.ones((int(camera_offset / resolution), mask.shape[1]), dtype=bool)
+    return np.vstack([mask, behind])

@@ -17,6 +17,7 @@ from typing import Sequence, Tuple
 import torch.nn.functional as F
 from torch import nn
 
+from muvo_tpu_torch.models.backbones import mobilevit
 from muvo_tpu_torch.models.layers import BatchNorm2d, to_nchw, to_nhwc
 
 
@@ -79,8 +80,15 @@ class ResNetFeatures(nn.Module):
 
 def build_backbone(name: str, out_indices: Sequence[int] = (2, 3, 4),
                    in_channels: int = 3):
-    """Backbone registry: returns (module, channels at out_indices)."""
-    if name != "resnet18":
-        raise ValueError(f"backbone {name!r} is not ported")
-    return (ResNetFeatures(tuple(out_indices), in_channels=in_channels),
-            feature_channels(out_indices))
+    """Backbone registry: returns (module, channels at out_indices) for
+    resnet18 and the mobilevitv2 trunks (width 1, as muvo_tpu builds every
+    ``mobilevit*`` name); ``in_channels`` is the input's (3 for RGB, 4 for
+    the range view, 32 for the PointPillars canvas)."""
+    out_indices = tuple(out_indices)
+    if name == "resnet18":
+        return (ResNetFeatures(out_indices, in_channels=in_channels),
+                feature_channels(out_indices))
+    if name.startswith("mobilevit"):
+        return (mobilevit.MobileViTV2Features(out_indices, in_channels),
+                mobilevit.feature_channels(out_indices))
+    raise ValueError(f"backbone {name!r} is not ported")

@@ -6,13 +6,18 @@ camera crop and its intrinsics, the label pyramids, in training the pixel
 and route augmentation, then ImageNet normalisation, in muvo_tpu's order.
 Layout stays channels-last.
 
-Label pyramids: ``rgb_label_{1,2,4}`` (the cropped image in [0, 1],
-downsampled with jax.image.resize's antialiased linear weights, which are
-built here per axis: a 2x step weighs four input pixels 1/8, 3/8, 3/8,
-1/8), ``range_view_label_{1,2,4}`` (nearest), ``range_view_seg_label_*``
-(nearest) and ``voxel_label_{1,2,4}`` (strided slices). The BEV, instance,
-depth, semantic-image and image-instance label branches are not ported and
-raise NotImplementedError.
+Label pyramids: ``rgb_label_{1,2,4}`` and ``depth_label_{1,2,4}`` (the
+cropped image in [0, 1] and the cropped depth, downsampled with
+jax.image.resize's antialiased linear weights, which are built here per
+axis: a 2x step weighs four input pixels 1/8, 3/8, 3/8, 1/8);
+``birdview_label_*`` and ``instance_label_*`` (out-of-view pixels zeroed
+under EVAL.MASK_VIEW, rotated 90 degrees clockwise as frustum pooling
+lays BEV out, nearest) with the instances' ``center_label_*`` and
+``offset_label_*``; ``semantic_image_label_*``, ``image_instance_mask_*``,
+``range_view_label_*`` and ``range_view_seg_label_*`` (nearest); and
+``voxel_label_{1,2,4}`` (strided slices); ``depth_mask`` marks the depths
+inside BEV.FRUSTUM_POOL.D_BOUND. EVAL.RESOLUTION and
+POINTS.DEVICE_PROJECTION are not ported and raise NotImplementedError.
 
 Augmentation draws every random number from an explicit torch.Generator
 (torch and JAX streams differ, so the tests compare the helpers with fixed
@@ -27,6 +32,9 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from muvo_tpu_torch.geometry.camera import get_out_of_view_mask
+from muvo_tpu_torch.utils.instance import center_offset_labels
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +218,14 @@ class PreProcess:
         self.cfg = cfg
         self.crop = tuple(cfg.IMAGE.CROP)
         self.route_map_size = cfg.ROUTE.SIZE
+        self.center_sigma = cfg.INSTANCE_SEG.CENTER_LABEL_SIGMA_PX
+        self.ignore_index = cfg.INSTANCE_SEG.IGNORE_INDEX
+        self.min_depth, self.max_depth = cfg.BEV.FRUSTUM_POOL.D_BOUND[:2]
         self.image_mean = tuple(cfg.IMAGE.IMAGENET_MEAN)
         self.image_std = tuple(cfg.IMAGE.IMAGENET_STD)
+        self.bev_out_of_view_mask = (
+            torch.from_numpy(get_out_of_view_mask(cfg)) if cfg.EVAL.MASK_VIEW
+            else None)
 
     def _normalise(self, x):
         mean = torch.tensor(self.image_mean, device=x.device)
@@ -226,8 +240,11 @@ class PreProcess:
         batch = dict(batch)
         left, top, right, bottom = self.crop
         # crop before the float conversion: identical values, fewer bytes
-        image = batch["image"][..., top:bottom, left:right, :]
-        batch["image"] = image.float() / 255.0
+        for key in ("image", "depth", "depth_color", "semantic_image",
+                    "image_instance_mask"):
+            if key in batch:
+                batch[key] = batch[key][..., top:bottom, left:right, :]
+        batch["image"] = batch["image"].float() / 255.0
 
         if "route_map" in batch:
             rm = batch["route_map"].float() / 255.0
@@ -252,28 +269,45 @@ class PreProcess:
         batch["image"] = self._normalise(batch["image"])
         if "route_map" in batch:
             batch["route_map"] = self._normalise(batch["route_map"])
+        if "depth" in batch:
+            batch["depth_mask"] = ((batch["depth"] > self.min_depth)
+                                   & (batch["depth"] < self.max_depth))
         return batch
 
     # ------------------------------------------------------------------
+    def _bev(self, label):
+        """A BEV label (..., h, w, 1): out-of-view pixels zeroed under
+        EVAL.MASK_VIEW, then rotated 90 degrees clockwise over (h, w), as
+        frustum pooling lays out its BEV."""
+        if self.bev_out_of_view_mask is not None:
+            mask = self.bev_out_of_view_mask.to(label.device)[..., None]
+            label = torch.where(mask, torch.zeros_like(label), label)
+        return torch.rot90(label, k=-1, dims=(-3, -2))
+
     def prepare_labels(self, batch):
         cfg = self.cfg
-        unported = {
-            "birdview_label": "birdview_label" in batch,
-            "instance_label": "instance_label" in batch,
-            "semantic_image": (cfg.SEMANTIC_IMAGE.ENABLED
-                               and "semantic_image" in batch),
-            "depth": cfg.DEPTH.ENABLED and "depth" in batch,
-            "image_instance_mask": (cfg.EVAL.RGB_SUPERVISION
-                                    and cfg.LOSSES.RGB_INSTANCE),
-            "POINTS.DEVICE_PROJECTION": (
-                cfg.POINTS.DEVICE_PROJECTION
+        if (cfg.POINTS.DEVICE_PROJECTION
                 and "range_view_pcd_xyzd" not in batch
-                and "points_raw" in batch),
-        }
-        missing = [k for k, v in unported.items() if v]
-        if missing:
+                and "points_raw" in batch):
             raise NotImplementedError(
-                f"label branches not ported yet: {', '.join(missing)}")
+                "label branch not ported yet: POINTS.DEVICE_PROJECTION")
+
+        if "birdview_label" in batch:
+            batch["birdview_label"] = self._bev(batch["birdview_label"])
+            batch = _pyramid(batch, "birdview_label", "birdview_label")
+
+        if "instance_label" in batch:
+            batch["instance_label"] = self._bev(batch["instance_label"])
+            batch = _pyramid(batch, "instance_label", "instance_label")
+            for k in (1, 2, 4):
+                center, offset = center_offset_labels(
+                    batch[f"instance_label_{k}"][..., 0],
+                    sigma=self.center_sigma / k,
+                    ignore_index=self.ignore_index)
+                batch[f"center_label_{k}"] = center
+                batch[f"offset_label_{k}"] = offset
+            batch["center_label"] = batch["center_label_1"]
+            batch["offset_label"] = batch["offset_label_1"]
 
         if cfg.EVAL.RGB_SUPERVISION:
             batch["rgb_label_1"] = batch["image"]
@@ -281,6 +315,19 @@ class PreProcess:
             for k in (2, 4):
                 batch[f"rgb_label_{k}"] = _bilinear_resize(
                     batch[f"rgb_label_{k // 2}"], h // k, w // k)
+            if cfg.LOSSES.RGB_INSTANCE and "image_instance_mask" in batch:
+                batch = _pyramid(batch, "image_instance_mask",
+                                 "image_instance_mask")
+
+        if cfg.SEMANTIC_IMAGE.ENABLED and "semantic_image" in batch:
+            batch = _pyramid(batch, "semantic_image", "semantic_image_label")
+
+        if cfg.DEPTH.ENABLED and "depth" in batch:
+            batch["depth_label_1"] = batch["depth"]
+            h, w = batch["depth"].shape[-3], batch["depth"].shape[-2]
+            for k in (2, 4):
+                batch[f"depth_label_{k}"] = _bilinear_resize(
+                    batch[f"depth_label_{k // 2}"], h // k, w // k)
 
         if cfg.LIDAR_RE.ENABLED and "range_view_pcd_xyzd" in batch:
             batch = _pyramid(batch, "range_view_pcd_xyzd", "range_view_label")

@@ -1,11 +1,11 @@
-"""Latent-conditioned (StyleGAN-like) decoders: image/range-view and 3-D
-voxel (counterpart of muvo_tpu/models/stylegan.py).
+"""Latent-conditioned (StyleGAN-like) decoders: image/range-view, BEV and
+3-D voxel (counterpart of muvo_tpu/models/stylegan.py).
 
-A learned constant (voxel) or a projected latent (image) is convolved and
-upsampled under adaptive instance normalisation driven by the latent state
-w, with heads at downsample factors 4, 2 and 1. Output keys match
-muvo_tpu's (``rgb_1``, ``lidar_reconstruction_2``, ``voxel_4``, ...);
-tensors are channels-last (NHWC, NDHWC).
+A learned constant (BEV, voxel) or a projected latent (image) is convolved
+and upsampled under adaptive instance normalisation driven by the latent
+state w, with heads at downsample factors 4, 2 and 1. Output keys match
+muvo_tpu's (``rgb_1``, ``lidar_reconstruction_2``, ``bev_segmentation_4``,
+``voxel_4``, ...); tensors are channels-last (NHWC, NDHWC).
 
 The voxel decoder's large stages run their 3x3x3 convs through the port's
 CUDA kernels (ops/zconv.py) exactly where muvo_tpu takes its Pallas path:
@@ -148,6 +148,82 @@ class SingleConvHead(nn.Module):
         return {self.key: F.linear(x, w, conv.bias)}
 
 
+class SegmentationHead(nn.Module):
+    """The BEV head: 1x1 convs to the segmentation logits, the instance
+    offsets and the sigmoid of the instance centres ->
+    {bev_segmentation_k, bev_instance_offset_k, bev_instance_center_k}."""
+
+    def __init__(self, in_channels: int, n_classes: int,
+                 downsample_factor: int):
+        super().__init__()
+        self.k = downsample_factor
+        self.segmentation_head = nn.Sequential(
+            nn.Conv2d(in_channels, n_classes, 1))
+        self.instance_offset_head = nn.Sequential(
+            nn.Conv2d(in_channels, 2, 1))
+        self.instance_center_head = nn.Sequential(
+            nn.Conv2d(in_channels, 1, 1))
+
+    def forward(self, x) -> Dict[str, torch.Tensor]:
+        def pointwise(head):
+            conv = head[0]
+            w = conv.weight.reshape(conv.weight.shape[0], -1)
+            return F.linear(x, w, conv.bias)
+
+        k = self.k
+        return {
+            f"bev_segmentation_{k}": pointwise(self.segmentation_head),
+            f"bev_instance_offset_{k}": pointwise(self.instance_offset_head),
+            f"bev_instance_center_{k}": torch.sigmoid(
+                pointwise(self.instance_center_head)),
+        }
+
+
+class BevDecoder(nn.Module):
+    """2-D AdaIN conv pyramid from a learned constant to (h, w) = 64 *
+    constant_size (192 x 192 from (3, 3)), with a SegmentationHead at 1/4,
+    1/2 and 1; channels n -> n/2 -> n/4 -> n/8 for base_channels n."""
+
+    def __init__(self, latent_n_channels: int, semantic_n_channels: int,
+                 constant_size: Tuple[int, int] = (3, 3),
+                 base_channels: int = 512):
+        super().__init__()
+        n = base_channels
+        self.constant_tensor = nn.Parameter(torch.randn(n, *constant_size))
+        self.first_norm = AdaptiveInstanceNorm(latent_n_channels, n)
+        self.first_conv = ConvInstanceNorm(n, n, latent_n_channels)
+        self.middle_conv = nn.ModuleList(
+            DecoderBlock(n, n, latent_n_channels) for _ in range(3))
+        self.conv1 = DecoderBlock(n, n // 2, latent_n_channels)
+        self.conv2 = DecoderBlock(n // 2, n // 4, latent_n_channels)
+        self.conv3 = DecoderBlock(n // 4, n // 8, latent_n_channels)
+        self.head_4 = SegmentationHead(n // 2, semantic_n_channels, 4)
+        self.head_2 = SegmentationHead(n // 4, semantic_n_channels, 2)
+        self.head_1 = SegmentationHead(n // 8, semantic_n_channels, 1)
+
+    def forward(self, w) -> Dict[str, torch.Tensor]:
+        return _constant_pyramid(self, w)
+
+
+def _constant_pyramid(decoder, w) -> Dict[str, torch.Tensor]:
+    """The BEV and voxel decoders' pass: the learned constant broadcast
+    over the batch, AdaIN, the first conv, the three middle blocks, then
+    conv1..conv3 with a head after each."""
+    const = decoder.constant_tensor.movedim(0, -1)  # (..., C)
+    x = const[None].expand(w.shape[0], *const.shape)
+    x = decoder.first_norm(x, w)
+    x = decoder.first_conv(x, w)
+    for block in decoder.middle_conv:
+        x = block(x, w)
+    x = decoder.conv1(x, w)
+    out = decoder.head_4(x)
+    x = decoder.conv2(x, w)
+    out.update(decoder.head_2(x))
+    x = decoder.conv3(x, w)
+    out.update(decoder.head_1(x))
+    return out
+
+
 class ConvDecoder(nn.Module):
     """Dense -> transposed-conv pyramid -> heads at 1/4, 1/2 and 1.
 
@@ -212,16 +288,4 @@ class VoxelDecoder(nn.Module):
         self.head_1 = SingleConvHead(n // 8, semantic_n_channels, 1, "voxel", 3)
 
     def forward(self, w) -> Dict[str, torch.Tensor]:
-        const = self.constant_tensor.movedim(0, -1)  # (X, Y, Z, 2n)
-        x = const[None].expand(w.shape[0], *const.shape)
-        x = self.first_norm(x, w)
-        x = self.first_conv(x, w)
-        for block in self.middle_conv:
-            x = block(x, w)
-        x = self.conv1(x, w)
-        out = self.head_4(x)
-        x = self.conv2(x, w)
-        out.update(self.head_2(x))
-        x = self.conv3(x, w)
-        out.update(self.head_1(x))
-        return out
+        return _constant_pyramid(self, w)

@@ -1,9 +1,10 @@
 """MUVO world model, flagship branch (counterpart of
 muvo_tpu/models/world_model.py).
 
-Camera and range-view LiDAR resnet18 encoders with bottom-up FPNs, a post-LN
-transformer fusing their tokens, route and speed encoders, the RSSM, the
-policy, and the enabled decoders (rgb and lidar_re ConvDecoders, the voxel
+Camera and LiDAR encoders with bottom-up FPNs, a post-LN transformer
+fusing their tokens, route and speed encoders, the RSSM, the policy, and
+the enabled decoders (the BEV decoder; the rgb, lidar_re,
+lidar_segmentation, semantic-image and depth ConvDecoders; the voxel
 decoder). Batch tensors are channels-last, (b, s, ...) as in muvo_tpu;
 submodule names are upstream MUVO's state_dict prefixes.
 
@@ -22,8 +23,13 @@ true count: muvo_tpu pads them once to the flash block multiple because
 the TPU's BlockSpec tiles cannot be ragged, and the port's kernels mask
 the ragged tail themselves.
 
-Branches outside the ported slices (frustum-BEV fusion, PointPillars,
-measurements, the no-transformer MILE branch and the BEV decoder) raise
+The LiDAR encoder reads the range view, or with
+MODEL.LIDAR.POINT_PILLAR the PointPillars canvas of the raw points
+(``point_pillars``, ``point_pillar_encoder``, ``point_pillar_decoder``, as
+upstream names them). The encoders are resnet18 or mobilevitv2 trunks
+(MODEL.ENCODER.NAME, MODEL.LIDAR.ENCODER). SEMANTIC_SEG adds the BEV
+decoder. Branches outside the ported slices (frustum-BEV fusion, the
+no-transformer MILE branch, measurements, TRANSITION.ENABLED False) raise
 NotImplementedError instead of running something else.
 """
 
@@ -46,8 +52,10 @@ from muvo_tpu_torch.models.common import (
     position_embedding_sine,
 )
 from muvo_tpu_torch.models.layers import frozen_batch_stats
+from muvo_tpu_torch.models.pointpillars import PointPillarNet
 from muvo_tpu_torch.models.rssm import RSSM
-from muvo_tpu_torch.models.stylegan import ConvDecoder, VoxelDecoder
+from muvo_tpu_torch.models.stylegan import (BevDecoder, ConvDecoder,
+                                            VoxelDecoder)
 from muvo_tpu_torch.models.transformer import TransformerEncoder
 from muvo_tpu_torch.utils.network import pack_sequence_dim, unpack_sequence_dim
 
@@ -71,13 +79,12 @@ def checkpointed(fn, *args):
 def _check_supported(cfg):
     m = cfg.MODEL
     unsupported = {
-        "MODEL.TRANSFORMER.ENABLED False": not m.TRANSFORMER.ENABLED,
-        "MODEL.TRANSFORMER.BEV": m.TRANSFORMER.BEV,
+        "the MILE branch (MODEL.TRANSFORMER.ENABLED False)":
+            not m.TRANSFORMER.ENABLED,
+        "frustum-BEV fusion (MODEL.TRANSFORMER.BEV)": m.TRANSFORMER.BEV,
         "MODEL.LIDAR.ENABLED False": not m.LIDAR.ENABLED,
-        "MODEL.LIDAR.POINT_PILLAR": m.LIDAR.POINT_PILLAR.ENABLED,
         "MODEL.MEASUREMENTS": m.MEASUREMENTS.ENABLED,
         "MODEL.TRANSITION.ENABLED False": not m.TRANSITION.ENABLED,
-        "SEMANTIC_SEG (BEV decoder)": cfg.SEMANTIC_SEG.ENABLED,
     }
     missing = [k for k, v in unsupported.items() if v]
     if missing:
@@ -97,9 +104,16 @@ class MuvoWorldModel(nn.Module):
         fpn = Decoder if m.TRANSFORMER.LARGE else DecoderDS
         self.encoder, enc_c = build_backbone(m.ENCODER.NAME)
         self.feat_decoder = fpn(enc_c, tf_c)
-        self.range_view_encoder, lidar_c = build_backbone(m.LIDAR.ENCODER,
-                                                          in_channels=4)
-        self.range_view_decoder = fpn(lidar_c, tf_c)
+        self.point_pillar = bool(m.LIDAR.POINT_PILLAR.ENABLED)
+        if self.point_pillar:
+            self.point_pillars = PointPillarNet()
+            self.point_pillar_encoder, lidar_c = build_backbone(
+                m.LIDAR.ENCODER, in_channels=self.point_pillars.out_channels)
+            self.point_pillar_decoder = fpn(lidar_c, tf_c)
+        else:
+            self.range_view_encoder, lidar_c = build_backbone(
+                m.LIDAR.ENCODER, in_channels=4)
+            self.range_view_decoder = fpn(lidar_c, tf_c)
         self.type_embedding = nn.Parameter(torch.zeros(1, 1, tf_c, 2))
         self.transformer_encoder = TransformerEncoder(
             tf_c, m.TRANSFORMER.N_LAYERS, m.TRANSFORMER.N_HEADS,
@@ -131,7 +145,15 @@ class MuvoWorldModel(nn.Module):
         lidar_const = (max(1, cfg.POINTS.CHANNELS // 64),
                        max(1, cfg.POINTS.HORIZON_RESOLUTION // 64))
         voxel_const = tuple(max(1, v // 64) for v in cfg.VOXEL.SIZE)
+        bev_const = (max(1, cfg.BEV.SIZE[1] // 64),
+                     max(1, cfg.BEV.SIZE[0] // 64))
         base_c = int(m.DECODER_BASE_CHANNELS)
+        self.decoder_names = []
+        if cfg.SEMANTIC_SEG.ENABLED:
+            self.bev_decoder = BevDecoder(state_dim,
+                                          cfg.SEMANTIC_SEG.N_CHANNELS,
+                                          bev_const, base_c)
+            self.decoder_names.append("bev_decoder")
         # (enabled, attribute = upstream prefix, out channels, constant, head)
         conv_decoders = (
             (cfg.EVAL.RGB_SUPERVISION, "rgb_decoder", 3, img_const, "rgb"),
@@ -143,7 +165,6 @@ class MuvoWorldModel(nn.Module):
              cfg.SEMANTIC_IMAGE.N_CLASSES, img_const, "sem_image"),
             (cfg.DEPTH.ENABLED, "depth_image_decoder", 1, img_const, "depth"),
         )
-        self.decoder_names = []
         for enabled, name, out_c, const, head in conv_decoders:
             if enabled:
                 setattr(self, name, ConvDecoder(state_dim, out_c, const, head,
@@ -178,9 +199,7 @@ class MuvoWorldModel(nn.Module):
         tf_c = self.cfg.MODEL.TRANSFORMER.CHANNELS
         x = self.feat_decoder(self._backbone(
             self.encoder, pack_sequence_dim(batch["image"])))
-        lidar = self.range_view_decoder(self._backbone(
-            self.range_view_encoder,
-            pack_sequence_dim(batch["range_view_pcd_xyzd"])))
+        lidar = self._lidar_features(batch)
 
         h_i, w_i = x.shape[1:3]
         h_l, w_l = lidar.shape[1:3]
@@ -206,6 +225,18 @@ class MuvoWorldModel(nn.Module):
         features.append(self.speed_enc(pack_sequence_dim(batch["speed"])))
         embedding = self.features_combine(torch.cat(features, dim=-1))
         return unpack_sequence_dim(embedding, b, s)
+
+    def _lidar_features(self, batch: Dict) -> torch.Tensor:
+        """The LiDAR branch's FPN features: of the PointPillars canvas of
+        ``points_raw`` / ``num_points``, or of the range view."""
+        if self.point_pillar:
+            canvas = self.point_pillars(pack_sequence_dim(batch["points_raw"]),
+                                        pack_sequence_dim(batch["num_points"]))
+            return self.point_pillar_decoder(self._backbone(
+                self.point_pillar_encoder, canvas))
+        return self.range_view_decoder(self._backbone(
+            self.range_view_encoder,
+            pack_sequence_dim(batch["range_view_pcd_xyzd"])))
 
     def encode_frame(self, batch: Dict) -> torch.Tensor:
         """Embedding of the last frame: (b, emb)."""

@@ -1,11 +1,10 @@
 """The training objective: per-head weighted losses (counterpart of
 muvo_tpu/training/objectives.py, term for term).
 
-Per-scale (1, 2, 4) losses with 1/k discounts, KL balancing, and the
-MonoScene SemScal / GeoScal terms for voxels. Heads the port does not
-decode yet (BEV segmentation and instances, LiDAR and image segmentation,
-depth, reward) keep their terms, so a config that enables them fails in
-the model, not silently here.
+Per-scale (1, 2, 4) losses with 1/k discounts, KL balancing, the BEV
+segmentation and instance centre / offset terms, the RGB instance term,
+and the MonoScene SemScal / GeoScal terms for voxels. The reward term
+keeps muvo_tpu's form, though neither model decodes a reward.
 """
 
 from __future__ import annotations

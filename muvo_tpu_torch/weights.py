@@ -87,6 +87,73 @@ def resnet_entries(sd, prefix, p, s):
                                bs["downsample_bn"])
 
 
+def conv_norm_act_entries(sd, prefix, p, s):
+    """timm's ConvNormAct (mobilevit): conv, bn."""
+    sd[prefix + "conv.weight"] = conv_weight(p["conv"]["kernel"])
+    batch_norm_entries(sd, prefix + "bn.", p["bn"], s["bn"])
+
+
+def pointwise_entries(sd, prefix, p):
+    """A Dense on the channel axis -> timm's 1x1 Conv2d (O, I, 1, 1)."""
+    sd[prefix + "weight"] = np.asarray(p["kernel"]).T[:, :, None, None]
+    if "bias" in p:
+        sd[prefix + "bias"] = np.asarray(p["bias"])
+
+
+def group_norm_entries(sd, prefix, p):
+    sd[prefix + "weight"] = np.asarray(p["scale"])
+    sd[prefix + "bias"] = np.asarray(p["bias"])
+
+
+def mobilevit_entries(sd, prefix, p, s):
+    """MobileViTV2Features (timm names: stem.{conv,bn},
+    stages.{i}.{j}.*; muvo_tpu's s{i}b{j})."""
+    conv_norm_act_entries(sd, prefix + "stem.", p["stem"], s["stem"])
+    for name in p:
+        if name == "stem":
+            continue
+        stage, block = name[1:].split("b")
+        bp, bs = p[name], s[name]
+        dp = f"{prefix}stages.{stage}.{block}."
+        if "conv1_1x1" in bp:  # inverted residual
+            for part in ("conv1_1x1", "conv2_kxk", "conv3_1x1"):
+                conv_norm_act_entries(sd, f"{dp}{part}.", bp[part], bs[part])
+            continue
+        conv_norm_act_entries(sd, dp + "conv_kxk.", bp["conv_kxk"],
+                              bs["conv_kxk"])
+        sd[dp + "conv_1x1.weight"] = conv_weight(bp["conv_1x1"]["kernel"])
+        for layer in bp:
+            if not layer.startswith("tf"):
+                continue
+            tp, lp = f"{dp}transformer.{layer[2:]}.", bp[layer]
+            group_norm_entries(sd, tp + "norm1.", lp["norm1"])
+            pointwise_entries(sd, tp + "attn.qkv_proj.",
+                              lp["attn"]["qkv_proj"])
+            pointwise_entries(sd, tp + "attn.out_proj.",
+                              lp["attn"]["out_proj"])
+            group_norm_entries(sd, tp + "norm2.", lp["norm2"])
+            pointwise_entries(sd, tp + "mlp.fc1.", lp["fc1"])
+            pointwise_entries(sd, tp + "mlp.fc2.", lp["fc2"])
+        group_norm_entries(sd, dp + "norm.", bp["norm"])
+        conv_norm_act_entries(sd, dp + "conv_proj.", bp["conv_proj"],
+                              bs["conv_proj"])
+
+
+def backbone_entries(sd, prefix, p, s):
+    """A resnet18 or a mobilevitv2 trunk, by what its tree holds."""
+    entries = mobilevit_entries if "stem" in p else resnet_entries
+    entries(sd, prefix, p, s)
+
+
+def point_pillars_entries(sd, prefix, p, s):
+    """PointPillarNet: muvo_tpu's fc{i} / bn{i} -> upstream's
+    point_net.net.{3i} (Linear) and .{3i + 1} (BatchNorm1d)."""
+    for i in range(len([n for n in p if n.startswith("fc")])):
+        dense_entries(sd, f"{prefix}point_net.net.{3 * i}.", p[f"fc{i}"])
+        batch_norm_entries(sd, f"{prefix}point_net.net.{3 * i + 1}.",
+                           p[f"bn{i}"], s[f"bn{i}"])
+
+
 def conv_bn_entries(sd, prefix, p, s):
     sd[prefix + "0.weight"] = conv_weight(p["Conv_0"]["kernel"])
     batch_norm_entries(sd, prefix + "1.", p["BatchNorm_0"], s["BatchNorm_0"])
@@ -190,7 +257,20 @@ def head_entries(sd, prefix, p, head):
                           p[f"head_{k}"]["head"])
 
 
-def voxel_decoder_entries(sd, prefix, p):
+def segmentation_head_entries(sd, prefix, p):
+    """The BEV decoder's heads: muvo_tpu's head_k/{seg,offset,center} ->
+    upstream's head_k.{segmentation,instance_offset,instance_center}_head."""
+    for k in (4, 2, 1):
+        for name, head in (("seg", "segmentation_head"),
+                           ("offset", "instance_offset_head"),
+                           ("center", "instance_center_head")):
+            conv_bias_entries(sd, f"{prefix}head_{k}.{head}.0.",
+                              p[f"head_{k}"][name])
+
+
+def style_decoder_entries(sd, prefix, p, head):
+    """The BEV (``head`` "bev") and voxel decoders: a learned constant,
+    AdaIN, the first conv, the middle and conv1..3 blocks, the heads."""
     sd[prefix + "constant_tensor"] = np.moveaxis(
         np.asarray(p["constant_tensor"]), -1, 0)
     dense_entries(sd, prefix + "first_norm.latent_affine.",
@@ -200,7 +280,10 @@ def voxel_decoder_entries(sd, prefix, p):
         decoder_block_entries(sd, f"{prefix}middle_conv.{i}.", p[f"middle_{i}"])
     for name in ("conv1", "conv2", "conv3"):
         decoder_block_entries(sd, f"{prefix}{name}.", p[name])
-    head_entries(sd, prefix, p, "voxel")
+    if head == "bev":
+        segmentation_head_entries(sd, prefix, p)
+    else:
+        head_entries(sd, prefix, p, head)
 
 
 def conv_decoder_entries(sd, prefix, p, head):
@@ -240,11 +323,16 @@ def state_dict_from_jax(params, batch_stats, cfg) -> Dict[str, torch.Tensor]:
     # convert_reference_state_dict chooses), else DecoderDS
     fpn = (decoder_entries if cfg.MODEL.TRANSFORMER.LARGE
            else decoder_ds_entries)
-    resnet_entries(sd, "encoder.", p["encoder"], s["encoder"])
+    backbone_entries(sd, "encoder.", p["encoder"], s["encoder"])
     fpn(sd, "feat_decoder.", p["feat_decoder"], s["feat_decoder"])
-    resnet_entries(sd, "range_view_encoder.", p["lidar_encoder"],
-                   s["lidar_encoder"])
-    fpn(sd, "range_view_decoder.", p["lidar_decoder"], s["lidar_decoder"])
+    lidar = ("point_pillar" if cfg.MODEL.LIDAR.POINT_PILLAR.ENABLED
+             else "range_view")
+    if lidar == "point_pillar":
+        point_pillars_entries(sd, "point_pillars.", p["point_pillars"],
+                              s["point_pillars"])
+    backbone_entries(sd, f"{lidar}_encoder.", p["lidar_encoder"],
+                     s["lidar_encoder"])
+    fpn(sd, f"{lidar}_decoder.", p["lidar_decoder"], s["lidar_decoder"])
     sd["type_embedding"] = np.asarray(p["type_embedding"])
     transformer_entries(sd, "transformer_encoder.", p["transformer"])
     for name in ("image_feature_conv", "lidar_feature_conv"):
@@ -256,11 +344,14 @@ def state_dict_from_jax(params, batch_stats, cfg) -> Dict[str, torch.Tensor]:
     dense_entries(sd, "features_combine.", p["features_combine"])
     rssm_entries(sd, "rssm.", p["rssm"])
     policy_entries(sd, "policy.", p["policy"])
+    if "bev_decoder" in p:
+        style_decoder_entries(sd, "bev_decoder.", p["bev_decoder"], "bev")
     for name, head in CONV_DECODERS:
         if name in p:
             conv_decoder_entries(sd, name + ".", p[name], head)
     if "voxel_decoder" in p:
-        voxel_decoder_entries(sd, "voxel_decoder.", p["voxel_decoder"])
+        style_decoder_entries(sd, "voxel_decoder.", p["voxel_decoder"],
+                              "voxel")
     return to_tensors(sd)
 
 

@@ -927,3 +927,69 @@ def test_chamfer_at_10000_columns_matches_the_host(dev):
         torch.backends.cuda.matmul.allow_tf32 = saved
     assert torch.backends.cuda.matmul.allow_tf32 == saved
     assert abs(got - want) <= 1e-4 * abs(want), (got, want)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_point_pillars_on_card_matches_host(dev, train):
+    """PointPillarNet at its full grid (480 x 480 pillars) on 60,000
+    points a frame, some padding, some past the grid: the card's canvas
+    (index_add_ and scatter_reduce amax on the device) against the host's,
+    1e-5 norm-relative (fp32: the cluster sums' and BatchNorm sums' order
+    only, TF32 off); in training also the running statistics and the
+    gradients of the points and parameters (the Linear biases', zero but
+    for rounding, held below 1e-6 of their weights')."""
+    from muvo_tpu_torch.models.pointpillars import PointPillarNet
+
+    torch.manual_seed(0)
+    host = PointPillarNet().train(train)
+    card = PointPillarNet().train(train)
+    card.load_state_dict(host.state_dict())
+    card.to(dev)
+    gen = torch.Generator().manual_seed(1)
+    pts = (torch.rand((2, 60000, 3), generator=gen) * 2 - 1) * 55
+    num = torch.tensor([60000, 41000])
+    cot = torch.randn((2, 480, 480, 32), generator=gen)
+    x_host = pts.clone().requires_grad_(train)
+    x_card = pts.to(dev).requires_grad_(train)
+    want = host(x_host, num)
+    got = card(x_card, num.to(dev))
+    assert _norm_rel(got.detach().cpu(), want.detach()) <= 1e-5
+    if not train:
+        return
+    (want * cot).sum().backward()
+    (got * cot.to(dev)).sum().backward()
+    for (name, a), b in zip(host.state_dict().items(),
+                            card.state_dict().values()):
+        if a.is_floating_point():
+            assert _norm_rel(b.cpu(), a) <= 1e-5, name
+    assert _norm_rel(x_card.grad.cpu(), x_host.grad) <= 1e-5
+    for (name, a), b in zip(host.named_parameters(), card.parameters()):
+        if name in ("point_net.net.0.bias", "point_net.net.3.bias"):
+            # a Linear's bias before a training-mode BatchNorm cancels in
+            # the batch mean: its gradient is 0 but for rounding, on both
+            # sides, next to its weight's
+            scale = host.get_parameter(name[:-4] + "weight").grad.norm()
+            assert max(a.grad.norm(), b.grad.norm()) <= 1e-6 * scale, name
+            continue
+        assert _norm_rel(b.grad.cpu(), a.grad) <= 1e-5, name
+
+
+def test_mobilevit_trunk_on_card_matches_host(dev):
+    """MobileViTV2Features (test_mobilevit_2d.yml's camera trunk) at the
+    320 x 832 crop, fp32 with TF32 off, eval mode: every feature map within
+    1e-4 norm-relative of the host's."""
+    from muvo_tpu_torch.models.backbones.mobilevit import MobileViTV2Features
+
+    torch.manual_seed(0)
+    host = MobileViTV2Features().eval()
+    card = MobileViTV2Features().eval()
+    card.load_state_dict(host.state_dict())
+    card.to(dev)
+    x = torch.randn((1, 320, 832, 3), generator=torch.Generator()
+                    .manual_seed(2))
+    with torch.inference_mode():
+        want = host(x)
+        got = card(x.to(dev))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _norm_rel(g.cpu(), w) <= 1e-4

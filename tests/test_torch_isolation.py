@@ -121,9 +121,41 @@ def test_native_library_builds_under_build_dir():
     assert not list((ROOT / "muvo_tpu_torch" / "native").glob("*.so"))
 
 
-def test_muvo_yml_is_muvo_tpus():
-    assert (ROOT / MUVO_YML).read_bytes() == (
-        ROOT / "muvo_tpu/configs/muvo.yml").read_bytes()
+CONFIGS = ("muvo.yml", "test_base_1d.yml", "test_base_1d_without_voxel.yml",
+           "test_base_2d.yml", "test_mobilevit_2d.yml", "one_frame.yml",
+           "debug.yml")
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_muvo_yml_is_muvo_tpus(name):
+    assert (ROOT / "muvo_tpu_torch/configs" / name).read_bytes() == (
+        ROOT / "muvo_tpu/configs" / name).read_bytes()
+
+
+def _config(name):
+    cfg = port_config.get_cfg()
+    cfg.merge_from_file(str(ROOT / "muvo_tpu_torch/configs" / name))
+    return cfg
+
+
+@pytest.mark.parametrize("name", ["test_base_1d.yml",
+                                  "test_base_1d_without_voxel.yml",
+                                  "test_base_2d.yml", "test_mobilevit_2d.yml"])
+def test_released_eval_configs_build_a_model(name):
+    cfg = _config(name)
+    with torch.device("meta"):  # the full-width graph, no weights drawn
+        model = MuvoWorldModel(cfg)
+    assert ("voxel_decoder" in model.decoder_names) == cfg.VOXEL_SEG.ENABLED
+    trunk = type(model.encoder).__name__
+    assert trunk == ("MobileViTV2Features" if "mobilevit" in name
+                     else "ResNetFeatures")
+
+
+def test_one_frame_yml_names_what_is_not_ported():
+    with pytest.raises(NotImplementedError) as raised:
+        MuvoWorldModel(_config("one_frame.yml"))
+    assert "MILE" in str(raised.value)
+    assert "MODEL.TRANSITION.ENABLED False" in str(raised.value)
 
 
 @pytest.mark.parametrize("config_file", [None, MUVO_YML])

@@ -29,60 +29,12 @@ from muvo_tpu_torch.models.stylegan import ConvDecoder
 from muvo_tpu_torch.models.transformer import TransformerEncoder
 from muvo_tpu_torch.ops.attention import multi_head_attention
 from torch_port_common import assert_same
-
-TOL = 1e-4
-
-
-def _close(got, want, tol=TOL):
-    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
-    want = np.asarray(want)
-    assert got.shape == want.shape, (got.shape, want.shape)
-    err = np.abs(got - want).max()
-    assert err <= tol * max(1.0, np.abs(want).max()), err
-
-
-def _randn(rs, *shape):
-    return rs.randn(*shape).astype(np.float32)
-
-
-def _init(module, *args, **kwargs):
-    """flax init, then randomise bias / scale / BatchNorm statistics."""
-    variables = jax.device_get(jax.jit(
-        lambda *a: module.init(jax.random.PRNGKey(0), *a, **kwargs))(*args))
-    rs = np.random.RandomState(1)
-
-    def perturb(path, v):
-        name = getattr(path[-1], "key", None)
-        v = np.asarray(v)
-        if name in ("bias", "mean"):
-            return v + 0.1 * _randn(rs, *v.shape)
-        if name == "scale":
-            return v * (1.0 + 0.1 * _randn(rs, *v.shape))
-        if name == "var":
-            return rs.uniform(0.5, 1.5, v.shape).astype(np.float32)
-        return v
-
-    return jax.tree_util.tree_map_with_path(perturb, variables)
-
-
-def _load(module, entries, variables, *extra):
-    sd = {}
-    if "batch_stats" in variables:
-        entries(sd, "", variables["params"], variables["batch_stats"], *extra)
-    else:
-        entries(sd, "", variables["params"], *extra)
-    module.load_state_dict(weights.to_tensors(sd), strict=True)
-    return module.eval()
-
-
-def _apply(module, variables, *args, **kwargs):
-    """module.apply, jitted: one compile is cheaper than eager op dispatch."""
-    return jax.jit(lambda v, *a: module.apply(v, *a, **kwargs))(variables,
-                                                                *args)
-
-
-def _t(a):
-    return torch.from_numpy(np.asarray(a))
+from torch_port_common import close as _close
+from torch_port_common import flax_apply as _apply
+from torch_port_common import flax_init as _init
+from torch_port_common import load_entries as _load
+from torch_port_common import randn as _randn
+from torch_port_common import to_torch as _t
 
 
 def test_basic_block_with_hardcoded_stride2_downsample():

@@ -65,12 +65,17 @@ def test_label_pyramids_match_prepare_labels():
 
 
 def test_unported_label_branches_raise():
+    """Only EVAL.RESOLUTION and POINTS.DEVICE_PROJECTION are left."""
     cfg = tiny_test_cfg()
+    cfg.POINTS.DEVICE_PROJECTION = True
     batch = {k: torch.from_numpy(v)
              for k, v in synthetic_batch(cfg, 1, 2, seed=0).items()}
-    batch["birdview_label"] = torch.zeros(1, 2, 8, 8, 1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="birdview_label"):
+    with pytest.raises(NotImplementedError, match="DEVICE_PROJECTION"):
         pp.PreProcess(cfg)(batch)
+    cfg = tiny_test_cfg()
+    cfg.EVAL.RESOLUTION.ENABLED = True
+    with pytest.raises(NotImplementedError, match="EVAL.RESOLUTION"):
+        pp.PreProcess(cfg)
 
 
 @pytest.mark.parametrize("std", [0.1, 1.7])

@@ -88,6 +88,60 @@ def test_panel_equals_muvo_tpus(panels, name):
     np.testing.assert_array_equal(got[name], want[name])
 
 
+HEAD_PANELS = {"bev", "lidar_seg", "sem_image", "video/depth"}
+
+
+@pytest.fixture(scope="module")
+def head_panels():
+    """The heads' panels: BEV segmentation (labels out of view zeroed and
+    rotated by the preprocess), LiDAR and image segmentation and the depth
+    video, on seeded logits and depths."""
+    pcfg, jcfg = tiny_test_cfg(), jax_tiny_cfg()
+    for cfg in (pcfg, jcfg):
+        cfg.SEMANTIC_SEG.ENABLED = cfg.LIDAR_SEG.ENABLED = True
+        cfg.SEMANTIC_IMAGE.ENABLED = cfg.DEPTH.ENABLED = True
+        cfg.EVAL.MASK_VIEW = True
+        cfg.BEV.OFFSET_FORWARD = -16
+        cfg.VOXEL_SEG.ENABLED = cfg.LIDAR_RE.ENABLED = False
+        cfg.EVAL.RGB_SUPERVISION = False
+    rf, fh = pcfg.RECEPTIVE_FIELD, pcfg.FUTURE_HORIZON
+    raw = synthetic_batch(pcfg, 1, rf + fh, seed=4)
+    raw["depth"] = np.random.RandomState(6).uniform(
+        -0.2, 1.2, raw["depth"].shape).astype(np.float32)
+    pb = PreProcess(pcfg)({k: torch.as_tensor(v) for k, v in raw.items()},
+                          training=False)
+    rs = np.random.RandomState(7)
+    ih = pcfg.IMAGE.CROP[3] - pcfg.IMAGE.CROP[1]
+    iw = pcfg.IMAGE.CROP[2] - pcfg.IMAGE.CROP[0]
+    lh, lw = pcfg.POINTS.CHANNELS, pcfg.POINTS.HORIZON_RESOLUTION
+
+    def outputs(frames):
+        return {"bev_segmentation_1": rs.randn(
+                    1, frames, *pcfg.BEV.SIZE, 8).astype(np.float32),
+                "lidar_segmentation_1": rs.randn(
+                    1, frames, lh, lw, 9).astype(np.float32),
+                "semantic_image_1": rs.randn(
+                    1, frames, ih, iw, 9).astype(np.float32),
+                "depth_1": rs.uniform(-0.2, 1.2, (1, frames, ih, iw, 1)
+                                      ).astype(np.float32)}
+
+    output, imagine = outputs(rf), outputs(fh)
+    got = visualise.visualise_step(
+        pcfg, pb, {k: torch.from_numpy(v) for k, v in output.items()},
+        {k: torch.from_numpy(v) for k, v in imagine.items()})
+    want = jax_visualise_step(jcfg, {k: v.numpy() for k, v in pb.items()},
+                              output, imagine)
+    return got, want
+
+
+@pytest.mark.parametrize("name", sorted(HEAD_PANELS))
+def test_head_panel_equals_muvo_tpus(head_panels, name):
+    got, want = head_panels
+    assert HEAD_PANELS <= set(got) and set(got) == set(want)
+    assert got[name].dtype == want[name].dtype == np.uint8
+    np.testing.assert_array_equal(got[name], want[name])
+
+
 def test_panels_of_missing_packages_are_not_drawn(monkeypatch):
     """Without cv2 the action bars, flow and trajectory are not drawn;
     the others still are."""

@@ -16,7 +16,7 @@ import torch
 
 from muvo_tpu.models.stylegan import VoxelDecoder as JaxVoxelDecoder
 from muvo_tpu_torch.models import stylegan
-from muvo_tpu_torch.weights import to_tensors, voxel_decoder_entries
+from muvo_tpu_torch.weights import style_decoder_entries, to_tensors
 from torch_port_common import randomise
 
 
@@ -29,7 +29,7 @@ def _pair(monkeypatch):
         jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(w))))
     pm = stylegan.VoxelDecoder(8, 2, 16, (1, 1, 1))
     sd = {}
-    voxel_decoder_entries(sd, "", params["params"])
+    style_decoder_entries(sd, "", params["params"], "voxel")
     pm.load_state_dict(to_tensors(sd), strict=True)
     return jm, params, pm.eval(), w
 

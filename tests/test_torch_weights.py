@@ -1,6 +1,8 @@
 """Weight carry between muvo_tpu and the PyTorch port, at tiny_test_cfg()
-with the voxel decoder on, and with MODEL.TRANSFORMER.LARGE (the top-down
-Decoder FPNs, upstream's ``upsample_skip_convs``).
+with the voxel decoder on, with MODEL.TRANSFORMER.LARGE (the top-down
+Decoder FPNs, upstream's ``upsample_skip_convs``), with PointPillars LiDAR
+and every head (the BEV decoder; the LiDAR segmentation, semantic-image
+and depth decoders), and with MobileViTV2 camera and LiDAR encoders.
 
 muvo_tpu_torch/weights.py maps muvo_tpu's variables onto the port's
 state_dict (upstream MUVO's keys); muvo_tpu/training/weight_convert.py maps
@@ -22,9 +24,11 @@ from muvo_tpu_torch.data.synthetic import tiny_test_cfg as port_tiny_cfg
 from torch_port_common import jax_trainer_and_state, port_model
 
 
-def _carry(large: bool):
+def _carry(large: bool, **overrides):
     cfg, port_cfg = tiny_test_cfg(), port_tiny_cfg()
     cfg.MODEL.TRANSFORMER.LARGE = port_cfg.MODEL.TRANSFORMER.LARGE = large
+    for c in (cfg, port_cfg):
+        c.merge_from_dict(overrides)
     batch = synthetic_batch(cfg, 1, cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON)
     _, state = jax_trainer_and_state(cfg, batch)
     # port_model loads with load_state_dict(strict=True): no missing and no
@@ -88,3 +92,52 @@ def test_port_keys_are_upstream_names(carried):
         "lidar_re.pre_transpose_conv.0.weight",
     ):
         assert key in keys, key
+
+
+# PointPillars and every head; test_mobilevit_2d.yml's encoders (narrow
+# decoders and no voxel decoder, which the cases above carry)
+SMALL = {"VOXEL_SEG": {"ENABLED": False}}
+HEADS = {"MODEL": {"LIDAR": {"POINT_PILLAR": {"ENABLED": True}},
+                   "DECODER_BASE_CHANNELS": 64},
+         "SEMANTIC_SEG": {"ENABLED": True}, "LIDAR_SEG": {"ENABLED": True},
+         "SEMANTIC_IMAGE": {"ENABLED": True}, "DEPTH": {"ENABLED": True},
+         "POINTS": {"N_PER_SECOND": 20000}, **SMALL}
+MOBILEVIT = {"MODEL": {"ENCODER": {"NAME": "mobilevitv2_100"},
+                       "LIDAR": {"ENCODER": "mobilevitv2_100"},
+                       "DECODER_BASE_CHANNELS": 64}, **SMALL}
+
+
+def test_point_pillars_and_heads_state_dict_round_trips():
+    cfg, state, model = _carry(False, **HEADS)
+    _assert_round_trip(cfg, state, model)
+    keys = set(model.state_dict())
+    for key in (
+        "point_pillars.point_net.net.0.weight",
+        "point_pillars.point_net.net.4.running_var",
+        "point_pillar_encoder.conv1.weight",
+        "point_pillar_decoder.conv1.0.weight",
+        "bev_decoder.constant_tensor",
+        "bev_decoder.first_norm.latent_affine.weight",
+        "bev_decoder.middle_conv.2.conv2.conv_act.0.weight",
+        "bev_decoder.head_4.segmentation_head.0.weight",
+        "bev_decoder.head_2.instance_offset_head.0.bias",
+        "bev_decoder.head_1.instance_center_head.0.weight",
+        "lidar_segmentation.head_1.seg_head.0.weight",
+        "sem_image_decoder.head_2.sem_head.0.bias",
+        "depth_image_decoder.head_4.depth_head.0.weight",
+    ):
+        assert key in keys, key
+    assert model.point_pillar_encoder.conv1.in_channels == 32
+    assert not any(k.startswith("range_view") for k in keys)
+
+
+def test_mobilevit_state_dict_round_trips():
+    cfg, state, model = _carry(False, **MOBILEVIT)
+    _assert_round_trip(cfg, state, model)
+    keys = set(model.state_dict())
+    for prefix in ("encoder", "range_view_encoder"):
+        for key in ("stem.conv.weight",
+                    "stages.2.1.transformer.1.attn.out_proj.weight",
+                    "stages.4.1.conv_proj.bn.running_mean"):
+            assert f"{prefix}.{key}" in keys
+    assert model.range_view_encoder.stem.conv.in_channels == 4

@@ -15,6 +15,7 @@ from types import SimpleNamespace
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 
@@ -58,6 +59,65 @@ def assert_same(got, want):
     reference parity tests has."""
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1.3e-6,
                                atol=1e-5)
+
+
+def close(got, want, tol: float = 1e-4):
+    """max |got - want| <= tol * max(1, max |want|), with equal shapes."""
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = np.abs(got - want).max()
+    assert err <= tol * max(1.0, np.abs(want).max()), err
+
+
+def randn(rs, *shape):
+    return rs.randn(*shape).astype(np.float32)
+
+
+def to_torch(a):
+    return torch.from_numpy(np.array(a))
+
+
+def flax_init(module, *args, **kwargs):
+    """A flax module's variables from its init, then its biases, scales
+    and BatchNorm statistics moved off their neutral values (numpy seed
+    1), so that every leaf a port module carries matters."""
+    variables = jax.device_get(jax.jit(
+        lambda *a: module.init(jax.random.PRNGKey(0), *a, **kwargs))(*args))
+    rs = np.random.RandomState(1)
+
+    def perturb(path, v):
+        name = getattr(path[-1], "key", None)
+        v = np.asarray(v)
+        if name in ("bias", "mean"):
+            return v + 0.1 * randn(rs, *v.shape)
+        if name == "scale":
+            return v * (1.0 + 0.1 * randn(rs, *v.shape))
+        if name == "var":
+            return rs.uniform(0.5, 1.5, v.shape).astype(np.float32)
+        return v
+
+    return jax.tree_util.tree_map_with_path(perturb, variables)
+
+
+def load_entries(module, entries, variables, *extra):
+    """Load a flax module's variables into the port's module through a
+    muvo_tpu_torch.weights ``*_entries`` map; the module in eval mode."""
+    from muvo_tpu_torch import weights
+
+    sd = {}
+    if "batch_stats" in variables:
+        entries(sd, "", variables["params"], variables["batch_stats"], *extra)
+    else:
+        entries(sd, "", variables["params"], *extra)
+    module.load_state_dict(weights.to_tensors(sd), strict=True)
+    return module.eval()
+
+
+def flax_apply(module, variables, *args, **kwargs):
+    """module.apply, jitted: one compile is cheaper than eager op dispatch."""
+    return jax.jit(lambda v, *a: module.apply(v, *a, **kwargs))(variables,
+                                                                *args)
 
 
 def randomise(tree, seed: int = 0):
@@ -168,6 +228,63 @@ def port_model(state, port_cfg):
         state_dict_from_jax(state.params, state.batch_stats, port_cfg),
         strict=True)
     return model.eval()
+
+
+def whole_graph(jcfg, pcfg, batch):
+    """muvo_tpu's and the port's forward (sampling at the mean, eval mode)
+    and compute_loss on the same seeded weights and batch: (port outputs,
+    port losses, jax outputs, jax losses, the port's losses on jax's
+    outputs)."""
+    from muvo_tpu.training.objectives import compute_loss as jax_loss
+    from muvo_tpu_torch.models.preprocess import PreProcess
+    from muvo_tpu_torch.training.objectives import compute_loss
+
+    mp = pytest.MonkeyPatch()
+    try:
+        deterministic_jax(mp)
+        trainer, state = jax_trainer_and_state(jcfg, batch)
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+
+        @jax.jit
+        def forward(params, batch_stats, b):
+            pb = trainer.preprocess(b, training=False)
+            out, _ = trainer.model.apply(
+                {"params": params, "batch_stats": batch_stats}, pb,
+                training=False)
+            return out, jax_loss(jcfg, pb, out)
+
+        want, want_losses = jax.device_get(
+            forward(state.params, state.batch_stats, jb))
+    finally:
+        mp.undo()
+    model = port_model(state, pcfg)
+    pb = PreProcess(pcfg)({k: torch.from_numpy(v) for k, v in batch.items()},
+                          training=False)
+    with torch.no_grad():
+        got, _ = model(pb, training=False, stochastic=False)
+        losses = compute_loss(pcfg, pb, got)
+        on_jax = compute_loss(pcfg, pb, {
+            k: to_torch(v) for k, v in want.items() if not isinstance(v, dict)
+        } | {k: {n: to_torch(t) for n, t in v.items()}
+             for k, v in want.items() if isinstance(v, dict)})
+    return got, losses, want, want_losses, on_jax
+
+
+def assert_whole_graph(got, losses, want, want_losses, on_jax):
+    keys = [k for k, v in want.items() if not isinstance(v, dict)]
+    assert set(keys) <= set(got)
+    for key in keys:
+        g, w = got[key].numpy(), np.asarray(want[key])
+        assert g.shape == w.shape, (key, g.shape, w.shape)
+        rel = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-12)
+        assert rel <= 1e-3, (key, rel)
+    assert set(losses) == set(want_losses)
+    for key, w in want_losses.items():
+        w = float(w)
+        # the port's terms on muvo_tpu's outputs: the same function
+        assert abs(float(on_jax[key]) - w) <= 1e-5 * max(1.0, abs(w)), key
+        assert abs(float(losses[key]) - w) <= 1e-4 * max(1.0, abs(w)), (
+            key, float(losses[key]), w)
 
 
 def _flat(d, prefix=""):
