@@ -101,23 +101,44 @@ exits nonzero (there is no CPU fallback):
    PointPillarNet on the drive's first frame, card against host in fp32
    within 1e-5. Step ms, frames/s, host ms between steps, peak MiB, and
    the loader's decode ms a frame beside muvo.yml's.
-11. serving_mobilevit: test_mobilevit_2d.yml (MobileViTV2 camera and
+11. train_lifting: ``main`` again on that drive with the default config
+   (the MILE branch: frustum lifting, backbone_bev, LiDAR and the RSSM;
+   batch 3 of RF 1 + FH 1, bf16) for 8 steps, then one_frame.yml (no
+   RSSM, batch 8 of 1 frame) for 4, each validating once, as users run
+   them but for the data root, the log dir, the length and the intervals.
+   Every logged loss finite, the KL term only with the RSSM; bf16 K1, K2,
+   K1-dx, K2-dx, K3 and K3-up launched as predicted (the default config's
+   256 voxel channels put conv3 alone on the kernels, as muvo_tpu's
+   Pallas path); the trained model's FrustumPooling on the drive's first
+   frame, card against host in fp32, within 1e-5. Step ms, frames/s, host
+   ms between steps, pooling ms, peak MiB.
+12. serving_mobilevit: test_mobilevit_2d.yml (MobileViTV2 camera and
    LiDAR trunks) at full width through DeploymentSession, fp32: fp32 K1
    and K2 4 launches each a sim tick, K4 none, outputs finite with
    muvo_tpu's shapes, one frame's embedding and one decode on the card
    against the port's host run within 1e-3. Tick ms and peak MiB.
-12. serving_large: muvo.yml with MODEL.TRANSFORMER.LARGE (stride-8 features,
+13. serving_lifting: through DeploymentSession at full width, fp32:
+   muvo.yml with MODEL.TRANSFORMER.BEV (40 x 104 stride-8 features lifted
+   over 37 depth bins onto the 48 x 48 grid, 12 x 12 image tokens), then
+   the default config (the MILE branch with the BEV, lidar_re,
+   lidar_segmentation and 192x192x64 voxel decoders). fp32 K1 and K2
+   launched as predicted a sim tick (fp32 K2 in four Cout slices at the
+   default config's conv3.conv1), nothing else; outputs finite with
+   muvo_tpu's shapes; one frame's embedding and one decode against the
+   host run within 1e-3, and that frame's FrustumPooling within 1e-5.
+   Tick ms, pooling ms (CUDA events) and peak MiB.
+14. serving_large: muvo.yml with MODEL.TRANSFORMER.LARGE (stride-8 features,
    5,184 fusion tokens a frame) through DeploymentSession, fp32: K4 must be
    launched once a layer for each encode, outputs must be finite with
    muvo_tpu's shapes, and one frame's embedding on the card must match the
    port's host run (the math attention path).
-13. training_large: build_flagship_step(large=True) (1 x 6 frames, bf16),
+15. training_large: build_flagship_step(large=True) (1 x 6 frames, bf16),
    3 warm-up steps, then timed steps with K4 and K5 launched once a layer a
    step; then gradients with the split backward (K6, not K5) against the
    fused backward's, each leaf within 2e-2 plus 8x the fused gradient's
    own noise (its change on a rerun, or from a scaled loss, the larger).
    tools/torch_large_grad_check.py repeats this phase alone.
-14. microbench: tools/torch_flash_microbench.py, K4-mb and K4 at bh 16.
+16. microbench: tools/torch_flash_microbench.py, K4-mb and K4 at bh 16.
 
 Each main path's launch counts are set to 0 just before it runs and read
 just after; each wrapper counts its launches by the tensors' type. The
@@ -175,6 +196,22 @@ SHAPES = (
     ("K2", "conv3.conv1", (192, 192, 32, 16), 8),
     ("K1", "conv3.conv2", (192, 192, 64, 8), 8),
 )
+
+
+def default_shapes():
+    """SHAPES' rows for the default config's kernel-path convs (256 voxel
+    feature channels: conv3 alone, its K2 and K2-dx in slices), read from
+    its decoder (voxel_kernel_convs), each stage named "default ..."."""
+    return tuple((kid, f"default {stage}", (x, y, zin, c), cout)
+                 for kid, stage, x, y, zin, c, cout
+                 in voxel_kernel_convs(config()))
+
+
+def train_batch(cfg) -> int:
+    """Frames the voxel decoder decodes in one train step of ``cfg``."""
+    return cfg.BATCHSIZE * (cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON)
+
+
 # the stage each voxel kernel's kernels-line entry reports (fp32 K2 at
 # conv2.conv1, where its kernel has the least room)
 MAIN_SHAPE = {"K1": "conv3.conv2", "K2": "conv3.conv1", "K1-dx": "conv3.conv2",
@@ -307,7 +344,7 @@ def kernel_phase(dev):
     }
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
-    for kid, stage, shape, cout in SHAPES:
+    for kid, stage, shape, cout in SHAPES + default_shapes():
         kernel, plain = fns[kid]
         up = kid == "K2"
         c = shape[-1]
@@ -369,14 +406,19 @@ def autocast_rows(dev, gen, fns):
     them and folds the weights itself), at the observation decode's batch
     (muvo.yml's BATCHSIZE x RECEPTIVE_FIELD) at the MAIN_SHAPE stages, and
     at the imagination decode's batch (BATCHSIZE x FUTURE_HORIZON) at
-    every stage; each held against its plain version on the bf16-cast
-    inputs."""
+    every stage; at the default config's stages at its observation and
+    imagination decodes' batch (3) and one_frame.yml's (8); each held
+    against its plain version on the bf16-cast inputs."""
     cfg = muvo_cfg()
     observe_b = cfg.BATCHSIZE * cfg.RECEPTIVE_FIELD
     imagine_b = cfg.BATCHSIZE * cfg.FUTURE_HORIZON
     rows = [(observe_b, case) for case in SHAPES
             if MAIN_SHAPE[case[0]] == case[1]]
     rows += [(imagine_b, case) for case in SHAPES]
+    for yml in (None, "one_frame.yml"):
+        lcfg = config(yml)
+        rows += [(lcfg.BATCHSIZE * lcfg.RECEPTIVE_FIELD, case)
+                 for case in default_shapes()]
     for b, (kid, stage, shape, cout) in rows:
         kernel, plain = fns[kid]
         c = shape[-1]
@@ -408,18 +450,21 @@ def autocast_rows(dev, gen, fns):
 
 def backward_kernel_phase(dev):
     """K1-dx, K2-dx, K3 and K3-up at the training shapes, against their
-    plain versions on the same inputs."""
+    plain versions on the same inputs: muvo.yml's stages at the flagship
+    step's TRAIN_BATCH, the default config's at its own step's frames."""
     from muvo_tpu_torch.models.layers import to_nchw
     from muvo_tpu_torch.ops import zconv
 
     gen = torch.Generator(device=dev).manual_seed(1)
     results = {}
-    for fwd, stage, shape, cout in SHAPES:
+    cases = [(*case, TRAIN_BATCH) for case in SHAPES]
+    cases += [(*case, train_batch(config())) for case in default_shapes()]
+    for fwd, stage, shape, cout, batch in cases:
         up = fwd == "K2"
         dx_id, dw_id = BACKWARD[fwd]
         c = shape[-1]
         for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn((TRAIN_BATCH, *shape), generator=gen,
+            x = torch.randn((batch, *shape), generator=gen,
                             device=dev).to(dtype)
             w = (torch.randn((cout, c, 3, 3, 3), generator=gen, device=dev)
                  / (27 * c) ** 0.5).to(dtype)
@@ -498,7 +543,7 @@ def backward_kernel_phase(dev):
                      (bms, by)) in rows:
                     row = {
                         "phase": "backward_kernel", "kernel": kid,
-                        "stage": stage, "input": [TRAIN_BATCH, *shape],
+                        "stage": stage, "input": [batch, *shape],
                         "cotangent": list(out.shape),
                         "dtype": str(dtype).replace("torch.", ""),
                         "impl": impl,  # the kernel (and view) that ran
@@ -543,33 +588,89 @@ def read_typed_launches():
             if _wrapper(kid).launches}
 
 
-def predicted_launches(cfg):
-    """Kernel launches per train step the model's code predicts: each
-    kernel-path DecoderBlock (output z > 18) runs K2 then K1, twice with
-    the voxel decoder rematerialised, and each backward kernel once; on the
-    LARGE path (5,184 tokens, flash from 2048) each transformer layer runs
-    K4 once and K5 once (the transformer is outside every checkpoint)."""
-    z = max(1, cfg.VOXEL.SIZE[2] // 64)  # the learned constant's z
-    blocks = 0
-    for _ in range(6):  # three middle blocks, conv1, conv2, conv3
-        z *= 2
-        blocks += z >= 19
+def voxel_kernel_convs(cfg):
+    """The voxel decoder's convs on the kernel path, in order, for one
+    decode: [(kernel, stage, X, Y, Zin, C, Cout)], the shapes of one
+    sample, read from the decoder the config builds (on the meta device,
+    which holds no data): each block, in the order the decoder registers
+    and runs them, doubles its input's size, and one that
+    stylegan.kernel_stage puts on the kernels runs conv1 as K2 and conv2
+    as K1 (conv2 and conv3 with muvo.yml's 64 feature channels, conv3 with
+    the default config's 256)."""
+    from muvo_tpu_torch.models.stylegan import DecoderBlock, kernel_stage
+    from muvo_tpu_torch.models.world_model import MuvoWorldModel
+
+    if not cfg.VOXEL_SEG.ENABLED:
+        return []
+    with torch.device("meta"):
+        decoder = MuvoWorldModel(cfg).voxel_decoder
+    x, y, z = decoder.constant_tensor.shape[1:]
+    convs = []
+    for name, block in decoder.named_modules():
+        if not isinstance(block, DecoderBlock):
+            continue
+        cout, c = block.conv1.conv_act[0].weight.shape[:2]
+        if kernel_stage(z, c, cout):
+            convs += [("K2", f"{name}.conv1", 2 * x, 2 * y, z, c, cout),
+                      ("K1", f"{name}.conv2", 2 * x, 2 * y, 2 * z, cout,
+                       cout)]
+        x, y, z = 2 * x, 2 * y, 2 * z
+    return convs
+
+
+def predicted_launches(cfg, smem_optin=None):
+    """bf16 kernel launches per train step the model's code predicts: each
+    kernel-path conv (voxel_kernel_convs) runs its forward kernel, twice
+    with the voxel decoder rematerialised, and its dx and dW kernels once,
+    each forward and dx kernel once for each slice zconv.channel_slices
+    gives it on this card's shared memory (``smem_optin``, read from the
+    card if None); on the LARGE path (5,184 tokens, flash from 2048) each
+    transformer layer runs K4 once and K5 once (the transformer is outside
+    every checkpoint)."""
+    from muvo_tpu_torch.ops import zconv
+
+    counts = dict.fromkeys(("K1", "K2", "K1-dx", "K2-dx", "K3", "K3-up"), 0)
+    for kid, _, _, _, zin, c, cout in voxel_kernel_convs(cfg):
+        if smem_optin is None:
+            smem_optin = zconv._f32_limits(0)[1]
+        for k in (kid, kid + "-dx"):
+            counts[k] += len(zconv.channel_slices(k, torch.bfloat16, zin, c,
+                                                  cout, smem_optin))
+        counts["K3-up" if kid == "K2" else "K3"] += 1
     fwd = 2 if cfg.MODEL.REMAT else 1
-    layers = cfg.MODEL.TRANSFORMER.N_LAYERS if cfg.MODEL.TRANSFORMER.LARGE \
-        else 0
-    return {"K1": fwd * blocks, "K2": fwd * blocks, "K1-dx": blocks,
-            "K2-dx": blocks, "K3": blocks, "K3-up": blocks,
-            "K4": layers, "K5": layers, "K6-dq": 0, "K6-dkv": 0, "K4-mb": 0}
+    counts["K1"] *= fwd
+    counts["K2"] *= fwd
+    layers = cfg.MODEL.TRANSFORMER.N_LAYERS if (
+        cfg.MODEL.TRANSFORMER.ENABLED and cfg.MODEL.TRANSFORMER.LARGE) else 0
+    return {**counts, "K4": layers, "K5": layers, "K6-dq": 0, "K6-dkv": 0,
+            "K4-mb": 0}
 
 
-def predicted_eval_launches(cfg):
-    """Kernel launches per eval step: the observation's decode and the
-    imagination's decode run K2 then K1 in each kernel-path block,
-    forward only, never rematerialised."""
-    blocks = predicted_launches(cfg)["K3"]
-    decodes = 2 if cfg.FUTURE_HORIZON > 0 else 1
-    return {kid: blocks * decodes if kid in ("K1", "K2") else 0
-            for kid in KERNEL_NAMES}
+def predicted_eval_launches(cfg, smem_optin=None):
+    """bf16 kernel launches per eval step: the observation's decode and,
+    where the model imagines (the RSSM and a horizon), the imagination's
+    decode run the forward kernels of each kernel-path conv (K2 in its
+    slices), never rematerialised."""
+    per_step = predicted_launches(cfg, smem_optin)
+    fwd = 2 if cfg.MODEL.REMAT else 1
+    decodes = 2 if (cfg.MODEL.TRANSITION.ENABLED
+                    and cfg.FUTURE_HORIZON > 0) else 1
+    return {kid: per_step[kid] // fwd * decodes if kid in ("K1", "K2")
+            else 0 for kid in KERNEL_NAMES}
+
+
+def predicted_fp32_decode_launches(cfg, dev):
+    """fp32 K1 and K2 launches of one decode on the card: each kernel-path
+    conv launches once for each slice of Cout its weights need
+    (zconv.channel_slices on this card's shared memory)."""
+    from muvo_tpu_torch.ops import zconv
+
+    optin = zconv._f32_limits(dev.index or 0)[1]
+    counts = {"K1": 0, "K2": 0}
+    for kid, _, _, _, zin, c, cout in voxel_kernel_convs(cfg):
+        counts[kid] += len(zconv.channel_slices(kid, torch.float32, zin, c,
+                                                cout, optin))
+    return counts
 
 
 def norm_rel(got, want):
@@ -1240,6 +1341,151 @@ def train_heads_phase(dev, work: Path):
     return typed
 
 
+# train_lifting's runs: (label, yml or None for the default config, steps);
+# each validates once, at its last step
+LIFTING_TRAINED = (("default config", None, 8),
+                   ("one_frame.yml", "one_frame.yml", 4))
+REPLAY_FRAMES = 360  # a validation run the every-50th sampler takes 8 from
+
+
+def replay_run(src: Path, dst: Path, n_frames: int):
+    """A recorded run at ``dst`` that replays ``src``'s frames in turn for
+    ``n_frames`` frames: its file folders are links to ``src``'s, its
+    dataframe ``src``'s rows repeated. The reference's validation sampler
+    takes every 50th sequence of a split, so a batch of b needs 50 (b - 1)
+    + 1 of them: more than a short drive holds."""
+    import pandas as pd
+
+    dst.mkdir(parents=True)
+    for sub in src.iterdir():
+        if sub.is_dir():
+            (dst / sub.name).symlink_to(sub.resolve(),
+                                        target_is_directory=True)
+    df = pd.read_pickle(src / "pd_dataframe.pkl")
+    rows = [i % len(df) for i in range(n_frames)]
+    df.iloc[rows].reset_index(drop=True).to_pickle(dst / "pd_dataframe.pkl")
+
+
+def train_lifting_phase(dev, work: Path):
+    """``muvo_tpu_torch.train.main`` on the train_entry phase's drive, its
+    validation split extended by a REPLAY_FRAMES-frame replay of the
+    training frames (``replay_run``: batches of 3 and 8 need 101 and 351
+    sequences under the every-50th validation sampler), with each of
+    LIFTING_TRAINED as users run it, setting only the data root (and
+    DATASET.FILTER_BEGINNING_OF_RUN_SEC 0, which would drop 1 s of the
+    drive's 2.4), the log dir, the run's length and its intervals: the
+    default config (the MILE branch with lifting, LiDAR and the RSSM;
+    batch 3 of RF 1 + FH 1, PRECISION 16-mixed, remat off), then
+    one_frame.yml (no RSSM, batch 8 of 1 frame, FH 0). Every logged loss
+    finite; the KL term logged for the default config and not for
+    one_frame.yml; bf16 K1, K2, K1-dx, K2-dx, K3 and K3-up launched as
+    predicted_launches and predicted_eval_launches give (the default
+    config's 256 voxel channels put conv3 alone on the kernels), no flash
+    kernel; the trained model's FrustumPooling on the drive's first frame,
+    card against host in fp32, within POOL_TOL. Step ms, frames/s, host ms
+    between steps, pooling ms and peak MiB. Returns the launches by type,
+    summed over both runs."""
+    from muvo_tpu_torch.data.dataset import CarlaDataset
+    from muvo_tpu_torch.models.preprocess import PreProcess
+    from muvo_tpu_torch.train import main as train_main
+
+    data = ["DATASET.DATAROOT", str(work / "drives"),
+            "DATASET.FILTER_BEGINNING_OF_RUN_SEC", "0.0"]
+    drives = work / "drives" / "trainval"
+    replay_run(drives / "train" / "Town01" / "0000",
+               drives / "val0" / "Town01" / "0001", REPLAY_FRAMES)
+    configs = Path(__file__).resolve().parent / "muvo_tpu_torch" / "configs"
+    typed_all = {}
+    for label, yml, steps in LIFTING_TRAINED:
+        cfg = config(yml, data)
+        argv = (["--config-file", str(configs / yml)] if yml else []) + data
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        with instrumented_train_loop(dev) as rec:
+            t0 = time.perf_counter()
+            run = train_main(argv + [
+                "LOG_DIR", str(work / f"lifting_{yml or 'default'}"),
+                "STEPS", str(steps), "LOGGING_INTERVAL", "1",
+                "VAL_CHECK_INTERVAL", str(steps), "LIMIT_VAL_BATCHES", "1"],
+                device=dev)
+            run_s = time.perf_counter() - t0
+        typed = read_typed_launches()
+        peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        records = logged_losses(run.log_dir)
+        n_train, n_val = len(rec["train_ms"]), len(rec["eval_ms"])
+        val = rec["val_launches"]
+        train = {kid: {t: n - val.get(kid, {}).get(t, 0)
+                       for t, n in types.items()
+                       if n - val.get(kid, {}).get(t, 0)}
+                 for kid, types in typed.items()}
+        per_step = predicted_launches(cfg)
+        per_eval = predicted_eval_launches(cfg)
+
+        # the trained model's lifting of the drive's first frame, fp32
+        seq = cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON
+        frame = CarlaDataset(cfg, "train", seq)[0]
+        batch = {k: torch.as_tensor(v)[None].to(dev)
+                 for k, v in frame.items()}
+        model = run.trainer.state.model.eval()
+        with torch.inference_mode():
+            pb = PreProcess(cfg)(batch, training=False, labels=False)
+        args, shapes = pooling_inputs(model, pb)
+        pool_err, pool_ms, points = pooling_vs_host(model.frustum_pooling,
+                                                    args)
+        del run, model, args
+        median = statistics.median(rec["train_ms"][3:])
+        frames = cfg.BATCHSIZE * seq
+        kl = sorted({k for r in records for k in r if "probabilistic" in k})
+        emit({"phase": "train_lifting", "config": label,
+              "batch": cfg.BATCHSIZE, "frames_per_step": frames,
+              "precision": str(cfg.PRECISION),
+              "remat": bool(cfg.MODEL.REMAT),
+              "transition": bool(cfg.MODEL.TRANSITION.ENABLED),
+              "voxel_channels": cfg.VOXEL_SEG.DIMENSION,
+              "kernel_convs": voxel_kernel_convs(cfg), "run_s": run_s,
+              "train_steps": n_train, "val_steps": n_val,
+              "step_ms": rec["train_ms"], "step_ms_median": median,
+              "frames_per_s": frames / (median / 1e3),
+              "host_gap_ms_median": statistics.median(rec["gap_ms"]),
+              "eval_ms": rec["eval_ms"], "peak_mib": peak_mib,
+              "launches_train_by_type": train, "launches_val_by_type": val,
+              "launches_per_step_predicted": per_step,
+              "launches_per_eval_predicted": per_eval,
+              "logged_records": len(records), "kl_terms": kl,
+              "last_train_losses": next(r for r in reversed(records)
+                                        if "train_loss" in r),
+              "features": list(pb["image"].shape), **shapes,
+              "points": points, "pooling_ms": pool_ms,
+              "pooling_vs_host_norm_rel": pool_err, "pool_tol": POOL_TOL,
+              "panels": rec["panels"]})
+        if n_train != steps or n_val != 1:
+            raise AssertionError(f"{label}: {n_train} train and {n_val} "
+                                 f"eval steps")
+        if bool(kl) != bool(cfg.MODEL.TRANSITION.ENABLED):
+            raise AssertionError(f"{label}: KL terms {kl} with "
+                                 f"TRANSITION.ENABLED "
+                                 f"{cfg.MODEL.TRANSITION.ENABLED}")
+        for kid in KERNEL_NAMES:
+            for what, counts, want in (
+                    ("training", train, per_step[kid] * n_train),
+                    ("validation", val, per_eval[kid] * n_val)):
+                got = counts.get(kid, {})
+                if got.get("bfloat16", 0) != want or set(got) - {"bfloat16"}:
+                    raise AssertionError(f"{label} {kid}: {got} launches in "
+                                         f"the {what} steps, predicted "
+                                         f"{want} bf16")
+        if not pool_err <= POOL_TOL:
+            raise AssertionError(f"{label}: FrustumPooling card differs "
+                                 f"from host: {pool_err}")
+        for kid, types in typed.items():
+            for dtype, n in types.items():
+                counts = typed_all.setdefault(kid, {})
+                counts[dtype] = counts.get(dtype, 0) + n
+        torch.cuda.empty_cache()
+    return typed_all
+
+
 METRIC_TOL = 1e-4  # card against host suite: SSIM, PSNR, Chamfer, relative
 
 
@@ -1678,7 +1924,7 @@ def serving_mobilevit_phase(dev):
                          if v - before[k]})
     launches, typed = read_launches(), read_typed_launches()
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
-    blocks = predicted_launches(cfg)["K3"]
+    decode = predicted_fp32_decode_launches(cfg, dev)
     check_serving_outputs(cfg, out, sim_out, imagined, SERVE_SEQ)
     embed_err, embed_host_s, _ = embedding_vs_host(session, host_model,
                                                    batch, cfg)
@@ -1696,7 +1942,7 @@ def serving_mobilevit_phase(dev):
           "embedding_vs_host_norm_rel": embed_err,
           "decode_vs_host_norm_rel": decode_err, "tol": DECODE_TOL,
           "host_encode_s": embed_host_s, "host_decode_s": decode_host_s})
-    want = {"K1": 2 * blocks, "K2": 2 * blocks}
+    want = {kid: 2 * n for kid, n in decode.items()}
     if any(tick != want for tick in per_tick):
         raise AssertionError(f"launches a sim tick {per_tick}, predicted "
                              f"{want}")
@@ -1718,6 +1964,184 @@ def serving_mobilevit_phase(dev):
     return typed
 
 
+POOL_TOL = 1e-5  # FrustumPooling card vs host, fp32, norm-relative: the
+# cells are the same bits, only the order of the atomic adds differs
+POOL_ITERS = 20  # timed FrustumPooling calls
+# serving_lifting's configurations: (label, yml or None for the default
+# config, overrides)
+LIFTING_SERVED = (("muvo.yml TRANSFORMER.BEV", "muvo.yml",
+                   ["MODEL.TRANSFORMER.BEV", "True"]),
+                  ("default config", None, []))
+
+
+def config(yml=None, opts=()):
+    """muvo_tpu_torch/configs/``yml`` (the defaults where None) with the
+    dotted ``opts``."""
+    from muvo_tpu_torch.config import get_cfg
+
+    cfg = muvo_cfg(yml) if yml else get_cfg()
+    cfg.merge_from_list(list(opts))
+    return cfg
+
+
+def pooling_inputs(model, pb):
+    """What ``model``'s FrustumPooling is called with in an encode of the
+    preprocessed ``pb`` (fp32, no autograd), and the shapes it and the
+    BEV down-sampler (where there is one) give: ((x, depth, intrinsics,
+    pose), {"bev": shape, "tokens": shape})."""
+    seen, shapes = [], {}
+
+    def pooled(module, args, out):
+        seen.append(args)
+        shapes["bev"] = list(out.shape)
+
+    def tokens(module, args, out):
+        shapes["tokens"] = list(out.shape)
+
+    hooks = [model.frustum_pooling.register_forward_hook(pooled)]
+    if getattr(model, "down_sample_bev", False):
+        hooks.append(model.bev_down_sample_4.register_forward_hook(tokens))
+    try:
+        with torch.inference_mode():
+            model.encode_frame(pb)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen[0], shapes
+
+
+def pooling_vs_host(pool, args):
+    """FrustumPooling on the card against a host copy on the same inputs
+    ``args`` (on the card): (norm-relative error, median CUDA-event ms of
+    POOL_ITERS calls, the points that count in the card's call)."""
+    host = copy.deepcopy(pool).cpu()
+    x, depth, k, pose = args
+    with torch.inference_mode():
+        got = pool(*args)
+        want = host(*(a.cpu() for a in args))
+        flat, valid = pool.cells(x.shape[1], x.shape[2], k, pose)
+        keep = valid.reshape(x.shape[0], pool.D, *x.shape[1:3]) & (
+            pool.depth_mask(depth).permute(0, 3, 1, 2) if pool.sparse
+            else True)
+        ms = []
+        for _ in range(POOL_ITERS):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            pool(*args)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+    return (norm_rel(got, want), statistics.median(ms),
+            {"kept": int(keep.sum()), "points": int(valid.numel()),
+             "inside_grid": int(valid.sum())})
+
+
+def serving_lifting_phase(dev):
+    """Camera lifting served through DeploymentSession at full width, fp32,
+    batch 1, seeded random weights, for each of LIFTING_SERVED: muvo.yml
+    with MODEL.TRANSFORMER.BEV (stride-8 features lifted over 37 depth bins
+    onto the 48 x 48 grid, 12 x 12 image tokens), and the default config
+    (the MILE branch: 64-channel lifting, backbone_bev, the range view, the
+    BEV, lidar_re, lidar_segmentation and voxel decoders). 3
+    deployment_forward ticks, then 3 sim_forward ticks on a SERVE_SEQ-frame
+    batch (5 imagined). fp32 K1 and K2 launched as
+    predicted_fp32_decode_launches gives for two decodes a sim tick, no
+    other kernel; outputs finite with muvo_tpu's shapes; one frame's
+    embedding and one decode on the card against the port's host run
+    within DECODE_TOL; that frame's FrustumPooling, card against host,
+    within POOL_TOL. Returns the launches by type, summed over both."""
+    from muvo_tpu_torch.data.synthetic import synthetic_batch
+    from muvo_tpu_torch.inference import DeploymentSession
+    from muvo_tpu_torch.models.world_model import MuvoWorldModel
+    from muvo_tpu_torch.ops import zconv
+    from muvo_tpu_torch.utils.network import remove_past
+
+    typed_all = {}
+    for label, yml, opts in LIFTING_SERVED:
+        cfg = config(yml, opts)
+        torch.manual_seed(3)
+        model = MuvoWorldModel(cfg)
+        host_model = copy.deepcopy(model).eval().requires_grad_(False)
+        session = DeploymentSession(
+            model, cfg, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        batch = synthetic_batch(cfg, batch_size=1, sequence_length=SERVE_SEQ,
+                                seed=0)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        deploy_ms, sim_ms, per_tick = [], [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = session.deployment_forward(batch, is_dreaming=False)
+            torch.cuda.synchronize()
+            deploy_ms.append((time.perf_counter() - t0) * 1e3)
+        session.reset()
+        for _ in range(3):
+            before = read_launches()
+            t0 = time.perf_counter()
+            sim_out, imagined = session.sim_forward(batch, is_dreaming=False)
+            torch.cuda.synchronize()
+            sim_ms.append((time.perf_counter() - t0) * 1e3)
+            per_tick.append({k: v - before[k]
+                             for k, v in read_launches().items()
+                             if v - before[k]})
+        typed = read_typed_launches()
+        peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        decode = predicted_fp32_decode_launches(cfg, dev)
+        check_serving_outputs(cfg, out, sim_out, imagined, SERVE_SEQ)
+        embed_err, embed_host_s, _ = embedding_vs_host(session, host_model,
+                                                       batch, cfg)
+        decode_err, decode_host_s = decode_vs_host(session, host_model, cfg)
+        with torch.inference_mode():
+            pb = session.preprocess(session._tensors(
+                remove_past(batch, SERVE_SEQ)), labels=False)
+        args, shapes = pooling_inputs(session.model, pb)
+        pool_err, pool_ms, points = pooling_vs_host(
+            session.model.frustum_pooling, args)
+        emit({"phase": "serving_lifting", "config": label, "batch": 1,
+              "sequence": SERVE_SEQ,
+              "features": list(args[0].shape), "depth": list(args[1].shape),
+              **shapes, "points": points,
+              "deployment_tick_ms": deploy_ms, "sim_tick_ms": sim_ms,
+              "sim_tick_ms_median": statistics.median(sim_ms),
+              "deployment_tick_ms_median": statistics.median(deploy_ms),
+              "pooling_ms": pool_ms, "peak_mib": peak_mib,
+              "launches_by_type": typed, "launches_per_sim_tick": per_tick,
+              "launches_per_decode_predicted": decode,
+              "K1_impl": zconv.zconv3d_leaky.last_impl,
+              "K2_impl": zconv.upzconv3d_leaky.last_impl,
+              "embedding_vs_host_norm_rel": embed_err,
+              "decode_vs_host_norm_rel": decode_err, "tol": DECODE_TOL,
+              "pooling_vs_host_norm_rel": pool_err, "pool_tol": POOL_TOL,
+              "host_encode_s": embed_host_s, "host_decode_s": decode_host_s})
+        want = {kid: 2 * n for kid, n in decode.items() if n}
+        if any(tick != want for tick in per_tick):
+            raise AssertionError(f"{label}: launches a sim tick {per_tick}, "
+                                 f"predicted {want}")
+        if set(typed) != set(want) or any(set(t) != {"float32"}
+                                          for t in typed.values()):
+            raise AssertionError(f"{label}: serving launched {typed}, "
+                                 f"predicted fp32 {sorted(want)} only")
+        worst = max(embed_err, *decode_err.values())
+        if not worst <= DECODE_TOL:
+            raise AssertionError(f"{label}: card differs from host: "
+                                 f"embedding {embed_err}, decode "
+                                 f"{decode_err}")
+        if not pool_err <= POOL_TOL:
+            raise AssertionError(f"{label}: FrustumPooling card differs "
+                                 f"from host: {pool_err}")
+        for kid, types in typed.items():
+            for dtype, n in types.items():
+                counts = typed_all.setdefault(kid, {})
+                counts[dtype] = counts.get(dtype, 0) + n
+        del session, model, host_model, args
+        torch.cuda.empty_cache()
+    return typed_all
+
+
 def check_serving_outputs(cfg, out, sim_out, imagined, seq=None):
     """muvo_tpu's shapes and finite values for a deployment_forward output,
     a sim_forward output and its imagination of a ``seq``-frame batch
@@ -1726,15 +2150,21 @@ def check_serving_outputs(cfg, out, sim_out, imagined, seq=None):
     fh = seq - 1
     s_h, s_w = (cfg.IMAGE.CROP[3] - cfg.IMAGE.CROP[1],
                 cfg.IMAGE.CROP[2] - cfg.IMAGE.CROP[0])
-    expect = {
-        "throttle_brake": (1,), "steering": (1,),
-        "rgb_1": (s_h, s_w, 3), "rgb_4": (s_h // 4, s_w // 4, 3),
-        "lidar_reconstruction_1": (cfg.POINTS.CHANNELS,
-                                   cfg.POINTS.HORIZON_RESOLUTION, 4),
-        "voxel_1": (*cfg.VOXEL.SIZE, cfg.VOXEL_SEG.N_CLASSES),
-        "voxel_2": (*(v // 2 for v in cfg.VOXEL.SIZE),
-                    cfg.VOXEL_SEG.N_CLASSES),
-    }
+    lidar = (cfg.POINTS.CHANNELS, cfg.POINTS.HORIZON_RESOLUTION)
+    expect = {"throttle_brake": (1,), "steering": (1,)}
+    if cfg.EVAL.RGB_SUPERVISION:
+        expect.update(rgb_1=(s_h, s_w, 3), rgb_4=(s_h // 4, s_w // 4, 3))
+    if cfg.LIDAR_RE.ENABLED:
+        expect["lidar_reconstruction_1"] = (*lidar, 4)
+    if cfg.LIDAR_SEG.ENABLED:
+        expect["lidar_segmentation_1"] = (*lidar, cfg.LIDAR_SEG.N_CLASSES)
+    if cfg.SEMANTIC_SEG.ENABLED:
+        expect["bev_segmentation_1"] = (cfg.BEV.SIZE[1], cfg.BEV.SIZE[0],
+                                        cfg.SEMANTIC_SEG.N_CHANNELS)
+    if cfg.VOXEL_SEG.ENABLED:
+        expect.update(voxel_1=(*cfg.VOXEL.SIZE, cfg.VOXEL_SEG.N_CLASSES),
+                      voxel_2=(*(v // 2 for v in cfg.VOXEL.SIZE),
+                               cfg.VOXEL_SEG.N_CLASSES))
     state_dim = (cfg.MODEL.TRANSITION.HIDDEN_STATE_DIM
                  + cfg.MODEL.TRANSITION.STATE_DIM)
     for name, result, steps in (("deployment_forward", out, 1),
@@ -2163,9 +2593,11 @@ def main() -> int:
         paths["prediction"], paths["sim_run"] = prediction_phase(dev, work,
                                                                  panels)
         paths["train_heads"] = train_heads_phase(dev, work)
+        paths["train_lifting"] = train_lifting_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths["serving_mobilevit"] = serving_mobilevit_phase(dev)
+    paths["serving_lifting"] = serving_lifting_phase(dev)
     paths["serving_large"] = serving_large_phase(dev)
     paths["training_large"], paths["training_large_split"] = (
         training_large_phase(dev))

@@ -43,13 +43,13 @@ def _kernel_flops_hooks(model, counts):
     """Forward hooks adding the model FLOPs of the port's kernels: 3 x each
     voxel conv on the kernel path (its forward, dx and dW), and 4 + 8 x
     bh L^2 d for each attention that takes flash (K4, then K5 or K6)."""
-    from muvo_tpu_torch.models.stylegan import ZCONV_MIN_Z, ConvInstanceNorm
+    from muvo_tpu_torch.models.stylegan import ConvInstanceNorm
     from muvo_tpu_torch.models.transformer import SelfAttention
     from muvo_tpu_torch.ops.attention import uses_flash
 
-    def conv_hook(module, args, out):
+    def conv_hook(module, args, kwargs, out):
         w = module.conv_act[0].weight
-        if out.ndim == 5 and out.shape[3] >= ZCONV_MIN_Z:
+        if kwargs.get("kernel"):
             voxels = out.shape[0] * out.shape[1] * out.shape[2] * out.shape[3]
             counts[0] += 3 * 2 * 27 * w.shape[0] * w.shape[1] * voxels
 
@@ -64,7 +64,8 @@ def _kernel_flops_hooks(model, counts):
     hooks = []
     for m in model.modules():
         if isinstance(m, ConvInstanceNorm):
-            hooks.append(m.register_forward_hook(conv_hook))
+            hooks.append(m.register_forward_hook(conv_hook,
+                                                 with_kwargs=True))
         elif isinstance(m, SelfAttention):
             hooks.append(m.register_forward_hook(attention_hook))
     return hooks

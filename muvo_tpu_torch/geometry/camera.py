@@ -1,13 +1,15 @@
-"""Camera and BEV geometry: intrinsics, extrinsics, view masks (numpy).
+"""Camera and BEV geometry: intrinsics, extrinsics, view masks (numpy),
+and the closed-form inverse of batched intrinsics (torch).
 
-An own copy of the numpy functions of muvo_tpu/geometry/camera.py (a test
-holds them equal). Semantics match the reference
+An own copy of the functions of muvo_tpu/geometry/camera.py (tests hold
+them equal). Semantics match the reference
 (muvo/utils/geometry_utils.py:8-91, muvo/data/dataset.py:372-385).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def calculate_geometry(image_fov, height, width, forward, right, up, pitch,
@@ -54,6 +56,22 @@ def bev_params_to_intrinsics(size, scale, offsetx):
         ],
         dtype=np.float32,
     )
+
+
+def intrinsics_inverse(intrinsics: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of batched pinhole intrinsics (..., 3, 3):
+    [[1/fx, 0, -cx/fx], [0, 1/fy, -cy/fy], [0, 0, 1]]."""
+    fx = intrinsics[..., 0, 0]
+    fy = intrinsics[..., 1, 1]
+    cx = intrinsics[..., 0, 2]
+    cy = intrinsics[..., 1, 2]
+    one = torch.ones_like(fx)
+    zero = torch.zeros_like(fx)
+    return torch.stack([
+        torch.stack([1 / fx, zero, -cx / fx], -1),
+        torch.stack([zero, 1 / fy, -cy / fy], -1),
+        torch.stack([zero, zero, one], -1),
+    ], -2)
 
 
 def get_out_of_view_mask(cfg) -> np.ndarray:

@@ -32,7 +32,12 @@ class DeploymentSession:
                  generator: Optional[torch.Generator] = None):
         """``device=None`` means the GPU and raises without one; pass
         ``"cpu"`` for the plain PyTorch path. ``generator`` (on ``device``)
-        draws the imagination rollout's noise; default seed 0."""
+        draws the imagination rollout's noise; default seed 0. The latent
+        carry is the RSSM's: a model without it
+        (MODEL.TRANSITION.ENABLED False) raises ValueError."""
+        if not cfg.MODEL.TRANSITION.ENABLED:
+            raise ValueError("DeploymentSession needs the RSSM: "
+                             "MODEL.TRANSITION.ENABLED is False")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.cfg = cfg

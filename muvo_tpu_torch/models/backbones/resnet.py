@@ -48,7 +48,9 @@ def feature_channels(out_indices: Sequence[int]):
 
 class ResNetFeatures(nn.Module):
     """ResNet-18 trunk returning the feature maps at ``out_indices``
-    (stem/2, layer1/4, layer2/8, layer3/16, layer4/32)."""
+    (stem/2, layer1/4, layer2/8, layer3/16, layer4/32). It holds all four
+    stages, as muvo_tpu's trunk does, and runs them up to the last index
+    asked for (``backbone_bev`` reads layer3)."""
 
     def __init__(self, out_indices: Tuple[int, ...] = (2, 3, 4),
                  in_channels: int = 3):
@@ -72,7 +74,7 @@ class ResNetFeatures(nn.Module):
         x = F.relu(self.bn1(self.conv1(to_nchw(x))))
         feats[0] = x
         x = F.max_pool2d(x, 3, 2, 1)
-        for stage in range(1, 5):
+        for stage in range(1, max(self.out_indices) + 1):
             x = getattr(self, f"layer{stage}")(x)
             feats[stage] = x
         return [to_nhwc(feats[i]) for i in self.out_indices]

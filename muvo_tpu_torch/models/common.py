@@ -1,7 +1,8 @@
 """Shared model components (counterpart of muvo_tpu/models/common.py):
 the top-down and bottom-up FPN aggregators, route and speed encoders, the
-policy, the feature compressor and the sine position embedding. NHWC at
-the public functions; upstream MUVO's parameter names.
+policy, the feature compressor, the BEV 4x down-sampler and the sine
+position embedding. NHWC at the public functions; upstream MUVO's
+parameter names.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from muvo_tpu_torch.models.layers import (
     adaptive_avg_pool_1x1,
     max_pool_torch,
     resize_bilinear,
+    to_nchw,
+    to_nhwc,
 )
 
 
@@ -150,3 +153,16 @@ class SpeedEncoder(nn.Sequential):
 
     def forward(self, speed):
         return super().forward(speed / self.normalisation)
+
+
+class BevDownSample4(nn.Sequential):
+    """Two 5x5 stride-2 convs (padding 2, 512 hidden channels, a ReLU
+    between) shrinking BEV features 4x; keys ``0`` and ``2`` as
+    upstream's ``nn.Sequential``."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(nn.Conv2d(in_channels, 512, 5, 2, 2), nn.ReLU(),
+                         nn.Conv2d(512, out_channels, 5, 2, 2))
+
+    def forward(self, x):
+        return to_nhwc(super().forward(to_nchw(x)))

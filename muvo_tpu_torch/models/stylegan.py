@@ -8,10 +8,11 @@ muvo_tpu's (``rgb_1``, ``lidar_reconstruction_2``, ``bev_segmentation_4``,
 ``voxel_4``, ...); tensors are channels-last (NHWC, NDHWC).
 
 The voxel decoder's large stages run their 3x3x3 convs through the port's
-CUDA kernels (ops/zconv.py) exactly where muvo_tpu takes its Pallas path:
-every stage whose upsampled z exceeds 18 (conv2 and conv3 with muvo.yml).
-There x/y are upsampled bilinearly first, then K2 fuses the z-upsample
-into conv1, and K1 runs conv2, each followed by AdaIN. Under autograd the
+CUDA kernels (ops/zconv.py) where muvo_tpu takes its Pallas path and
+their channels fit the kernels (``kernel_stage``: conv2 and conv3 with
+muvo.yml, conv3 with the default config's 256 feature channels). There x/y
+are upsampled bilinearly first, then K2 fuses the z-upsample into conv1,
+and K1 runs conv2, each followed by AdaIN. Under autograd the
 two convs run inside ops/zconv.py's autograd Function, whose backward
 launches K1-dx / K2-dx and K3; AdaIN, the upsampling and the small stages
 differentiate through plain autograd, as muvo_tpu runs them in XLA.
@@ -32,11 +33,24 @@ from muvo_tpu_torch.models.layers import (
     upsample2x_trilinear,
     upsample2x_xy,
 )
-from muvo_tpu_torch.ops.zconv import upzconv3d_leaky, zconv3d_leaky
+from muvo_tpu_torch.ops.zconv import (
+    TC_MAX_CHANNELS,
+    upzconv3d_leaky,
+    zconv3d_leaky,
+)
 
 # muvo_tpu takes the Pallas z-fold path for a conv whose z exceeds this
 # (ops/pallas_zconv.py:889,899); the port takes K1/K2 there.
 ZCONV_MIN_Z = 19
+
+
+def kernel_stage(zs: int, c_in: int, cout: int) -> bool:
+    """The voxel block of small z ``zs`` runs K2 (conv1, fusing the
+    z-upsample) and K1 (conv2): its upsampled z exceeds 18 and its
+    channels fit the bf16 tensor-core kernel's tile (zconv.TC_MAX_CHANNELS
+    input and output channels). Wider blocks, as the default config's conv2
+    (128 -> 64), run the plain conv, as muvo_tpu runs them in XLA."""
+    return 2 * zs >= ZCONV_MIN_Z and max(c_in, cout) <= TC_MAX_CHANNELS
 
 
 class AdaptiveInstanceNorm(nn.Module):
@@ -82,16 +96,17 @@ class ConvInstanceNorm(nn.Module):
         self.adaptive_norm = AdaptiveInstanceNorm(latent_n_channels,
                                                   out_channels)
 
-    def forward(self, x, w, z_upsample: bool = False):
-        """``z_upsample``: x is an NDHWC tensor at half z; the conv upsamples
-        z first (K2). 3-D convs whose output z exceeds 18 run K1/K2."""
+    def forward(self, x, w, kernel: bool = False, z_upsample: bool = False):
+        """``kernel``: the conv runs K1, or with ``z_upsample`` K2 (x is an
+        NDHWC tensor at half z, the conv upsamples z first); else the
+        plain conv."""
         conv = self.conv_act[0]
-        z_out = x.shape[3] * (2 if z_upsample else 1) if x.ndim == 5 else 0
-        if z_out >= ZCONV_MIN_Z:
+        if kernel:
             fn = upzconv3d_leaky if z_upsample else zconv3d_leaky
             x = fn(x.contiguous(), conv.weight, conv.bias, 0.2)
         elif z_upsample:
-            raise ValueError("the fused z-upsample conv needs output z > 18")
+            raise ValueError("the fused z-upsample conv runs on the kernel "
+                             "path only")
         else:
             x = to_nhwc(self.conv_act(to_nchw(x)))
         return self.adaptive_norm(x, w)
@@ -109,14 +124,14 @@ class DecoderBlock(nn.Module):
                                       latent_n_channels, ndim)
 
     def forward(self, x, w):
-        if x.ndim == 5 and 2 * x.shape[3] >= ZCONV_MIN_Z:
-            # kernel path: x/y here, z inside K2 (as upsample2x_xy_folded +
+        if x.ndim == 5 and kernel_stage(x.shape[3], x.shape[4],
+                                        self.conv1.conv_act[0].out_channels):
+            # x/y here, z inside K2 (as upsample2x_xy_folded +
             # upzconv3d_leaky_folded in muvo_tpu)
-            x = self.conv1(upsample2x_xy(x), w, z_upsample=True)
-        else:
-            up = upsample2x_bilinear if x.ndim == 4 else upsample2x_trilinear
-            x = self.conv1(up(x), w)
-        return self.conv2(x, w)
+            x = self.conv1(upsample2x_xy(x), w, kernel=True, z_upsample=True)
+            return self.conv2(x, w, kernel=True)
+        up = upsample2x_bilinear if x.ndim == 4 else upsample2x_trilinear
+        return self.conv2(self.conv1(up(x), w), w)
 
 
 # output key prefix and upstream head module name per head type

@@ -1,12 +1,40 @@
-"""MUVO world model, flagship branch (counterpart of
-muvo_tpu/models/world_model.py).
+"""MUVO world model (counterpart of muvo_tpu/models/world_model.py).
 
-Camera and LiDAR encoders with bottom-up FPNs, a post-LN transformer
-fusing their tokens, route and speed encoders, the RSSM, the policy, and
-the enabled decoders (the BEV decoder; the rgb, lidar_re,
-lidar_segmentation, semantic-image and depth ConvDecoders; the voxel
-decoder). Batch tensors are channels-last, (b, s, ...) as in muvo_tpu;
-submodule names are upstream MUVO's state_dict prefixes.
+Camera and LiDAR encoders, their fusion into one embedding a frame, route
+and speed encoders, the RSSM, the policy, and the enabled decoders (the
+BEV decoder; the rgb, lidar_re, lidar_segmentation, semantic-image and
+depth ConvDecoders; the voxel decoder). Batch tensors are channels-last,
+(b, s, ...) as in muvo_tpu; submodule names are upstream MUVO's
+state_dict prefixes.
+
+Two fusion branches, as upstream's mile.py:
+
+- MODEL.TRANSFORMER.ENABLED: the camera's and the LiDAR's FPN features
+  become tokens of a post-LN transformer. MODEL.TRANSFORMER.LARGE
+  aggregates stride-8 features with the top-down Decoder (5,184 tokens a
+  frame at muvo.yml's sizes), and the attention takes the flash kernels
+  on the card; the tokens run at their true count (muvo_tpu pads them to
+  the flash block multiple because the TPU's BlockSpec tiles cannot be
+  ragged; the port's kernels mask the ragged tail themselves).
+  MODEL.TRANSFORMER.BEV lifts the stride-8 camera features into a BEV
+  grid first (``depth_decoder``, the 1x1 ``depth`` head, FrustumPooling),
+  then shrinks it 4x (``bev_down_sample_4``) unless LARGE.
+- The MILE branch (TRANSFORMER.ENABLED False): the stride-8 camera
+  features lifted into the BEV grid (or, with EVAL.NO_LIFTING, as they
+  are), the route and speed features broadcast over it, ``backbone_bev``
+  and ``final_state_conv``; with LiDAR (MODEL.LIDAR.ENABLED) the LiDAR
+  features compressed by ``lidar_state_conv`` and joined by
+  ``embedding_combine``.
+
+The LiDAR encoder reads the range view, or with MODEL.LIDAR.POINT_PILLAR
+the PointPillars canvas of the raw points (``point_pillars``,
+``point_pillar_encoder``, ``point_pillar_decoder``, as upstream names
+them). The encoders are resnet18 or mobilevitv2 trunks (MODEL.ENCODER.NAME,
+MODEL.LIDAR.ENCODER). MODEL.TRANSITION.ENABLED False drops the RSSM: the
+state is the embedding. Two configurations raise NotImplementedError
+instead of running something else: MODEL.MEASUREMENTS (not ported yet),
+and the transformer branch without LiDAR, which muvo_tpu cannot run either
+(its transformer branch always reads the LiDAR features).
 
 ``forward`` is the training and evaluation pass over a sequence (muvo_tpu's
 ``__call__``): encode every frame, roll the RSSM over the sequence, then the
@@ -15,22 +43,6 @@ REMAT_SCOPE) recomputes the decoders in the backward pass instead of
 storing their activations, and MODEL.REMAT_ENCODER does the same for the
 resnet encoders, through torch.utils.checkpoint; the recompute leaves the
 BatchNorm running statistics alone.
-
-MODEL.TRANSFORMER.LARGE aggregates stride-8 features with the top-down
-Decoder (5,184 tokens a frame at muvo.yml's sizes), and the transformer's
-attention takes the flash kernels on the card. The tokens run at their
-true count: muvo_tpu pads them once to the flash block multiple because
-the TPU's BlockSpec tiles cannot be ragged, and the port's kernels mask
-the ragged tail themselves.
-
-The LiDAR encoder reads the range view, or with
-MODEL.LIDAR.POINT_PILLAR the PointPillars canvas of the raw points
-(``point_pillars``, ``point_pillar_encoder``, ``point_pillar_decoder``, as
-upstream names them). The encoders are resnet18 or mobilevitv2 trunks
-(MODEL.ENCODER.NAME, MODEL.LIDAR.ENCODER). SEMANTIC_SEG adds the BEV
-decoder. Branches outside the ported slices (frustum-BEV fusion, the
-no-transformer MILE branch, measurements, TRANSITION.ENABLED False) raise
-NotImplementedError instead of running something else.
 """
 
 from __future__ import annotations
@@ -38,11 +50,13 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
 from muvo_tpu_torch.models.backbones.resnet import build_backbone
 from muvo_tpu_torch.models.common import (
+    BevDownSample4,
     Decoder,
     DecoderDS,
     FeatureCompressor,
@@ -51,6 +65,7 @@ from muvo_tpu_torch.models.common import (
     SpeedEncoder,
     position_embedding_sine,
 )
+from muvo_tpu_torch.models.frustum import FrustumPooling
 from muvo_tpu_torch.models.layers import frozen_batch_stats
 from muvo_tpu_torch.models.pointpillars import PointPillarNet
 from muvo_tpu_torch.models.rssm import RSSM
@@ -79,16 +94,14 @@ def checkpointed(fn, *args):
 def _check_supported(cfg):
     m = cfg.MODEL
     unsupported = {
-        "the MILE branch (MODEL.TRANSFORMER.ENABLED False)":
-            not m.TRANSFORMER.ENABLED,
-        "frustum-BEV fusion (MODEL.TRANSFORMER.BEV)": m.TRANSFORMER.BEV,
-        "MODEL.LIDAR.ENABLED False": not m.LIDAR.ENABLED,
-        "MODEL.MEASUREMENTS": m.MEASUREMENTS.ENABLED,
-        "MODEL.TRANSITION.ENABLED False": not m.TRANSITION.ENABLED,
+        "MODEL.MEASUREMENTS (not ported yet)": m.MEASUREMENTS.ENABLED,
+        "the transformer branch without LiDAR (MODEL.TRANSFORMER.ENABLED "
+        "with MODEL.LIDAR.ENABLED False; muvo_tpu cannot run it either)":
+            m.TRANSFORMER.ENABLED and not m.LIDAR.ENABLED,
     }
     missing = [k for k, v in unsupported.items() if v]
     if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+        raise NotImplementedError(f"not supported: {', '.join(missing)}")
 
 
 class MuvoWorldModel(nn.Module):
@@ -101,41 +114,89 @@ class MuvoWorldModel(nn.Module):
         emb = m.EMBEDDING_DIM
 
         # ---- encoders ------------------------------------------------
-        fpn = Decoder if m.TRANSFORMER.LARGE else DecoderDS
+        self.fusion = bool(m.TRANSFORMER.ENABLED)
         self.encoder, enc_c = build_backbone(m.ENCODER.NAME)
-        self.feat_decoder = fpn(enc_c, tf_c)
-        self.point_pillar = bool(m.LIDAR.POINT_PILLAR.ENABLED)
+        if self.fusion:
+            feat_c = tf_c
+            # the transformer's FPNs: top-down on the LARGE path; the camera
+            # FPN top-down also under BEV (upstream's mile.py:32-34)
+            fpn = Decoder if m.TRANSFORMER.LARGE else DecoderDS
+            self.feat_decoder = (Decoder if m.TRANSFORMER.BEV else fpn)(
+                enc_c, tf_c)
+            self.lifting = bool(m.TRANSFORMER.BEV)
+        else:
+            feat_c = m.ENCODER.OUT_CHANNELS
+            fpn = Decoder
+            self.feat_decoder = Decoder(enc_c, feat_c)
+            self.lifting = not cfg.EVAL.NO_LIFTING
+        bev_c = feat_c
+        if self.lifting:
+            ds = cfg.BEV.FEATURE_DOWNSAMPLE
+            pool = cfg.BEV.FRUSTUM_POOL
+            self.frustum_pooling = FrustumPooling(
+                size=(cfg.BEV.SIZE[0] // ds, cfg.BEV.SIZE[1] // ds),
+                scale=cfg.BEV.RESOLUTION * ds,
+                offsetx=cfg.BEV.OFFSET_FORWARD / ds, dbound=pool.D_BOUND,
+                downsample=8, sparse=pool.SPARSE,
+                sparse_count=pool.SPARSE_COUNT)
+            self.depth_decoder = Decoder(enc_c, feat_c)
+            self.depth = nn.Conv2d(feat_c, self.frustum_pooling.D, 1)
+            bev_c = feat_c * self.frustum_pooling.nx[2]
+        self.down_sample_bev = (self.fusion and self.lifting
+                                and not m.TRANSFORMER.LARGE)
+        if self.down_sample_bev:
+            self.bev_down_sample_4 = BevDownSample4(bev_c, tf_c)
+
+        self.lidar = bool(m.LIDAR.ENABLED)
+        self.point_pillar = self.lidar and bool(m.LIDAR.POINT_PILLAR.ENABLED)
+        lidar_out_c = tf_c if self.fusion else m.LIDAR.OUT_CHANNELS
         if self.point_pillar:
             self.point_pillars = PointPillarNet()
             self.point_pillar_encoder, lidar_c = build_backbone(
                 m.LIDAR.ENCODER, in_channels=self.point_pillars.out_channels)
-            self.point_pillar_decoder = fpn(lidar_c, tf_c)
-        else:
+            self.point_pillar_decoder = fpn(lidar_c, lidar_out_c)
+        elif self.lidar:
             self.range_view_encoder, lidar_c = build_backbone(
                 m.LIDAR.ENCODER, in_channels=4)
-            self.range_view_decoder = fpn(lidar_c, tf_c)
-        self.type_embedding = nn.Parameter(torch.zeros(1, 1, tf_c, 2))
-        self.transformer_encoder = TransformerEncoder(
-            tf_c, m.TRANSFORMER.N_LAYERS, m.TRANSFORMER.N_HEADS,
-            m.TRANSFORMER.DIM_FEEDFORWARD)
-        self.image_feature_conv = FeatureCompressor(tf_c, emb)
-        self.lidar_feature_conv = FeatureCompressor(tf_c, emb)
-        feature_n = 2 * emb
+            self.range_view_decoder = fpn(lidar_c, lidar_out_c)
+        # (modules in the order that seeds the transformer branch's weights
+        # as before the other branches were ported)
+        if self.fusion:
+            self.type_embedding = nn.Parameter(torch.zeros(1, 1, tf_c, 2))
+            self.transformer_encoder = TransformerEncoder(
+                tf_c, m.TRANSFORMER.N_LAYERS, m.TRANSFORMER.N_HEADS,
+                m.TRANSFORMER.DIM_FEEDFORWARD)
+            self.image_feature_conv = FeatureCompressor(tf_c, emb)
+            self.lidar_feature_conv = FeatureCompressor(tf_c, emb)
         if m.ROUTE.ENABLED:
             self.backbone_route = RouteEncode(m.ROUTE.CHANNELS,
                                               m.ROUTE.BACKBONE)
-            feature_n += m.ROUTE.CHANNELS
         self.speed_enc = SpeedEncoder(m.SPEED.CHANNELS,
                                       cfg.SPEED.NORMALISATION)
-        feature_n += m.SPEED.CHANNELS
-        self.features_combine = nn.Linear(feature_n, emb)
+        route_c = m.ROUTE.CHANNELS if m.ROUTE.ENABLED else 0
+        if self.fusion:
+            self.features_combine = nn.Linear(
+                2 * emb + route_c + m.SPEED.CHANNELS, emb)
+        else:
+            self.backbone_bev, (trunk_c,) = build_backbone(
+                m.BEV.BACKBONE, out_indices=(3,),
+                in_channels=bev_c + route_c + m.SPEED.CHANNELS)
+            self.final_state_conv = FeatureCompressor(trunk_c, emb)
+            if self.lidar:
+                self.lidar_state_conv = FeatureCompressor(
+                    lidar_out_c, emb, strides=(2, 2))
+                self.embedding_combine = nn.Linear(2 * emb, emb)
 
         # ---- transition and policy -----------------------------------
         t = m.TRANSITION
-        self.rssm = RSSM(emb, m.ACTION_DIM, t.HIDDEN_STATE_DIM, t.STATE_DIM,
-                         t.ACTION_LATENT_DIM, t.USE_DROPOUT,
-                         t.DROPOUT_PROBABILITY)
-        state_dim = t.HIDDEN_STATE_DIM + t.STATE_DIM
+        if t.ENABLED:
+            self.rssm = RSSM(emb, m.ACTION_DIM, t.HIDDEN_STATE_DIM,
+                             t.STATE_DIM, t.ACTION_LATENT_DIM, t.USE_DROPOUT,
+                             t.DROPOUT_PROBABILITY)
+            state_dim = t.HIDDEN_STATE_DIM + t.STATE_DIM
+        else:
+            self.rssm = None
+            state_dim = emb
         self.policy = Policy(state_dim)
 
         # ---- decoders: constants are target size / 64 (six 2x steps) --
@@ -196,11 +257,36 @@ class MuvoWorldModel(nn.Module):
         """Per-frame sensor fusion of a preprocessed batch -> (b, s, emb).
         ``dropout`` turns the transformer's dropout on (training)."""
         b, s = batch["image"].shape[:2]
-        tf_c = self.cfg.MODEL.TRANSFORMER.CHANNELS
-        x = self.feat_decoder(self._backbone(
-            self.encoder, pack_sequence_dim(batch["image"])))
-        lidar = self._lidar_features(batch)
+        xs = self._backbone(self.encoder, pack_sequence_dim(batch["image"]))
+        x = self.feat_decoder(xs)
+        if self.lifting:
+            x = self._lift(xs, x, batch)
+        if self.fusion:
+            if self.down_sample_bev:
+                x = self.bev_down_sample_4(x)
+            embedding = self._fuse_tokens(x, batch, dropout, generator)
+        else:
+            embedding = self._bev_embedding(x, batch)
+        return unpack_sequence_dim(embedding, b, s)
 
+    def _lift(self, xs, x, batch: Dict) -> torch.Tensor:
+        """The stride-8 features ``x`` pooled into the BEV grid along the
+        depth distribution of ``depth_decoder`` (a softmax over the
+        frustum's depth bins)."""
+        d = self.depth_decoder(xs)
+        w = self.depth.weight
+        depth = torch.softmax(F.linear(d, w.reshape(w.shape[0], -1),
+                                       self.depth.bias), dim=-1)
+        return self.frustum_pooling(
+            x, depth, pack_sequence_dim(batch["intrinsics"]),
+            pack_sequence_dim(batch["extrinsics"]))
+
+    def _fuse_tokens(self, x, batch: Dict, dropout: bool,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The transformer branch: camera and LiDAR tokens fused, then
+        compressed and joined with the route and speed features."""
+        tf_c = self.cfg.MODEL.TRANSFORMER.CHANNELS
+        lidar = self._lidar_features(batch)
         h_i, w_i = x.shape[1:3]
         h_l, w_l = lidar.shape[1:3]
         image_tokens = x + position_embedding_sine(
@@ -218,13 +304,33 @@ class MuvoWorldModel(nn.Module):
         lidar_out = tokens[:, h_i * w_i:].reshape(-1, h_l, w_l, tf_c)
 
         features = [self.image_feature_conv(image_out),
-                    self.lidar_feature_conv(lidar_out)]
+                    self.lidar_feature_conv(lidar_out),
+                    *self._vector_features(batch)]
+        return self.features_combine(torch.cat(features, dim=-1))
+
+    def _vector_features(self, batch: Dict):
+        """The route (where enabled) and speed features, (b*s, C) each."""
+        features = []
         if self.cfg.MODEL.ROUTE.ENABLED:
             features.append(self.backbone_route(
                 pack_sequence_dim(batch["route_map"])))
         features.append(self.speed_enc(pack_sequence_dim(batch["speed"])))
-        embedding = self.features_combine(torch.cat(features, dim=-1))
-        return unpack_sequence_dim(embedding, b, s)
+        return features
+
+    def _bev_embedding(self, x, batch: Dict) -> torch.Tensor:
+        """The MILE branch: the route and speed features broadcast over the
+        BEV features ``x``, ``backbone_bev``'s stride-16 map compressed to
+        the embedding, joined with the compressed LiDAR features."""
+        n, h, w = x.shape[:3]
+        features = [x] + [f[:, None, None].expand(n, h, w, f.shape[-1])
+                          for f in self._vector_features(batch)]
+        x = torch.cat(features, dim=-1)
+        embedding = self.final_state_conv(self.backbone_bev(x)[-1])
+        if self.lidar:
+            lidar = self.lidar_state_conv(self._lidar_features(batch))
+            embedding = self.embedding_combine(
+                torch.cat([embedding, lidar], dim=-1))
+        return embedding
 
     def _lidar_features(self, batch: Dict) -> torch.Tensor:
         """The LiDAR branch's FPN features: of the PointPillars canvas of
@@ -264,14 +370,17 @@ class MuvoWorldModel(nn.Module):
         b, s = batch["image"].shape[:2]
         noisy = training and stochastic
         embedding = self.encode(batch, noisy, generator)
-        action = torch.cat([batch["throttle_brake"], batch["steering"]],
-                           dim=-1).to(embedding.dtype)
-        state_dict = self.rssm(embedding, action, use_sample=stochastic,
-                               training=noisy, generator=generator)
+        if self.rssm is None:  # MODEL.TRANSITION.ENABLED False
+            state, state_dict = embedding, {}
+        else:
+            action = torch.cat([batch["throttle_brake"], batch["steering"]],
+                               dim=-1).to(embedding.dtype)
+            state_dict = self.rssm(embedding, action, use_sample=stochastic,
+                                   training=noisy, generator=generator)
+            posterior = state_dict["posterior"]
+            state = torch.cat([posterior["hidden_state"],
+                               posterior["sample"]], dim=-1)
         output: Dict = dict(state_dict)
-        posterior = state_dict["posterior"]
-        state = torch.cat([posterior["hidden_state"], posterior["sample"]],
-                          dim=-1)
         packed = pack_sequence_dim(state)
         throttle_brake, steering = self.policy(packed).chunk(2, dim=-1)
         output["throttle_brake"] = unpack_sequence_dim(throttle_brake, b, s)
@@ -305,6 +414,9 @@ class MuvoWorldModel(nn.Module):
         ``use_sample=False`` rolls the prior mean (deterministic; for
         parity tests, since torch and JAX noise streams differ).
         """
+        if self.rssm is None:
+            raise ValueError("imagination needs the RSSM "
+                             "(MODEL.TRANSITION.ENABLED)")
         fh = (future_horizon if future_horizon is not None
               else self.cfg.FUTURE_HORIZON)
         h, smp = batch["hidden_state"], batch["sample"]

@@ -26,6 +26,10 @@ K2-dx ``upzconv3d_dx``: K2's input gradient, that adjoint conv over big z
     (``up_fold_weights(adjoint=True)``), in bf16 on the tensor cores, in
     fp32 on fp32 K1-dx's walk with the fold's edge terms; the big-z
     gradient never exists.
+Where the block of one of these kernels cannot hold the weights of all its
+    output channels (fp32 K1, K2, K1-dx and K2-dx, bf16 K2 and K2-dx), it
+    launches once for each slice of them that ``channel_slices`` gives (as
+    at the default config's 256-channel voxel decoder).
 K3 ``zconv3d_dw`` / ``upzconv3d_dw`` (K3-up): the weight and bias
     gradients of K1 / K2 in one pass (_dw_pallas and the dbias sums beside
     it), fp32 out: in bf16 a split-K GEMM on the tensor cores over the
@@ -301,6 +305,24 @@ def k1_route(z: int, c: int, cout: int) -> Optional[TcView]:
     return None
 
 
+TC_PLANES = 4  # the kernel's ring of staged x planes (kPlanes)
+
+
+def tc_smem_bytes(zs: int, kc: int, n: int, edges: bool,
+                  ty: int = 1) -> int:
+    """Shared memory of a zconv_tc_kernel block of ``ty`` y rows on the
+    view (Zs, Kc) -> N (csrc/zconv.cu's tc_smem_bytes): the bf16 weights of
+    27 taps, 45 with the small-z view's edge terms, and the plane ring."""
+    ks = -(-kc // 16)
+    return ((45 if edges else 27) * ks * _round_up(n, 16) * 32
+            + TC_PLANES * (ty + 2) * (zs + 2) * (ks * 16 + 8) * 2)
+
+
+def _smem_optin(t) -> int:
+    """The shared memory a block may opt in to on t's card."""
+    return _f32_limits(t.device.index or 0)[1]
+
+
 K1_F32_IMPL = "f32conv::zconv_f32_kernel (csrc/zconv_f32.cu)"
 K2_F32_IMPL = "f32conv::zconv_up_f32_kernel (csrc/zconv_f32.cu)"
 K1_DX_F32_IMPL = "f32conv::zconv_dx_f32_kernel (csrc/zconv_f32.cu)"
@@ -396,6 +418,14 @@ def f32_dx_plan(B: int, X: int, Y: int, Z: int, Cg: int, C: int, up: bool,
                      dx=True, edges=up)
 
 
+def f32_smem_bytes(Z: int, C: int, coutp: int, ty: int = 1) -> int:
+    """Shared memory of an fp32 K1 / K2 (/ dx) block of ``ty`` y rows at
+    output z ``Z``: the weights of ``coutp`` output channels and F32_PLANES
+    planes of (ty + 2) y rows x C channels x the padded z."""
+    zs = -(-Z // F32_RZ) * F32_RZ + 4  # z -1 .. Z, and the last group's reads
+    return 4 * (27 * C * coutp + F32_PLANES * (ty + 2) * C * zs)
+
+
 def _f32_plan(B, X, Y, Zin, C, Cout, up, sms, smem_optin,
               co: Optional[int] = None, ty: Optional[int] = None,
               xvec: bool = True, dx: bool = False,
@@ -412,7 +442,7 @@ def _f32_plan(B, X, Y, Zin, C, Cout, up, sms, smem_optin,
     ys = C * zs
 
     def smem(coutp, t):
-        return 4 * (27 * C * coutp + F32_PLANES * (t + 2) * ys)
+        return f32_smem_bytes(Z, C, coutp, t)
 
     def most_rows(co_):
         coutp = _round_up(Cout, co_)
@@ -468,6 +498,51 @@ def _f32_limits(index: int):
                                                         ctypes.byref(optin))
     _raise_if(rc, "zconv_f32", "fp32 K1 / K2")
     return sms.value, optin.value
+
+
+def channel_slices(kid: str, dtype, zin: int, c: int, cout: int,
+                   smem_optin: int):
+    """The launches of one call of ``kid`` ("K1", "K2", "K1-dx" or
+    "K2-dx") on x (B, X, Y, ``zin``, ``c``) into ``cout`` channels (the dx
+    kernels: a cotangent of ``cout`` channels, at the small z ``zin`` for
+    K2-dx, into dx of ``c``): slices [(lo, hi)] of its output channels,
+    each launched alone. A kernel whose block holds the weights of every
+    output channel it computes (fp32 K1, K2, K1-dx and K2-dx; bf16 K2 and
+    K2-dx, whose folded weights have 45 taps) takes one launch where they
+    all fit ``smem_optin``, else the fewest slices of a multiple of 4 (fp32)
+    or 8 (bf16) channels that fit, each launch staging all of its input
+    again: at the default config's conv3.conv1 (C 64 -> 32 at small z 32)
+    fp32 and bf16 K2 four slices of 8, fp32 and bf16 K2-dx four of 16.
+    bf16 K1 and K1-dx take one launch. Raises ValueError where the
+    narrowest slice does not fit."""
+    total = c if kid.endswith("-dx") else cout
+    if dtype == torch.float32:  # the walk's view: its z and input channels
+        z, kc = {"K1": (zin, c), "K2": (2 * zin, c), "K1-dx": (zin, cout),
+                 "K2-dx": (zin, 2 * cout)}[kid]
+        step = 4
+
+        def smem(n):
+            return f32_smem_bytes(z, kc, _round_up(n, step))
+    elif kid in ("K2", "K2-dx"):  # the small-z view, with edge terms
+        kc, per = (c, 2) if kid == "K2" else (2 * cout, 1)
+        step = 8
+
+        def smem(n):
+            return tc_smem_bytes(zin, kc, per * n, True)
+    else:
+        return [(0, total)]
+    for count in range(1, -(-total // step) + 1):
+        size = -(-total // count)
+        if count > 1:
+            size = _round_up(size, step)
+        if smem(size) <= smem_optin:
+            return [(lo, min(lo + size, total))
+                    for lo in range(0, total, size)]
+    name = "fp32" if dtype == torch.float32 else "bf16"
+    raise ValueError(f"{name} {kid} kernel: z {zin} x {c} -> {cout} "
+                     f"channels needs {smem(step)} bytes of shared memory "
+                     f"for {step} output channels, the card allows "
+                     f"{smem_optin}")
 
 
 def _launch_f32(x, w, bias32, out, slope, plan: dict):
@@ -598,8 +673,26 @@ def _launch_tc(x, mask, mslope, w, bias32, out, view: TcView, cb: int,
     _raise_if(rc, "zconv", what)
 
 
+def _sliced(out, slices, launch) -> int:
+    """Runs ``launch(lo, hi, part)`` for each slice [lo, hi) of out's last
+    (channel) axis, ``part`` a new (..., hi - lo) tensor copied into out
+    afterwards, or out itself where one slice covers it. Returns the number
+    of launches."""
+    if len(slices) == 1:
+        launch(0, out.shape[-1], out)
+        return 1
+    for lo, hi in slices:
+        part = torch.empty(out.shape[:-1] + (hi - lo,), dtype=out.dtype,
+                           device=out.device)
+        launch(lo, hi, part)
+        out[..., lo:hi] = part
+    return len(slices)
+
+
 def _launch(x, weight, bias, slope, up: bool):
-    """The forward kernel; returns the output and the kernel's name."""
+    """The forward kernel; returns the output, the kernel's name and the
+    number of launches (K2 in bf16, K1 and K2 in fp32 may run on slices of
+    Cout: ``channel_slices``)."""
     b, X, Y, zin, c = x.shape
     cout = weight.shape[0]
     z = 2 * zin if up else zin
@@ -610,14 +703,36 @@ def _launch(x, weight, bias, slope, up: bool):
     if x.dtype == torch.bfloat16:
         view = (TcView("small-z", zin, c, 2 * cout) if up
                 else k1_route(z, c, cout))
+    if view is not None and up:
+        views = []
+
+        def run_tc(lo, hi, part):
+            views.append(view._replace(n=2 * (hi - lo)))
+            _launch_tc(x, None, None,
+                       _tc_weights(weight[lo:hi], views[-1], False),
+                       None if bias32 is None else bias32[lo:hi], part,
+                       views[-1], hi - lo, False, slope, what)
+
+        n = _sliced(out, channel_slices(what, x.dtype, zin, c, cout,
+                                        _smem_optin(x)), run_tc)
+        return out, _impl(views[-1], x.dtype, up, False), n
     if view is not None:
         _launch_tc(x, None, None, _tc_weights(weight, view, False), bias32,
                    out, view, cout, False, slope, what)
-    elif up or x.dtype == torch.float32:
+    elif x.dtype == torch.float32:
         sms, optin = _f32_limits(x.device.index or 0)
-        _launch_f32(x, _kkkcn(weight), bias32, out, slope,
-                    f32_plan(b, X, Y, zin, c, cout, up, sms, optin,
-                             xvec=x.data_ptr() % 16 == 0))
+        w = _kkkcn(weight)
+
+        def run_f32(lo, hi, part):
+            w_part = w if hi - lo == cout else w[..., lo:hi].contiguous()
+            _launch_f32(x, w_part, None if bias32 is None else bias32[lo:hi],
+                        part, slope, f32_plan(b, X, Y, zin, c, hi - lo, up,
+                                              sms, optin,
+                                              xvec=x.data_ptr() % 16 == 0))
+
+        n = _sliced(out, channel_slices(what, x.dtype, zin, c, cout, optin),
+                    run_f32)
+        return out, _impl(view, x.dtype, up, False), n
     else:
         w = _kkkcn(weight)
         with torch.cuda.device(x.device):
@@ -626,7 +741,7 @@ def _launch(x, weight, bias, slope, up: bool):
                 b, X, Y, zin, c, cout, int(slope is not None),
                 float(slope or 0.0), _DTYPES[x.dtype], _stream(x))
         _raise_if(rc, "zconv", what)
-    return out, _impl(view, x.dtype, up, False)
+    return out, _impl(view, x.dtype, up, False), 1
 
 
 def _forward(x, weight, bias, slope, up: bool):
@@ -636,8 +751,9 @@ def _forward(x, weight, bias, slope, up: bool):
     if _check_device(x, weight, bias):
         plain = upzconv3d_leaky_plain if up else zconv3d_leaky_plain
         return plain(x, weight, bias, slope)
-    out, impl = _launch(x, weight, bias, slope, up)
-    _count(upzconv3d_leaky if up else zconv3d_leaky, x.dtype, impl)
+    out, impl, launches = _launch(x, weight, bias, slope, up)
+    for _ in range(launches):
+        _count(upzconv3d_leaky if up else zconv3d_leaky, x.dtype, impl)
     return out
 
 
@@ -662,18 +778,36 @@ def _dx(g, out, weight, slope, up: bool):
                      device=g.device)
     mask = out if slope is not None else None
     what = "K2-dx" if up else "K1-dx"
-    view = None
+    view, n = None, 1
     if g.dtype == torch.bfloat16:
         view = (TcView("small-z", z // 2, 2 * cg, c) if up
                 else k1_route(z, cg, c))
-    if view is not None:
+    if view is not None and up:
+        views = []
+
+        def run_tc(lo, hi, part):
+            views.append(view._replace(n=hi - lo))
+            _launch_tc(g, mask, slope,
+                       _tc_weights(weight[:, lo:hi], views[-1], True), None,
+                       part, views[-1], hi - lo, True, None, what)
+
+        n = _sliced(dx, channel_slices(what, g.dtype, view.zs, c, cg,
+                                       _smem_optin(g)), run_tc)
+        view = views[-1]
+    elif view is not None:
         _launch_tc(g, mask, slope, _tc_weights(weight, view, True), None, dx,
                    view, view.n, True, None, what)
     elif g.dtype == torch.float32:
-        _launch_dx_f32(g, mask, slope, weight, dx, f32_dx_plan(
-            b, X, Y, z, cg, c, up, *_f32_limits(g.device.index or 0),
-            xvec=all(t.data_ptr() % 16 == 0 for t in (g, mask)
-                     if t is not None)))
+        sms, optin = _f32_limits(g.device.index or 0)
+        xvec = all(t.data_ptr() % 16 == 0 for t in (g, mask) if t is not None)
+
+        def run_f32(lo, hi, part):
+            _launch_dx_f32(g, mask, slope, weight[:, lo:hi], part,
+                           f32_dx_plan(b, X, Y, z, cg, hi - lo, up, sms,
+                                       optin, xvec=xvec))
+
+        n = _sliced(dx, channel_slices(what, g.dtype, z // 2 if up else z,
+                                       c, cg, optin), run_f32)
     else:  # bf16 K1-dx past TC_MAX_CHANNELS
         w_adj = _kkkcn(weight, adjoint=True)
         with torch.cuda.device(g.device):
@@ -682,8 +816,9 @@ def _dx(g, out, weight, slope, up: bool):
                 w_adj.data_ptr(), dx.data_ptr(), b, X, Y, z, cg, c, 0,
                 _DTYPES[g.dtype], _stream(g))
         _raise_if(rc, "zconv", what)
-    _count(upzconv3d_dx if up else zconv3d_dx, g.dtype,
-           _impl(view, g.dtype, up, True))
+    for _ in range(n):
+        _count(upzconv3d_dx if up else zconv3d_dx, g.dtype,
+               _impl(view, g.dtype, up, True))
     return dx
 
 

@@ -173,7 +173,7 @@ class Evaluator:
         dev = self.trainer.device
         recon = MetricSuite(self.cfg, dev)
         imagine = MetricSuite(self.cfg, dev)
-        can_imagine = self.cfg.MODEL.TRANSITION.ENABLED and self.fh > 0
+        can_imagine = self.trainer.imagines
         with contextlib.closing(device_prefetch(iter(loader), dev)) as batches:
             for i, batch in enumerate(batches):
                 if max_batches is not None and i >= max_batches:

@@ -41,8 +41,12 @@ def compute_loss(cfg, batch: Dict, output: Dict) -> Dict[str, torch.Tensor]:
         losses["steering"] = action_weight * regression_loss(
             output["steering"], batch["steering"], norm=1)
 
+    # a one-step sequence (the RECEPTIVE_FIELD 1 observation of an eval
+    # step) has no KL term: upstream's first step reads t=1's sigma, which
+    # it lacks (upstream and muvo_tpu give NaN there)
     if (cfg.MODEL.TRANSITION.ENABLED and "prior" in output
-            and "posterior" in output):
+            and "posterior" in output
+            and output["posterior"]["mu"].shape[1] > 1):
         losses["probabilistic"] = cfg.LOSSES.WEIGHT_PROBABILISTIC * kl_loss(
             output["prior"], output["posterior"],
             alpha=cfg.LOSSES.KL_BALANCING_ALPHA)

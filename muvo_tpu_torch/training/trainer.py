@@ -56,6 +56,8 @@ class WorldModelTrainer:
         self.preprocess = PreProcess(cfg)
         self.rf = cfg.RECEPTIVE_FIELD
         self.fh = cfg.FUTURE_HORIZON
+        # imagination needs the RSSM and a horizon, as muvo_tpu's trainer
+        self.imagines = bool(cfg.MODEL.TRANSITION.ENABLED) and self.fh > 0
         self.state: Optional[TrainState] = None
 
     def init_state(self, seed: int = 42,
@@ -128,7 +130,7 @@ class WorldModelTrainer:
         """The posterior observation of the receptive field of a raw batch
         and its reconstruction losses, once a batch: {pb (the preprocessed
         batch, every frame), losses, output (fp32), hidden_state, sample
-        (the last posterior state, when there is a horizon to imagine)}.
+        (the last posterior state, where the model imagines)}.
         ``stochastic=False`` takes the mean of every latent distribution,
         for checks."""
         with self._evaluating() as model:
@@ -142,7 +144,7 @@ class WorldModelTrainer:
             out = {"pb": pb,
                    "losses": compute_loss(self.cfg, batch_rf, output),
                    "output": output}
-            if self.fh > 0:
+            if self.imagines:
                 out["hidden_state"], out["sample"] = last_state(state_dict)
             return out
 
@@ -172,9 +174,10 @@ class WorldModelTrainer:
         """Observe the receptive field (losses of the reconstruction), then
         imagine the future horizon once from the last posterior state
         (losses of the imagination), as muvo_tpu's eval step: {pb,
-        losses, output, losses_imagine, output_imagine}."""
+        losses, output, losses_imagine, output_imagine}; without the RSSM
+        or a horizon, the observation alone."""
         out = self.observe_step(batch, generator, stochastic)
-        if self.fh > 0:
+        if self.imagines:
             out.update(self.imagine_step(out["pb"], out.pop("hidden_state"),
                                          out.pop("sample"), generator,
                                          stochastic))

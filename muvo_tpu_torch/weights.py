@@ -319,30 +319,58 @@ def state_dict_from_jax(params, batch_stats, cfg) -> Dict[str, torch.Tensor]:
     p = params
     s = batch_stats if batch_stats is not None else _NoStats()
     sd: Dict[str, np.ndarray] = {}
-    # the FPNs: the top-down Decoder on the LARGE path (as
-    # convert_reference_state_dict chooses), else DecoderDS
-    fpn = (decoder_entries if cfg.MODEL.TRANSFORMER.LARGE
-           else decoder_ds_entries)
+    m = cfg.MODEL
+    fusion, large = m.TRANSFORMER.ENABLED, m.TRANSFORMER.LARGE
+    # the FPNs as convert_reference_state_dict chooses them: the top-down
+    # Decoder on the LARGE path, for the camera also under BEV, and every
+    # one in the MILE branch; else DecoderDS
+    camera_fpn = (decoder_entries if large or m.TRANSFORMER.BEV or not fusion
+                  else decoder_ds_entries)
+    lidar_fpn = (decoder_entries if large or not fusion
+                 else decoder_ds_entries)
     backbone_entries(sd, "encoder.", p["encoder"], s["encoder"])
-    fpn(sd, "feat_decoder.", p["feat_decoder"], s["feat_decoder"])
-    lidar = ("point_pillar" if cfg.MODEL.LIDAR.POINT_PILLAR.ENABLED
-             else "range_view")
-    if lidar == "point_pillar":
-        point_pillars_entries(sd, "point_pillars.", p["point_pillars"],
-                              s["point_pillars"])
-    backbone_entries(sd, f"{lidar}_encoder.", p["lidar_encoder"],
-                     s["lidar_encoder"])
-    fpn(sd, f"{lidar}_decoder.", p["lidar_decoder"], s["lidar_decoder"])
-    sd["type_embedding"] = np.asarray(p["type_embedding"])
-    transformer_entries(sd, "transformer_encoder.", p["transformer"])
-    for name in ("image_feature_conv", "lidar_feature_conv"):
-        feature_compressor_entries(sd, name + ".", p[name], s[name])
-    if cfg.MODEL.ROUTE.ENABLED:
+    camera_fpn(sd, "feat_decoder.", p["feat_decoder"], s["feat_decoder"])
+    if "depth_decoder" in p:  # the frustum lifting
+        decoder_entries(sd, "depth_decoder.", p["depth_decoder"],
+                        s["depth_decoder"])
+        conv_bias_entries(sd, "depth.", p["depth_head"])
+    if "bev_down_sample_4" in p:
+        for i, key in enumerate(("0", "2")):
+            conv_bias_entries(sd, f"bev_down_sample_4.{key}.",
+                              p["bev_down_sample_4"][f"Conv_{i}"])
+    if "lidar_encoder" in p:
+        lidar = ("point_pillar" if m.LIDAR.POINT_PILLAR.ENABLED
+                 else "range_view")
+        if lidar == "point_pillar":
+            point_pillars_entries(sd, "point_pillars.", p["point_pillars"],
+                                  s["point_pillars"])
+        backbone_entries(sd, f"{lidar}_encoder.", p["lidar_encoder"],
+                         s["lidar_encoder"])
+        lidar_fpn(sd, f"{lidar}_decoder.", p["lidar_decoder"],
+                  s["lidar_decoder"])
+    if fusion:
+        sd["type_embedding"] = np.asarray(p["type_embedding"])
+        transformer_entries(sd, "transformer_encoder.", p["transformer"])
+        for name in ("image_feature_conv", "lidar_feature_conv"):
+            feature_compressor_entries(sd, name + ".", p[name], s[name])
+        dense_entries(sd, "features_combine.", p["features_combine"])
+    else:
+        backbone_entries(sd, "backbone_bev.", p["backbone_bev"],
+                         s["backbone_bev"])
+        feature_compressor_entries(sd, "final_state_conv.",
+                                   p["final_state_conv"],
+                                   s["final_state_conv"])
+        if "lidar_state_conv" in p:
+            feature_compressor_entries(sd, "lidar_state_conv.",
+                                       p["lidar_state_conv"],
+                                       s["lidar_state_conv"])
+            dense_entries(sd, "embedding_combine.", p["embedding_combine"])
+    if m.ROUTE.ENABLED:
         route_entries(sd, "backbone_route.", p["backbone_route"],
                       s["backbone_route"])
     speed_entries(sd, "speed_enc.", p["speed_enc"])
-    dense_entries(sd, "features_combine.", p["features_combine"])
-    rssm_entries(sd, "rssm.", p["rssm"])
+    if "rssm" in p:
+        rssm_entries(sd, "rssm.", p["rssm"])
     policy_entries(sd, "policy.", p["policy"])
     if "bev_decoder" in p:
         style_decoder_entries(sd, "bev_decoder.", p["bev_decoder"], "bev")

@@ -657,9 +657,11 @@ def test_fp32_dx_kernels_match_plain_and_repeat(dev, kid, shape, cout, act):
 
 def test_fp32_dx_refuses_what_its_plan_does_not_take(dev):
     """A shape the plan refuses raises, with nothing launched and no other
-    kernel or plain version run in its place."""
-    x, w, _ = _inputs(dev, (1, 2, 2, 16, 32), 28, torch.float32)
-    g = torch.randn((1, 2, 2, 32, 28), device=dev)
+    kernel or plain version run in its place: a 112-channel cotangent,
+    whose block cannot hold the weights of even a slice of 4 dx channels
+    (zconv.channel_slices)."""
+    x, w, _ = _inputs(dev, (1, 2, 2, 16, 8), 112, torch.float32)
+    g = torch.randn((1, 2, 2, 32, 112), device=dev)
     n = zconv.upzconv3d_dx.launches
     with pytest.raises(ValueError, match="fp32 K2-dx kernel"):
         zconv.upzconv3d_dx(g, g, w, 0.2)
@@ -993,3 +995,127 @@ def test_mobilevit_trunk_on_card_matches_host(dev):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert _norm_rel(g.cpu(), w) <= 1e-4
+
+
+def test_fp32_up_kernels_slice_where_the_weights_do_not_fit(dev):
+    """fp32 K2 and K2-dx at the default config's conv3.conv1 (C 64 -> 32
+    at z 64, 256 voxel feature channels): K2 launches on four slices of 8
+    output channels, K2-dx on four of 16 dx channels, each launch counted,
+    together within 1e-4 of the plain versions and bit-equal on a second
+    call."""
+    shape, cout = (1, 192, 192, 32, 64), 32
+    x, w, b = _inputs(dev, shape, cout, torch.float32)
+    n = (zconv.upzconv3d_leaky.launches, zconv.upzconv3d_dx.launches)
+    out = zconv.upzconv3d_leaky(x, w, b, 0.2)
+    again = zconv.upzconv3d_leaky(x, w, b, 0.2)
+    g = torch.randn(out.shape, generator=torch.Generator(device=dev)
+                    .manual_seed(5), device=dev)
+    dx = zconv.upzconv3d_dx(g, out, w, 0.2)
+    dx_again = zconv.upzconv3d_dx(g, out, w, 0.2)
+    torch.cuda.synchronize()
+    assert (zconv.upzconv3d_leaky.launches - n[0],
+            zconv.upzconv3d_dx.launches - n[1]) == (8, 8)
+    assert zconv.upzconv3d_leaky.last_impl == zconv.K2_F32_IMPL
+    assert zconv.upzconv3d_dx.last_impl == zconv.K2_DX_F32_IMPL
+    assert torch.equal(out, again) and torch.equal(dx, dx_again)
+    assert _rel(out, zconv.upzconv3d_leaky_plain(x, w, b, 0.2)) <= 1e-4
+    assert _rel(dx, zconv.upzconv3d_dx_plain(g, out, w, 0.2)) <= 1e-4
+
+
+def test_bf16_up_kernels_slice_where_the_fold_does_not_fit(dev):
+    """bf16 K2 and K2-dx at the default config's conv3.conv1 (C 64 -> 32 at
+    small z 32, batch 2): the folded weights of all channels do not fit a
+    block, so K2 launches on four slices of 8 output channels and K2-dx on
+    four of 16 input channels, together within 2e-2 of the plain versions
+    and bit-equal on a second call."""
+    shape, cout = (2, 192, 192, 32, 64), 32
+    x, w, b = _inputs(dev, shape, cout, torch.bfloat16)
+    n = (zconv.upzconv3d_leaky.launches, zconv.upzconv3d_dx.launches)
+    out = zconv.upzconv3d_leaky(x, w, b, 0.2)
+    again = zconv.upzconv3d_leaky(x, w, b, 0.2)
+    g = torch.randn(out.shape, generator=torch.Generator(device=dev)
+                    .manual_seed(5), device=dev).to(torch.bfloat16)
+    dx = zconv.upzconv3d_dx(g, out, w, 0.2)
+    dx_again = zconv.upzconv3d_dx(g, out, w, 0.2)
+    torch.cuda.synchronize()
+    assert (zconv.upzconv3d_leaky.launches - n[0],
+            zconv.upzconv3d_dx.launches - n[1]) == (8, 8)
+    assert "N 16" in zconv.upzconv3d_leaky.last_impl
+    assert torch.equal(out, again) and torch.equal(dx, dx_again)
+    assert _rel(out, zconv.upzconv3d_leaky_plain(x, w, b, 0.2)) <= 2e-2
+    assert _rel(dx, zconv.upzconv3d_dx_plain(g, out, w, 0.2)) <= 2e-2
+
+
+def _lifting_inputs(b, c, seed):
+    """muvo.yml's lifting inputs: (b, 40, 104, c) features, a softmax over
+    37 depth bins, the cropped camera's intrinsics and a camera -> ego pose
+    turned a little from the rig's."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, 40, 104, c), generator=gen)
+    depth = torch.softmax(2 * torch.randn((b, 40, 104, 37), generator=gen),
+                          -1)
+    k = torch.tensor([[402.8, 0.0, 416.0], [0.0, 402.8, 162.0],
+                      [0.0, 0.0, 1.0]]).repeat(b, 1, 1)
+    k[:, :2, 2] += 10 * torch.randn((b, 2), generator=gen)
+    pose = torch.eye(4).repeat(b, 1, 1)
+    pose[:, :3, :3] = torch.tensor([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0],
+                                    [0.0, -1.0, 0.0]])
+    pose[:, :3, 3] = torch.tensor([1.0, 0.0, 2.0]) + torch.randn(
+        (b, 3), generator=gen)
+    return x, depth, k, pose
+
+
+def test_frustum_pooling_on_card_matches_host(dev):
+    """FrustumPooling at muvo.yml's lifting (37 x 40 x 104 points onto the
+    48 x 48 grid), fp32: every point's cell the same on the card as on the
+    host, the pooled BEV and the gradients of x and depth within 1e-5
+    norm-relative (only the order of the atomic adds differs)."""
+    from muvo_tpu_torch.models.frustum import FrustumPooling
+
+    pool = FrustumPooling((48, 48), 0.8, -16.0, [1.0, 38.0, 1.0], 8)
+    x, depth, k, pose = _lifting_inputs(2, 64, 3)
+    cot = torch.randn((2, 48, 48, 64), generator=torch.Generator()
+                      .manual_seed(4))
+    for a, b in zip(pool.cells(40, 104, k, pose),
+                    pool.to(dev).cells(40, 104, k.to(dev), pose.to(dev))):
+        assert torch.equal(a, b.cpu())
+    results = []
+    for where in ("cpu", dev):
+        xs = x.detach().to(where).requires_grad_()
+        ds = depth.detach().to(where).requires_grad_()
+        out = pool.to(where)(xs, ds, k.to(where), pose.to(where))
+        (out * cot.to(where)).sum().backward()
+        results.append([t.detach().cpu() for t in (out, xs.grad, ds.grad)])
+    for want, got in zip(*results):
+        assert want.abs().max() > 0
+        assert _norm_rel(got, want) <= 1e-5
+
+
+def test_mile_encode_on_card_matches_host(dev):
+    """One encode of the default config (the MILE branch: lifting, the
+    route and speed broadcast over the BEV, backbone_bev, the LiDAR range
+    view) at full width, fp32 with TF32 off, eval mode: the embedding
+    within 1e-3 norm-relative of the host's."""
+    from muvo_tpu_torch.config import get_cfg
+    from muvo_tpu_torch.data.synthetic import synthetic_batch
+    from muvo_tpu_torch.models.preprocess import PreProcess
+    from muvo_tpu_torch.models.world_model import MuvoWorldModel
+
+    cfg = get_cfg()
+    cfg.merge_from_dict({"VOXEL_SEG": {"ENABLED": False},
+                         "SEMANTIC_SEG": {"ENABLED": False},
+                         "LIDAR_RE": {"ENABLED": False},
+                         "LIDAR_SEG": {"ENABLED": False}})
+    torch.manual_seed(0)
+    host = MuvoWorldModel(cfg).eval()
+    card = MuvoWorldModel(cfg).eval()
+    card.load_state_dict(host.state_dict())
+    card.to(dev)
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic_batch(cfg, 1, 1, seed=5).items()}
+    pb = PreProcess(cfg)(batch, training=False, labels=False)
+    with torch.inference_mode():
+        want = host.encode(pb)
+        got = card.encode({k: v.to(dev) for k, v in pb.items()})
+    assert got.shape == want.shape == (1, 1, cfg.MODEL.EMBEDDING_DIM)
+    assert _norm_rel(got.cpu(), want) <= 1e-3

@@ -140,3 +140,38 @@ def test_kernels_line_fails_for_a_kernel_no_main_path_launched():
     del paths["microbench"]["K4-mb"]
     with pytest.raises(AssertionError, match="K4-mb"):
         smoke.kernel_entries(paths, *_rows(smoke))
+
+
+H100_SMEM_OPTIN = 232448  # bytes of shared memory a block may opt in to
+
+
+@pytest.mark.parametrize("yml,convs,slices,decodes", [
+    ("muvo.yml", ["K2", "K1", "K2", "K1"], 1, 2),
+    (None, ["K2", "K1"], 4, 2),             # the default config: 256
+    ("one_frame.yml", ["K2", "K1"], 4, 1),  # no RSSM: one decode an eval
+])
+def test_predicted_launches_follow_the_kernel_stages(yml, convs, slices,
+                                                     decodes):
+    """chip_smoke.py predicts from the voxel convs that
+    stylegan.kernel_stage puts on the kernels, read from the built decoder:
+    conv2 and conv3 at muvo.yml's 64 feature channels, conv3 alone at the
+    default config's 256; each conv's forward, dx and dW kernels once a
+    step, bf16 K2 and K2-dx once a slice (four at the default config's
+    conv3.conv1, on an H100), the forward ones once a decode of an eval
+    step."""
+    smoke = _smoke()
+    cfg = smoke.config(yml)
+    got = smoke.voxel_kernel_convs(cfg)
+    assert [c[0] for c in got] == convs
+    assert got[-1] == ("K1", "conv3.conv2", 192, 192, 64,
+                       cfg.VOXEL_SEG.DIMENSION // 8,
+                       cfg.VOXEL_SEG.DIMENSION // 8)
+    per_step = smoke.predicted_launches(cfg, H100_SMEM_OPTIN)
+    n = len(convs) // 2
+    assert per_step["K1"] == per_step["K1-dx"] == per_step["K3"] == n
+    assert per_step["K3-up"] == n
+    assert per_step["K2"] == per_step["K2-dx"] == n * slices
+    per_eval = smoke.predicted_eval_launches(cfg, H100_SMEM_OPTIN)
+    assert per_eval["K1"] == n * decodes
+    assert per_eval["K2"] == n * slices * decodes
+    assert not any(per_eval[k] for k in ("K1-dx", "K3", "K4", "K5"))

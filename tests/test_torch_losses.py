@@ -195,3 +195,41 @@ def test_compute_loss_matches_term_for_term():
     for key, v in want.items():
         _close(got[key], v, rtol=1e-5, atol=1e-6)
     _close(reduce_loss(got), sum(float(v) for v in want.values()), rtol=1e-5)
+
+
+def test_kl_of_a_one_step_sequence_is_not_logged():
+    """A one-step sequence (the RF 1 observation of an eval step) has no
+    t=1 for the first-step quirk to read: upstream's formula, as muvo_tpu
+    and the port keep it, averages an empty tensor into NaN there, so
+    compute_loss logs no probabilistic term for it, and logs the term of a
+    two-step sequence as muvo_tpu's."""
+    rs = np.random.RandomState(3)
+    prior, post = _dist(rs), _dist(rs)
+    one = {k: v[:, :1] for k, v in post.items()}
+    with np.errstate(all="ignore"):
+        want_nan = jl.probabilistic_loss(
+            *(jnp.asarray(prior[k][:, :1]) for k in ("mu", "sigma")),
+            *(jnp.asarray(one[k]) for k in ("mu", "sigma")))
+        got_nan = pl.probabilistic_loss(
+            *(torch.from_numpy(prior[k][:, :1]) for k in ("mu", "sigma")),
+            *(torch.from_numpy(one[k]) for k in ("mu", "sigma")))
+    assert np.isnan(float(want_nan)) and torch.isnan(got_nan)
+    cfg = tiny_test_cfg()
+    cfg.merge_from_dict({name: {"ENABLED": False} for name in (
+        "SEMANTIC_SEG", "LIDAR_RE", "LIDAR_SEG", "SEMANTIC_IMAGE", "DEPTH",
+        "VOXEL_SEG")})
+    cfg.merge_from_dict({"EVAL": {"RGB_SUPERVISION": False}})
+    batch = {"image": torch.zeros(1)}
+    for steps in (1, 2):
+        out = {name: {k: torch.from_numpy(v[:, :steps]) for k, v in d.items()}
+               for name, d in (("prior", prior), ("posterior", post))}
+        losses = compute_loss(cfg, batch, out)
+        assert ("probabilistic" in losses) == (steps > 1)
+        if steps > 1:
+            want = jl.kl_loss(
+                *({k: jnp.asarray(v) for k, v in o.items()} for o in (
+                    {k: v[:, :steps] for k, v in prior.items()},
+                    {k: v[:, :steps] for k, v in post.items()})),
+                alpha=cfg.LOSSES.KL_BALANCING_ALPHA)
+            _close(losses["probabilistic"],
+                   cfg.LOSSES.WEIGHT_PROBABILISTIC * float(want), rtol=1e-5)

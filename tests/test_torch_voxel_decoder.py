@@ -12,6 +12,7 @@ summation-order noise through nine conv stages.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from muvo_tpu.models.stylegan import VoxelDecoder as JaxVoxelDecoder
@@ -70,3 +71,31 @@ def test_kernel_stages_route_through_k1_and_k2(monkeypatch):
         ("K2", (2, 32, 32, 16, 8)), ("K1", (2, 32, 32, 32, 4)),
         ("K2", (2, 64, 64, 32, 4)), ("K1", (2, 64, 64, 64, 2)),
     ]
+
+
+@pytest.mark.parametrize("n,stages", [(64, ("conv2", "conv3")),
+                                      (256, ("conv3",))])
+def test_kernel_stages_are_pallas_stages_that_fit_the_kernels(n, stages):
+    """stylegan.kernel_stage puts a voxel block on K2 and K1 where its
+    upsampled z exceeds 18 and its channels fit the bf16 tensor-core tile:
+    conv2 and conv3 at muvo.yml's 64 feature channels, conv3 alone at the
+    default config's 256 (conv2's 128 input channels do not fit). Each is
+    a stage that muvo_tpu too runs on its Pallas kernels, the z-upsample
+    fused (pallas_zconv_available, pallas_upzconv_available)."""
+    from muvo_tpu.ops.pallas_zconv import (pallas_upzconv_available,
+                                           pallas_zconv_available)
+
+    # (small z, in, out channels) of conv1, conv2, conv3 at voxel z 64
+    blocks = {"conv1": (8, n, n // 2), "conv2": (16, n // 2, n // 4),
+              "conv3": (32, n // 4, n // 8)}
+    got = tuple(name for name, shape in blocks.items()
+                if stylegan.kernel_stage(*shape))
+    assert got == stages
+    for name in stages:
+        zs, c, cout = blocks[name]
+        assert pallas_zconv_available(2 * zs, c, cout, 8)
+        assert pallas_zconv_available(2 * zs, cout, cout, 8)
+        assert pallas_upzconv_available(zs, c, cout, 8)
+    assert not stylegan.kernel_stage(9, 8, 8)  # z 18
+    assert stylegan.kernel_stage(10, 64, 64)
+    assert not stylegan.kernel_stage(10, 65, 8)

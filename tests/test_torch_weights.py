@@ -2,7 +2,9 @@
 with the voxel decoder on, with MODEL.TRANSFORMER.LARGE (the top-down
 Decoder FPNs, upstream's ``upsample_skip_convs``), with PointPillars LiDAR
 and every head (the BEV decoder; the LiDAR segmentation, semantic-image
-and depth decoders), and with MobileViTV2 camera and LiDAR encoders.
+and depth decoders), with MobileViTV2 camera and LiDAR encoders, and with
+camera lifting: MODEL.TRANSFORMER.BEV, the MILE branch with LiDAR and the
+RSSM, and the MILE branch camera-only without lifting or the RSSM.
 
 muvo_tpu_torch/weights.py maps muvo_tpu's variables onto the port's
 state_dict (upstream MUVO's keys); muvo_tpu/training/weight_convert.py maps
@@ -141,3 +143,61 @@ def test_mobilevit_state_dict_round_trips():
                     "stages.4.1.conv_proj.bn.running_mean"):
             assert f"{prefix}.{key}" in keys
     assert model.range_view_encoder.stem.conv.in_channels == 4
+
+
+# camera lifting: the frustum-BEV transformer branch and the MILE branch
+# (MODEL.TRANSFORMER.ENABLED False), with and without LiDAR and the RSSM
+LIFTING = {
+    "transformer_bev": ({"MODEL": {"TRANSFORMER": {"BEV": True},
+                                   "DECODER_BASE_CHANNELS": 64}, **SMALL},
+                        ("depth_decoder.upsample_skip_convs.1.0.weight",
+                         "depth.weight", "bev_down_sample_4.0.weight",
+                         "bev_down_sample_4.2.bias",
+                         "feat_decoder.upsample_skip_convs.0.1.running_mean",
+                         "range_view_decoder.downsample_skip_convs.0.0.weight",
+                         "transformer_encoder.layers.0.linear1.weight")),
+    "mile": ({"MODEL": {"TRANSFORMER": {"ENABLED": False},
+                        "DECODER_BASE_CHANNELS": 64}, **SMALL},
+             ("depth.bias", "backbone_bev.layer3.0.downsample.1.running_var",
+              "backbone_bev.conv1.weight", "final_state_conv.1.bn2.weight",
+              "lidar_state_conv.1.downsample.0.weight",
+              "embedding_combine.weight",
+              "range_view_decoder.upsample_skip_convs.1.1.weight",
+              "rssm.recurrent_model.weight_hh")),
+    "mile_camera_only": ({"MODEL": {"TRANSFORMER": {"ENABLED": False},
+                                    "LIDAR": {"ENABLED": False},
+                                    "TRANSITION": {"ENABLED": False},
+                                    "DECODER_BASE_CHANNELS": 64},
+                          "EVAL": {"NO_LIFTING": True}, **SMALL},
+                         ("backbone_bev.conv1.weight",
+                          "final_state_conv.0.conv1.weight",
+                          "policy.fc.0.weight")),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(LIFTING))
+def test_lifting_state_dict_round_trips(variant):
+    overrides, want_keys = LIFTING[variant]
+    cfg, state, model = _carry(False, **overrides)
+    _assert_round_trip(cfg, state, model)
+    keys = set(model.state_dict())
+    for key in want_keys:
+        assert key in keys, key
+    m = cfg.MODEL
+    emb, route, speed = m.EMBEDDING_DIM, m.ROUTE.CHANNELS, m.SPEED.CHANNELS
+    if variant == "transformer_bev":
+        assert model.depth.out_channels == model.frustum_pooling.D == 37
+        assert not any(k.startswith(("backbone_bev", "embedding_combine"))
+                       for k in keys)
+        return
+    assert not any(k.startswith(("transformer_encoder", "type_embedding",
+                                 "features_combine", "image_feature_conv"))
+                   for k in keys)
+    # OUT_CHANNELS x nz + route + speed channels into backbone_bev
+    assert model.backbone_bev.conv1.in_channels == (
+        m.ENCODER.OUT_CHANNELS + route + speed)
+    assert model.final_state_conv[0].conv1.out_channels == emb
+    if variant == "mile_camera_only":
+        assert not any(k.startswith(("rssm", "depth", "range_view",
+                                     "lidar_state_conv")) for k in keys)
+        assert model.policy.fc[0].in_features == emb

@@ -462,3 +462,35 @@ def test_fp32_dx_on_the_host_takes_the_plain_version(up, act):
     n, impl = kernel.launches, kernel.last_impl
     assert torch.equal(kernel(g, out, w, slope), plain(g, out, w, slope))
     assert kernel.launches == n and kernel.last_impl == impl
+
+
+@pytest.mark.parametrize("kid", ["K1-dx", "K2-dx"])
+def test_sliced_dx_walks_match_the_plain_version(kid):
+    """Where a block cannot hold the weights of all dx channels (fp32
+    K2-dx at the default config's conv3.conv1: 64 dx channels from a 32-
+    channel cotangent at small z 32, four slices of 16), the walk on each
+    slice of dx channels, with those channels' weights, written side by
+    side gives the plain version's dx; at a small shape whose block holds
+    4 of 10 dx channels, three slices (4, 4 and 2)."""
+    optin = H100["smem_optin"]
+    assert zconv.channel_slices("K2-dx", torch.float32, 32, 64, 32,
+                                optin) == [(0, 16), (16, 32), (32, 48),
+                                           (48, 64)]
+    assert zconv.channel_slices("K1-dx", torch.float32, 64, 32, 32,
+                                optin) == [(0, 32)]
+    up = kid == "K2-dx"
+    shape, cout = (1, 3, 4, 3, 10), 6
+    zin = shape[3]  # K1-dx: the cotangent's z; K2-dx: the small z
+    small = zconv.f32_smem_bytes(zin, 2 * cout if up else cout, 4)
+    slices = zconv.channel_slices(kid, torch.float32, zin, 10, cout, small)
+    assert slices == [(0, 4), (4, 8), (8, 10)]
+    rs = np.random.RandomState(13)
+    w, out, g = _torch_inputs(rs, shape, cout, up, True)
+    b, X, Y = shape[:3]
+    z = out.shape[3]
+    got = torch.cat([_dx_walk(g, out, w[:, lo:hi], 0.2, zconv.f32_dx_plan(
+        b, X, Y, z, cout, hi - lo, up, sms=3, smem_optin=small))
+        for lo, hi in slices], -1)
+    plain = zconv.upzconv3d_dx_plain if up else zconv.zconv3d_dx_plain
+    want = plain(g, out, w, 0.2)
+    assert (got - want).abs().max() <= TOL * want.abs().max()

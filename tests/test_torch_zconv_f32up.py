@@ -379,3 +379,49 @@ def test_shape_struct_and_constants_match_the_kernel_source():
     assert int(consts["kPlanes"]) == zconv.F32_PLANES
     assert int(consts["kMaxThreads"]) == MAX_THREADS
     assert int(consts["kPrefetch"]) == PREFETCH
+
+
+def test_chunks_slice_cout_only_where_the_weights_do_not_fit():
+    """channel_slices: one fp32 launch at muvo.yml's stages and at the
+    default config's fp32 K1 (conv3.conv2, 32 -> 32 at z 64); at its fp32
+    K2 (conv3.conv1, C 64 -> 32 at z 64, 377,856 bytes for all 32
+    channels) four slices of 8 channels, each on a plan that fits."""
+    optin = H100["smem_optin"]
+    f32 = torch.float32
+    for (shape, _, _) in STAGES.values():
+        _, _, _, zin, c, cout = (1, *shape)
+        assert zconv.channel_slices("K2", f32, zin, c, cout, optin) == [
+            (0, cout)]
+    assert zconv.channel_slices("K1", f32, 64, 32, 32, optin) == [(0, 32)]
+    with pytest.raises(ValueError):
+        zconv.f32_plan(1, 192, 192, 32, 64, 32, True, **H100)
+    chunks = zconv.channel_slices("K2", f32, 32, 64, 32, optin)
+    assert chunks == [(0, 8), (8, 16), (16, 24), (24, 32)]
+    for lo, hi in chunks:
+        plan = zconv.f32_plan(1, 192, 192, 32, 64, hi - lo, True, **H100)
+        assert plan["smem_bytes"] == zconv.f32_smem_bytes(64, 64, 8)
+        assert plan["smem_bytes"] <= optin
+
+
+def test_sliced_launches_match_the_plain_version():
+    """The kernel's steps on each slice's plan, with the weights and bias
+    of its channels, written side by side, give the plain version's
+    output; a block that fits 4 of 10 channels' weights takes three
+    slices (4, 4 and 2)."""
+    rs = np.random.RandomState(9)
+    shape, cout = (1, 4, 5, 3, 6), 10
+    x = rs.standard_normal(shape).astype(np.float32)
+    w = (rs.standard_normal((cout, 6, 3, 3, 3)) / np.sqrt(162)).astype(
+        np.float32)
+    b = rs.standard_normal(cout).astype(np.float32)
+    optin = zconv._f32_plan(*shape, 4, True, sms=3, smem_optin=10 ** 6,
+                            ty=1)["smem_bytes"]
+    chunks = zconv.channel_slices("K2", torch.float32, 3, 6, cout, optin)
+    assert chunks == [(0, 4), (4, 8), (8, 10)]
+    got = np.concatenate([_emulate(x, w[lo:hi], b[lo:hi], 0.2, zconv.f32_plan(
+        *shape, hi - lo, True, sms=3, smem_optin=optin))
+        for lo, hi in chunks], -1)
+    want = zconv.upzconv3d_leaky_plain(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+        0.2).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

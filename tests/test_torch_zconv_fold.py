@@ -171,3 +171,37 @@ def test_tc_launch_refuses_a_fold_that_is_not_fp32():
     view = zconv.TcView("small-z", 16, 5, 14)
     with pytest.raises(TypeError, match="not fp32"):
         zconv._launch_tc(x, None, None, w, None, x, view, 7, False, 0.2, "K2")
+
+
+def test_sliced_folds_assemble_the_plain_output():
+    """bf16 K2 and K2-dx launch once for each slice of channel_slices where
+    the folded weights of all channels do not fit a block: the fold of
+    each slice's weights (K2: its output channels; K2-dx: its input
+    channels), applied on the small-z grid and written side by side, gives
+    the plain version's output. At the default config's conv3.conv1 (C 64
+    -> 32 at small z 32) K2 takes four slices of 8, K2-dx four of 16; at
+    muvo.yml's stages one slice each; the other kernels one launch."""
+    h100, bf16 = 232448, torch.bfloat16
+    assert zconv.channel_slices("K2", bf16, 32, 64, 32, h100) == [
+        (0, 8), (8, 16), (16, 24), (24, 32)]
+    assert zconv.channel_slices("K2-dx", bf16, 32, 64, 32, h100) == [
+        (0, 16), (16, 32), (32, 48), (48, 64)]
+    for zs, c, cout in ((16, 32, 16), (32, 16, 8)):
+        for kid in ("K2", "K2-dx"):
+            assert zconv.channel_slices(kid, bf16, zs, c, cout, h100) == [
+                (0, c if kid == "K2-dx" else cout)]
+    for kid in ("K1", "K1-dx"):
+        assert zconv.channel_slices(kid, bf16, 64, 64, 32, h100) == [
+            (0, 64 if kid == "K1-dx" else 32)]
+    with pytest.raises(ValueError, match="for 8 output channels"):
+        zconv.channel_slices("K2", bf16, 32, 64, 32, 10 ** 5)
+    x, w, b = _data((1, 4, 5, 3, 12), 10, seed=3)
+    slices = [(0, 4), (4, 8), (8, 10)]
+    got = torch.cat([_folded_forward(x, w[lo:hi], b[lo:hi], 0.2)
+                     for lo, hi in slices], -1)
+    assert _rel(got, zconv.upzconv3d_leaky_plain(x, w, b, 0.2)) <= TOL
+    out = zconv.upzconv3d_leaky_plain(x, w, b, 0.2)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(4))
+    got = torch.cat([_folded_dx(g, out, w[:, lo:hi], 0.2)
+                     for lo, hi in ((0, 8), (8, 12))], -1)
+    assert _rel(got, zconv.upzconv3d_dx_plain(g, out, w, 0.2)) <= TOL

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where a serving tick of the PyTorch port spends its time, on one GPU.
 
-    python3 tools/torch_profile_serving.py [--ticks 3] [--large] [--out PATH]
+    python3 tools/torch_profile_serving.py [--ticks 3] [--large] [--default]
+        [--out PATH]
 
 Builds muvo.yml at full width with seeded random weights (as chip_smoke.py
 does; ``--large``: with MODEL.TRANSFORMER.LARGE, stride-8 features and
-5,184 fusion tokens a frame through the flash kernels), warms a
+5,184 fusion tokens a frame through the flash kernels; ``--default``: the
+default config instead, the MILE branch with camera lifting), warms a
 DeploymentSession up, then measures:
 
 1. phases: host-clock milliseconds, each ending in torch.cuda.synchronize,
@@ -69,10 +71,15 @@ def main() -> int:
     ap.add_argument("--ticks", type=int, default=3)
     ap.add_argument("--large", action="store_true",
                     help="MODEL.TRANSFORMER.LARGE (flash kernels)")
+    ap.add_argument("--default", action="store_true",
+                    help="the default config (no yml)")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
+    label = ("default config" if args.default
+             else "muvo.yml LARGE" if args.large else "muvo.yml")
     out_path = Path(args.out or ROOT / "build" / (
-        "torch_profile_serving_large.json" if args.large
+        "torch_profile_serving_default.json" if args.default
+        else "torch_profile_serving_large.json" if args.large
         else "torch_profile_serving.json"))
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -88,8 +95,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     cfg = get_cfg()
-    cfg.merge_from_file(str(ROOT / "muvo_tpu_torch" / "configs" / "muvo.yml"))
-    cfg.MODEL.TRANSFORMER.LARGE = args.large
+    if not args.default:
+        cfg.merge_from_file(str(ROOT / "muvo_tpu_torch" / "configs"
+                                / "muvo.yml"))
+        cfg.MODEL.TRANSFORMER.LARGE = args.large
     torch.manual_seed(0)
     session = DeploymentSession(
         MuvoWorldModel(cfg), cfg, device=dev,
@@ -161,7 +170,7 @@ def main() -> int:
                          timeout=60).stdout.strip().splitlines()[0]
     result = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "config": "muvo.yml LARGE" if args.large else "muvo.yml",
+        "config": label,
         "batch": 1, "sequence": seq,
         "ticks": args.ticks, "phase_ms": phase_ms,
         "tick_wall_ms": wall_ms, "device_busy_ms": busy_ms,
