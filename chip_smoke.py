@@ -112,12 +112,23 @@ exits nonzero (there is no CPU fallback):
    Pallas path); the trained model's FrustumPooling on the drive's first
    frame, card against host in fp32, within 1e-5. Step ms, frames/s, host
    ms between steps, pooling ms, peak MiB.
-12. serving_mobilevit: test_mobilevit_2d.yml (MobileViTV2 camera and
+12. train_options: (a) the flagship step of phase 7 with muvo.yml's other
+   options (MODEL.MEASUREMENTS, resnet34 camera and LiDAR trunks) on a
+   batch that carries the measurement keys: 3 warm-up steps, timed steps,
+   every loss finite, the six voxel kernels launched as predicted. (b)
+   ``main`` on the drive with POINTS.DEVICE_PROJECTION (muvo.yml as users
+   run it: batch 1 x 6, bf16) for 8 steps with one validation: the loader
+   ships the raw points, PreProcess projects them on the card. Losses
+   finite; bf16 K1, K2, K1-dx, K2-dx, K3 and K3-up 2 each a step; step
+   ms and host ms between steps beside train_entry's; the projection's
+   CUDA-event ms, and its range view against the host projection
+   (float64) of the same points, under 1% of the pixels apart.
+13. serving_mobilevit: test_mobilevit_2d.yml (MobileViTV2 camera and
    LiDAR trunks) at full width through DeploymentSession, fp32: fp32 K1
    and K2 4 launches each a sim tick, K4 none, outputs finite with
    muvo_tpu's shapes, one frame's embedding and one decode on the card
    against the port's host run within 1e-3. Tick ms and peak MiB.
-13. serving_lifting: through DeploymentSession at full width, fp32:
+14. serving_lifting: through DeploymentSession at full width, fp32:
    muvo.yml with MODEL.TRANSFORMER.BEV (40 x 104 stride-8 features lifted
    over 37 depth bins onto the 48 x 48 grid, 12 x 12 image tokens), then
    the default config (the MILE branch with the BEV, lidar_re,
@@ -127,18 +138,24 @@ exits nonzero (there is no CPU fallback):
    muvo_tpu's shapes; one frame's embedding and one decode against the
    host run within 1e-3, and that frame's FrustumPooling within 1e-5.
    Tick ms, pooling ms (CUDA events) and peak MiB.
-14. serving_large: muvo.yml with MODEL.TRANSFORMER.LARGE (stride-8 features,
+15. serving_options: as serving_mobilevit, muvo.yml with MODEL.MEASUREMENTS
+   and resnet34 camera and LiDAR trunks, then muvo.yml with
+   EVAL.RESOLUTION FACTOR 2 (the encoders see the half-sized frames, the
+   decoders keep the crop's size); then TriPlaneVoxelDecoder (3 scales,
+   48 x 48 x 16 planes of 64 channels, 512 classifier channels) on the
+   card against the host within 1e-4, timed with CUDA events.
+16. serving_large: muvo.yml with MODEL.TRANSFORMER.LARGE (stride-8 features,
    5,184 fusion tokens a frame) through DeploymentSession, fp32: K4 must be
    launched once a layer for each encode, outputs must be finite with
    muvo_tpu's shapes, and one frame's embedding on the card must match the
    port's host run (the math attention path).
-15. training_large: build_flagship_step(large=True) (1 x 6 frames, bf16),
+17. training_large: build_flagship_step(large=True) (1 x 6 frames, bf16),
    3 warm-up steps, then timed steps with K4 and K5 launched once a layer a
    step; then gradients with the split backward (K6, not K5) against the
    fused backward's, each leaf within 2e-2 plus 8x the fused gradient's
    own noise (its change on a rerun, or from a scaled loss, the larger).
    tools/torch_large_grad_check.py repeats this phase alone.
-16. microbench: tools/torch_flash_microbench.py, K4-mb and K4 at bh 16.
+18. microbench: tools/torch_flash_microbench.py, K4-mb and K4 at bh 16.
 
 Each main path's launch counts are set to 0 just before it runs and read
 just after; each wrapper counts its launches by the tensors' type. The
@@ -1107,7 +1124,7 @@ def train_entry_phase(dev, work: Path):
     panels of its first batch: every panel but those whose package
     ``undrawable_panels`` finds missing. The drive and the step-16
     checkpoint stay in ``work`` for the prediction phase. Returns the
-    launches by type and the panels."""
+    launches by type, the panels and the median host ms between steps."""
     from muvo_tpu_torch.train import main as train_main
     from muvo_tpu_torch.training.flagship import MUVO_YML
     from muvo_tpu_torch.training.visualise import undrawable_panels
@@ -1206,7 +1223,8 @@ def train_entry_phase(dev, work: Path):
     if not drawn or drawn & set(undrawable):
         raise AssertionError(f"panels {sorted(drawn)} with {undrawable} "
                              f"undrawable")
-    return typed, {"drawn": rec["panels"], "undrawable": undrawable}
+    return (typed, {"drawn": rec["panels"], "undrawable": undrawable},
+            statistics.median(rec["gap_ms"]))
 
 
 HEADS_STEPS = 10  # train_heads: 3 warm-up steps, 7 timed, one validation
@@ -1478,12 +1496,150 @@ def train_lifting_phase(dev, work: Path):
         if not pool_err <= POOL_TOL:
             raise AssertionError(f"{label}: FrustumPooling card differs "
                                  f"from host: {pool_err}")
-        for kid, types in typed.items():
-            for dtype, n in types.items():
-                counts = typed_all.setdefault(kid, {})
-                counts[dtype] = counts.get(dtype, 0) + n
+        add_launches(typed_all, typed)
         torch.cuda.empty_cache()
     return typed_all
+
+
+PROJECTION_STEPS = 8  # train_options' recorded-drive run: 3 warm-up, 5
+PROJECTION_ITERS = 20  # timed projections of one batch
+PROJECTION_SHARE = 0.01  # card vs host range view: mismatching pixels,
+# muvo_tpu's own limit (tests/test_device_projection.py)
+
+
+def projection_vs_host(dev, cfg):
+    """The drive's first sequence (SERVE_SEQ frames of up to 60,000 raw
+    points) projected on the card as PreProcess does under
+    POINTS.DEVICE_PROJECTION, before the LIDAR_RE.SCALE division: the
+    median CUDA-event ms of PROJECTION_ITERS projections, and the share of
+    pixels whose (x, y, z, depth) differ by more than 1e-3 from the host
+    projection (RangeProjector.project: the native float64 kernel, else
+    numpy) of the same points, frame by frame."""
+    import numpy as np
+
+    from muvo_tpu_torch.data.dataset import CarlaDataset
+    from muvo_tpu_torch.geometry.range_view import RangeProjector
+    from muvo_tpu_torch.models.preprocess import PreProcess
+
+    seq = cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON
+    frame = CarlaDataset(cfg, "train", seq)[0]
+    raw = {k: torch.as_tensor(frame[k])[None].to(dev)
+           for k in ("points_raw", "points_sem", "num_points")}
+    pre = PreProcess(cfg)
+    ms = []
+    for _ in range(PROJECTION_ITERS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = pre._device_range_projection(dict(raw))
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    card = out["range_view_pcd_xyzd"][0].cpu().numpy()
+    proj = RangeProjector(cfg.POINTS.CHANNELS, cfg.POINTS.HORIZON_RESOLUTION,
+                          cfg.POINTS.FOV[0], cfg.POINTS.FOV[1],
+                          cfg.POINTS.LIDAR_POSITION)
+    differ = []
+    for f in range(seq):
+        n = int(frame["num_points"][f])
+        depth, xyz, _ = proj.project(frame["points_raw"][f, :n],
+                                     frame["points_sem"][f, :n])
+        host = np.concatenate([xyz, depth[..., None]], -1)
+        differ.append((np.abs(card[f] - host) > 1e-3).any(-1))
+    differ = np.stack(differ)
+    return {"projection_ms": ms,
+            "projection_ms_median": statistics.median(ms),
+            "points": [int(n) for n in frame["num_points"]],
+            "pixels_hit": int((card[..., 3] >= 0).sum()),
+            "pixels_differ": int(differ.sum()),
+            "pixels_differ_share": float(differ.mean()),
+            "share_limit": PROJECTION_SHARE}
+
+
+def train_options_phase(dev, work: Path, entry_gap_ms: float):
+    """(a) The flagship step (build_flagship_step: 4 x 6 frames, bf16
+    autocast, decoder remat) with OPTIONS (measurements, resnet34 camera
+    and LiDAR trunks) through run_train_steps: 3 warm-up steps, timed
+    steps, every loss finite, the six voxel kernels launched as
+    predicted_launches gives. (b) ``muvo_tpu_torch.train.main`` on the
+    train_entry phase's drive with POINTS.DEVICE_PROJECTION: muvo.yml as
+    users run it (batch 1 x 6, bf16, remat off) for PROJECTION_STEPS steps
+    and one validation; the loader ships the raw points and PreProcess
+    projects them on the card. Every logged loss finite; bf16 K1, K2,
+    K1-dx, K2-dx, K3 and K3-up launched as predicted, no other kernel;
+    step ms and host ms between steps beside train_entry's
+    (``entry_gap_ms``); then ``projection_vs_host``, within
+    PROJECTION_SHARE. Returns the launches by type of (a) and (b)."""
+    from muvo_tpu_torch.train import main as train_main
+    from muvo_tpu_torch.training.flagship import MUVO_YML, build_flagship_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fs = build_flagship_step(device=dev, opts=OPTIONS)
+    typed = run_train_steps(fs, dev, "train_options",
+                            "flagship + MEASUREMENTS + resnet34")
+    del fs
+    torch.cuda.empty_cache()
+
+    opts = ["DATASET.DATAROOT", str(work / "drives"),
+            "DATASET.FILTER_BEGINNING_OF_RUN_SEC", "0.0",
+            "POINTS.DEVICE_PROJECTION", "True"]
+    cfg = config("muvo.yml", opts)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    with instrumented_train_loop(dev) as rec:
+        t0 = time.perf_counter()
+        run = train_main(["--config-file", str(MUVO_YML), *opts,
+                          "LOG_DIR", str(work / "projection"),
+                          "STEPS", str(PROJECTION_STEPS),
+                          "LOGGING_INTERVAL", "1",
+                          "VAL_CHECK_INTERVAL", str(PROJECTION_STEPS),
+                          "LIMIT_VAL_BATCHES", "1"], device=dev)
+        run_s = time.perf_counter() - t0
+    drive = read_typed_launches()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    records = logged_losses(run.log_dir)
+    del run
+    n_train, n_val = len(rec["train_ms"]), len(rec["eval_ms"])
+    val = rec["val_launches"]
+    train = {kid: {t: n - val.get(kid, {}).get(t, 0) for t, n in
+                   types.items() if n - val.get(kid, {}).get(t, 0)}
+             for kid, types in drive.items()}
+    per_step, per_eval = predicted_launches(cfg), predicted_eval_launches(cfg)
+    median = statistics.median(rec["train_ms"][3:])
+    frames = cfg.BATCHSIZE * (cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON)
+    projection = projection_vs_host(dev, cfg)
+    emit({"phase": "train_options", "config": "muvo.yml DEVICE_PROJECTION",
+          "batch": cfg.BATCHSIZE, "frames_per_step": frames,
+          "precision": str(cfg.PRECISION), "remat": bool(cfg.MODEL.REMAT),
+          "run_s": run_s, "train_steps": n_train, "val_steps": n_val,
+          "step_ms": rec["train_ms"], "step_ms_median": median,
+          "frames_per_s": frames / (median / 1e3),
+          "host_gap_ms": rec["gap_ms"],
+          "host_gap_ms_median": statistics.median(rec["gap_ms"]),
+          "train_entry_host_gap_ms_median": entry_gap_ms,
+          "eval_ms": rec["eval_ms"], "peak_mib": peak_mib,
+          "launches_train_by_type": train, "launches_val_by_type": val,
+          "launches_per_step_predicted": per_step,
+          "launches_per_eval_predicted": per_eval,
+          "logged_records": len(records),
+          "last_train_losses": next(r for r in reversed(records)
+                                    if "train_loss" in r), **projection})
+    if n_train != PROJECTION_STEPS or n_val != 1:
+        raise AssertionError(f"DEVICE_PROJECTION: {n_train} train and "
+                             f"{n_val} eval steps")
+    for kid in KERNEL_NAMES:
+        for what, counts, want in (
+                ("training", train, per_step[kid] * n_train),
+                ("validation", val, per_eval[kid] * n_val)):
+            got = counts.get(kid, {})
+            if got.get("bfloat16", 0) != want or set(got) - {"bfloat16"}:
+                raise AssertionError(f"DEVICE_PROJECTION {kid}: {got} "
+                                     f"launches in the {what} steps, "
+                                     f"predicted {want} bf16")
+    if not projection["pixels_differ_share"] < PROJECTION_SHARE:
+        raise AssertionError(f"card range view differs from the host's: "
+                             f"{projection['pixels_differ_share']}")
+    return add_launches(typed, drive)
 
 
 METRIC_TOL = 1e-4  # card against host suite: SSIM, PSNR, Chamfer, relative
@@ -1878,23 +2034,23 @@ def serving_phase(dev, cfg):
 SERVE_SEQ = 6  # frames a serving tick sees: a 5-step imagination
 
 
-def serving_mobilevit_phase(dev):
-    """test_mobilevit_2d.yml (muvo.yml with MobileViTV2 camera and LiDAR
-    trunks) at full width through DeploymentSession, fp32, batch 1,
-    seeded random weights: 3 deployment_forward ticks, then 3 sim_forward
+def serve_config(dev, cfg, phase: str, label: str, seed: int):
+    """``cfg`` at full width through DeploymentSession, fp32, batch 1,
+    weights from ``seed``: 3 deployment_forward ticks, then 3 sim_forward
     ticks on a SERVE_SEQ-frame batch (the frame at RECEPTIVE_FIELD 6
-    observed, 5 imagined). fp32 K1 and K2 must be launched twice a block
-    each sim tick (the decode and the imagination's), K4 not (648 tokens a
-    frame); outputs finite with muvo_tpu's shapes; one frame's embedding
-    and one decode on the card against the port's host run within
-    DECODE_TOL."""
+    observed, 5 imagined). fp32 K1 and K2 must be launched as
+    predicted_fp32_decode_launches gives for two decodes (the observation's
+    and the imagination's) each sim tick, no other kernel (K4 not: under
+    2,048 tokens a frame); outputs finite with muvo_tpu's shapes; one
+    frame's embedding and one decode on the card against the port's host
+    run within DECODE_TOL. Emits ``phase``'s line for ``label`` and
+    returns the launches by type."""
     from muvo_tpu_torch.data.synthetic import synthetic_batch
     from muvo_tpu_torch.inference import DeploymentSession
     from muvo_tpu_torch.models.world_model import MuvoWorldModel
     from muvo_tpu_torch.ops import zconv
 
-    cfg = muvo_cfg("test_mobilevit_2d.yml")
-    torch.manual_seed(2)
+    torch.manual_seed(seed)
     model = MuvoWorldModel(cfg)
     host_model = copy.deepcopy(model).eval().requires_grad_(False)
     session = DeploymentSession(
@@ -1929,7 +2085,7 @@ def serving_mobilevit_phase(dev):
     embed_err, embed_host_s, _ = embedding_vs_host(session, host_model,
                                                    batch, cfg)
     decode_err, decode_host_s = decode_vs_host(session, host_model, cfg)
-    emit({"phase": "serving_mobilevit", "config": "test_mobilevit_2d.yml",
+    emit({"phase": phase, "config": label,
           "encoders": [cfg.MODEL.ENCODER.NAME, cfg.MODEL.LIDAR.ENCODER],
           "batch": 1, "sequence": SERVE_SEQ,
           "deployment_tick_ms": deploy_ms, "sim_tick_ms": sim_ms,
@@ -1942,25 +2098,123 @@ def serving_mobilevit_phase(dev):
           "embedding_vs_host_norm_rel": embed_err,
           "decode_vs_host_norm_rel": decode_err, "tol": DECODE_TOL,
           "host_encode_s": embed_host_s, "host_decode_s": decode_host_s})
-    want = {kid: 2 * n for kid, n in decode.items()}
+    want = {kid: 2 * n for kid, n in decode.items() if n}
     if any(tick != want for tick in per_tick):
-        raise AssertionError(f"launches a sim tick {per_tick}, predicted "
-                             f"{want}")
-    if set(typed) != {"K1", "K2"} or any(set(t) != {"float32"}
-                                         for t in typed.values()):
-        raise AssertionError(f"serving launched {typed}, predicted fp32 K1 "
-                             f"and K2 only")
+        raise AssertionError(f"{label}: launches a sim tick {per_tick}, "
+                             f"predicted {want}")
+    if set(typed) != set(want) or any(set(t) != {"float32"}
+                                      for t in typed.values()):
+        raise AssertionError(f"{label}: serving launched {typed}, "
+                             f"predicted fp32 {sorted(want)} only")
     for kernel, impl in ((zconv.zconv3d_leaky, zconv.K1_F32_IMPL),
                          (zconv.upzconv3d_leaky, zconv.K2_F32_IMPL)):
         if kernel.last_impl != impl:
-            raise AssertionError(f"serving ran {kernel.last_impl}, not "
-                                 f"{impl}")
+            raise AssertionError(f"{label}: serving ran {kernel.last_impl}, "
+                                 f"not {impl}")
     worst = max(embed_err, *decode_err.values())
     if not worst <= DECODE_TOL:
-        raise AssertionError(f"card differs from host: embedding "
+        raise AssertionError(f"{label}: card differs from host: embedding "
                              f"{embed_err}, decode {decode_err}")
     del session, model, host_model
     torch.cuda.empty_cache()
+    return typed
+
+
+def add_launches(total, typed):
+    """Adds ``typed`` ({kernel: {type: launches}}) into ``total``."""
+    for kid, types in typed.items():
+        for dtype, n in types.items():
+            counts = total.setdefault(kid, {})
+            counts[dtype] = counts.get(dtype, 0) + n
+    return total
+
+
+def serving_mobilevit_phase(dev):
+    """test_mobilevit_2d.yml (muvo.yml with MobileViTV2 camera and LiDAR
+    trunks) through ``serve_config``: fp32 K1 and K2 4 launches each a sim
+    tick, K4 none."""
+    return serve_config(dev, muvo_cfg("test_mobilevit_2d.yml"),
+                        "serving_mobilevit", "test_mobilevit_2d.yml", seed=2)
+
+
+# serving_options' configurations: (label, muvo.yml's options changed).
+# muvo_tpu runs EVAL.RESOLUTION's forward (its loss stops at the RGB term:
+# the decoders keep IMAGE.CROP's size), so it is served here too.
+OPTIONS = ["MODEL.MEASUREMENTS.ENABLED", "True", "MODEL.ENCODER.NAME",
+           "resnet34", "MODEL.LIDAR.ENCODER", "resnet34"]
+SERVED_OPTIONS = (("muvo.yml MEASUREMENTS resnet34", OPTIONS),
+                  ("muvo.yml EVAL.RESOLUTION FACTOR 2",
+                   ["EVAL.RESOLUTION.ENABLED", "True",
+                    "EVAL.RESOLUTION.FACTOR", "2"]))
+# TriPlaneVoxelDecoder on the card: 3 scales, planes (X, Y, Z) at scale 1
+# and halved at 2 and 4, their channels, the classifier's, the classes
+TRIPLANE = {"planes": (48, 48, 16), "channels": 64, "feature_channels": 512,
+            "n_classes": 2}
+TRIPLANE_TOL = 1e-4  # card vs host, fp32 (TF32 off), norm-relative
+TRIPLANE_ITERS = 10  # timed calls
+
+
+def triplane_vs_host(dev):
+    """TriPlaneVoxelDecoder (TRIPLANE's sizes, seeded weights and planes)
+    on the card against a host copy: each scale within TRIPLANE_TOL; the
+    median CUDA-event ms of TRIPLANE_ITERS calls; no kernel of the port
+    launched (its 3x3x3 conv is F.conv3d, as muvo_tpu runs it in XLA)."""
+    from muvo_tpu_torch.models.stylegan import TriPlaneVoxelDecoder
+
+    x, y, z = TRIPLANE["planes"]
+    c = TRIPLANE["channels"]
+    torch.manual_seed(5)
+    host = TriPlaneVoxelDecoder(c, TRIPLANE["n_classes"],
+                                TRIPLANE["feature_channels"]).eval()
+    gen = torch.Generator().manual_seed(6)
+    planes = [{}, {}, {}]
+    for s in TriPlaneVoxelDecoder.SCALES:
+        for plane, shape in zip(planes, ((x // s, y // s), (x // s, z // s),
+                                         (y // s, z // s))):
+            plane[f"rgb_{s}"] = torch.randn((1, *shape, c), generator=gen)
+    card = copy.deepcopy(host).to(dev)
+    on_card = [{k: v.to(dev) for k, v in p.items()} for p in planes]
+    reset_launches()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = host(*planes)
+        host_s = time.perf_counter() - t0
+        got = card(*on_card)
+        ms = []
+        for _ in range(TRIPLANE_ITERS):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            card(*on_card)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+    err = {k: norm_rel(got[k], w) for k, w in want.items()}
+    launched = {k: n for k, n in read_launches().items() if n}
+    emit({"phase": "serving_options", "config": "TriPlaneVoxelDecoder",
+          **TRIPLANE, "outputs": {k: list(v.shape) for k, v in got.items()},
+          "ms": ms, "ms_median": statistics.median(ms), "host_s": host_s,
+          "vs_host_norm_rel": err, "tol": TRIPLANE_TOL,
+          "launches": launched})
+    if not max(err.values()) <= TRIPLANE_TOL:
+        raise AssertionError(f"TriPlaneVoxelDecoder card differs from "
+                             f"host: {err}")
+    if launched:
+        raise AssertionError(f"TriPlaneVoxelDecoder launched {launched}")
+    del card, on_card
+    torch.cuda.empty_cache()
+
+
+def serving_options_phase(dev):
+    """Each of SERVED_OPTIONS through ``serve_config`` (muvo.yml with
+    measurements and resnet34 camera and LiDAR trunks, on a batch that
+    carries the measurement keys; muvo.yml with EVAL.RESOLUTION FACTOR 2),
+    then ``triplane_vs_host``. Returns the launches by type, summed."""
+    typed = {}
+    for label, opts in SERVED_OPTIONS:
+        add_launches(typed, serve_config(dev, config("muvo.yml", opts),
+                                         "serving_options", label, seed=4))
+    triplane_vs_host(dev)
     return typed
 
 
@@ -2133,10 +2387,7 @@ def serving_lifting_phase(dev):
         if not pool_err <= POOL_TOL:
             raise AssertionError(f"{label}: FrustumPooling card differs "
                                  f"from host: {pool_err}")
-        for kid, types in typed.items():
-            for dtype, n in types.items():
-                counts = typed_all.setdefault(kid, {})
-                counts[dtype] = counts.get(dtype, 0) + n
+        add_launches(typed_all, typed)
         del session, model, host_model, args
         torch.cuda.empty_cache()
     return typed_all
@@ -2589,15 +2840,18 @@ def main() -> int:
     work = Path(__file__).resolve().parent / "build" / f"run_{os.getpid()}"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        paths["train_entry"], panels = train_entry_phase(dev, work)
+        paths["train_entry"], panels, entry_gap_ms = train_entry_phase(
+            dev, work)
         paths["prediction"], paths["sim_run"] = prediction_phase(dev, work,
                                                                  panels)
         paths["train_heads"] = train_heads_phase(dev, work)
         paths["train_lifting"] = train_lifting_phase(dev, work)
+        paths["train_options"] = train_options_phase(dev, work, entry_gap_ms)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths["serving_mobilevit"] = serving_mobilevit_phase(dev)
     paths["serving_lifting"] = serving_lifting_phase(dev)
+    paths["serving_options"] = serving_options_phase(dev)
     paths["serving_large"] = serving_large_phase(dev)
     paths["training_large"], paths["training_large_split"] = (
         training_large_phase(dev))

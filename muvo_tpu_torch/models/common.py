@@ -1,8 +1,8 @@
 """Shared model components (counterpart of muvo_tpu/models/common.py):
-the top-down and bottom-up FPN aggregators, route and speed encoders, the
-policy, the feature compressor, the BEV 4x down-sampler and the sine
-position embedding. NHWC at the public functions; upstream MUVO's
-parameter names.
+the top-down and bottom-up FPN aggregators, route, speed, route-command and
+GPS encoders, the policy, the feature compressor, the BEV 4x down-sampler
+and the sine position embedding. NHWC at the public functions; upstream
+MUVO's parameter names.
 """
 
 from __future__ import annotations
@@ -153,6 +153,32 @@ class SpeedEncoder(nn.Sequential):
 
     def forward(self, speed):
         return super().forward(speed / self.normalisation)
+
+
+class CommandEncoder(nn.Sequential):
+    """Route command ids (N,) in [0, 6) -> (N, C): an embedding, then two
+    Linear + ReLU layers. Upstream MUVO is not at hand: the keys assume its
+    ``nn.Sequential`` of muvo_tpu's citation (mile.py:125-139), so ``0`` is
+    the embedding and ``1`` and ``3`` the Linears."""
+
+    def __init__(self, channels: int):
+        super().__init__(nn.Embedding(6, channels),
+                         nn.Linear(channels, channels), nn.ReLU(),
+                         nn.Linear(channels, channels), nn.ReLU())
+
+    def forward(self, command):
+        # the batch carries int32 ids; nn.Embedding indexes with int64
+        return super().forward(command.long())
+
+
+class GpsEncoder(nn.Sequential):
+    """(N, 4) GPS vectors (this frame's and the next's, 2 each) -> (N, C):
+    two Linear + ReLU layers, keys ``0`` and ``2`` as the ``nn.Sequential``
+    of muvo_tpu's citation (mile.py:141-146) assumed."""
+
+    def __init__(self, channels: int):
+        super().__init__(nn.Linear(4, channels), nn.ReLU(),
+                         nn.Linear(channels, channels), nn.ReLU())
 
 
 class BevDownSample4(nn.Sequential):

@@ -16,8 +16,18 @@ lays BEV out, nearest) with the instances' ``center_label_*`` and
 ``offset_label_*``; ``semantic_image_label_*``, ``image_instance_mask_*``,
 ``range_view_label_*`` and ``range_view_seg_label_*`` (nearest); and
 ``voxel_label_{1,2,4}`` (strided slices); ``depth_mask`` marks the depths
-inside BEV.FRUSTUM_POOL.D_BOUND. EVAL.RESOLUTION and
-POINTS.DEVICE_PROJECTION are not ported and raise NotImplementedError.
+inside BEV.FRUSTUM_POOL.D_BOUND.
+
+EVAL.RESOLUTION resizes the cropped ``image``, ``image_instance_mask`` and
+``semantic_image`` by 1 / FACTOR with the same linear weights, in float32
+as muvo_tpu's resize returns its integer and boolean keys too, and scales
+the intrinsics' first two rows; ``depth`` keeps the crop's size, and so
+do the decoders' outputs (their sizes come from IMAGE.CROP).
+POINTS.DEVICE_PROJECTION builds ``range_view_pcd_xyzd`` (and with
+LIDAR_SEG ``range_view_pcd_seg``) here from the padded raw points
+(``points_raw``, ``num_points``, ``points_sem``) with
+``RangeProjector.project_torch``, before the LIDAR_RE.SCALE division and
+the label pyramids, also when no labels are asked for.
 
 Augmentation draws every random number from an explicit torch.Generator
 (torch and JAX streams differ, so the tests compare the helpers with fixed
@@ -34,6 +44,7 @@ import numpy as np
 import torch
 
 from muvo_tpu_torch.geometry.camera import get_out_of_view_mask
+from muvo_tpu_torch.geometry.range_view import RangeProjector
 from muvo_tpu_torch.utils.instance import center_offset_labels
 
 
@@ -213,8 +224,6 @@ def _uniform(generator, device, low, high, shape=()):
 # ---------------------------------------------------------------------------
 class PreProcess:
     def __init__(self, cfg):
-        if cfg.EVAL.RESOLUTION.ENABLED:
-            raise NotImplementedError("EVAL.RESOLUTION is not ported")
         self.cfg = cfg
         self.crop = tuple(cfg.IMAGE.CROP)
         self.route_map_size = cfg.ROUTE.SIZE
@@ -226,6 +235,14 @@ class PreProcess:
         self.bev_out_of_view_mask = (
             torch.from_numpy(get_out_of_view_mask(cfg)) if cfg.EVAL.MASK_VIEW
             else None)
+        self.scale = (1.0 / cfg.EVAL.RESOLUTION.FACTOR
+                      if cfg.EVAL.RESOLUTION.ENABLED else None)
+        points = cfg.POINTS
+        self.range_projector = (
+            RangeProjector(points.CHANNELS, points.HORIZON_RESOLUTION,
+                           points.FOV[0], points.FOV[1],
+                           points.LIDAR_POSITION)
+            if points.DEVICE_PROJECTION else None)
 
     def _normalise(self, x):
         mean = torch.tensor(self.image_mean, device=x.device)
@@ -256,7 +273,13 @@ class PreProcess:
             k[..., 0, 2] -= left
             k[..., 1, 2] -= top
             batch["intrinsics"] = k
+        if self.scale is not None:
+            batch = self._rescale(batch, self.scale)
 
+        if (self.range_projector is not None
+                and "range_view_pcd_xyzd" not in batch
+                and "points_raw" in batch):
+            batch = self._device_range_projection(batch)
         if self.cfg.LIDAR_RE.ENABLED and "range_view_pcd_xyzd" in batch:
             batch["range_view_pcd_xyzd"] = (
                 batch["range_view_pcd_xyzd"].float() / self.cfg.LIDAR_RE.SCALE)
@@ -274,6 +297,45 @@ class PreProcess:
                                    & (batch["depth"] < self.max_depth))
         return batch
 
+    def _rescale(self, batch, scale: float):
+        """The cropped image and its per-pixel labels resized by ``scale``
+        (linear weights, in float32: muvo_tpu's resize of an integer or
+        boolean key is float32 too), the intrinsics' first two rows
+        scaled."""
+        h, w = batch["image"].shape[-3], batch["image"].shape[-2]
+        h1, w1 = int(round(h * scale)), int(round(w * scale))
+        for key in ("image", "image_instance_mask", "semantic_image"):
+            if key in batch:
+                batch[key] = _bilinear_resize(batch[key].float(), h1, w1)
+        if "intrinsics" in batch:
+            k = batch["intrinsics"].clone()
+            k[..., :2, :] *= scale
+            batch["intrinsics"] = k
+        return batch
+
+    def _device_range_projection(self, batch):
+        """The range view (b, s, H, W, 4: x, y, z, depth) and, with
+        LIDAR_SEG, its semantics (b, s, H, W, 1) from the padded raw points
+        points_raw (b, s, P, 3), num_points (b, s) and points_sem (b, s,
+        P; zeros where absent), every frame in one projection."""
+        proj = self.range_projector
+        pts = batch["points_raw"]
+        b, s, p, _ = pts.shape
+        num = batch["num_points"].reshape(b * s)
+        sems = batch.get("points_sem")
+        sems = (sems.reshape(b * s, p) if sems is not None
+                else torch.zeros((b * s, p), dtype=torch.int32,
+                                 device=pts.device))
+        valid = torch.arange(p, device=pts.device)[None, :] < num[:, None]
+        depth, xyz, sem = proj.project_torch(pts.reshape(b * s, p, 3), sems,
+                                             valid)
+        batch["range_view_pcd_xyzd"] = torch.cat(
+            [xyz, depth[..., None]], dim=-1).reshape(b, s, proj.h, proj.w, 4)
+        if self.cfg.LIDAR_SEG.ENABLED:
+            batch["range_view_pcd_seg"] = sem.reshape(
+                b, s, proj.h, proj.w)[..., None]
+        return batch
+
     # ------------------------------------------------------------------
     def _bev(self, label):
         """A BEV label (..., h, w, 1): out-of-view pixels zeroed under
@@ -286,12 +348,6 @@ class PreProcess:
 
     def prepare_labels(self, batch):
         cfg = self.cfg
-        if (cfg.POINTS.DEVICE_PROJECTION
-                and "range_view_pcd_xyzd" not in batch
-                and "points_raw" in batch):
-            raise NotImplementedError(
-                "label branch not ported yet: POINTS.DEVICE_PROJECTION")
-
         if "birdview_label" in batch:
             batch["birdview_label"] = self._bev(batch["birdview_label"])
             batch = _pyramid(batch, "birdview_label", "birdview_label")

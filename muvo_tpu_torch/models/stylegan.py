@@ -1,5 +1,6 @@
 """Latent-conditioned (StyleGAN-like) decoders: image/range-view, BEV and
-3-D voxel (counterpart of muvo_tpu/models/stylegan.py).
+3-D voxel, and the tri-plane voxel decoder (counterpart of
+muvo_tpu/models/stylegan.py).
 
 A learned constant (BEV, voxel) or a projected latent (image) is convolved
 and upsampled under adaptive instance normalisation driven by the latent
@@ -15,7 +16,8 @@ are upsampled bilinearly first, then K2 fuses the z-upsample into conv1,
 and K1 runs conv2, each followed by AdaIN. Under autograd the
 two convs run inside ops/zconv.py's autograd Function, whose backward
 launches K1-dx / K2-dx and K3; AdaIN, the upsampling and the small stages
-differentiate through plain autograd, as muvo_tpu runs them in XLA.
+differentiate through plain autograd, as muvo_tpu runs them in XLA. The
+tri-plane decoder's 3x3x3 conv is F.conv3d: muvo_tpu runs it in XLA too.
 """
 
 from __future__ import annotations
@@ -134,6 +136,13 @@ class DecoderBlock(nn.Module):
         return self.conv2(self.conv1(up(x), w), w)
 
 
+def pointwise(conv, x):
+    """A 1x1 (or 1x1x1) conv ``conv`` on channels-last ``x``, as one
+    matmul over the channel axis."""
+    return F.linear(x, conv.weight.reshape(conv.weight.shape[0], -1),
+                    conv.bias)
+
+
 # output key prefix and upstream head module name per head type
 HEADS = {
     "rgb": ("rgb", "rgb_head"),
@@ -158,9 +167,7 @@ class SingleConvHead(nn.Module):
                         nn.Sequential(conv(in_channels, n_classes, 1)))
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        conv = getattr(self, self.torch_name)[0]
-        w = conv.weight.reshape(conv.weight.shape[0], -1)
-        return {self.key: F.linear(x, w, conv.bias)}
+        return {self.key: pointwise(getattr(self, self.torch_name)[0], x)}
 
 
 class SegmentationHead(nn.Module):
@@ -180,17 +187,13 @@ class SegmentationHead(nn.Module):
             nn.Conv2d(in_channels, 1, 1))
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        def pointwise(head):
-            conv = head[0]
-            w = conv.weight.reshape(conv.weight.shape[0], -1)
-            return F.linear(x, w, conv.bias)
-
         k = self.k
         return {
-            f"bev_segmentation_{k}": pointwise(self.segmentation_head),
-            f"bev_instance_offset_{k}": pointwise(self.instance_offset_head),
+            f"bev_segmentation_{k}": pointwise(self.segmentation_head[0], x),
+            f"bev_instance_offset_{k}": pointwise(
+                self.instance_offset_head[0], x),
             f"bev_instance_center_{k}": torch.sigmoid(
-                pointwise(self.instance_center_head)),
+                pointwise(self.instance_center_head[0], x)),
         }
 
 
@@ -304,3 +307,65 @@ class VoxelDecoder(nn.Module):
 
     def forward(self, w) -> Dict[str, torch.Tensor]:
         return _constant_pyramid(self, w)
+
+
+class VoxelDecoderScale(nn.Module):
+    """Tri-plane fusion into a dense grid (muvo_tpu's VoxelDecoderScale,
+    upstream's names): the xy (B, X, Y, C), xz (B, X, Z, C) and yz
+    (B, Y, Z, C) planes each weighed by a 1x1 conv to one channel,
+    broadcast into (B, X, Y, Z, C) and fused as xy against xz plus xy
+    against yz, each pair by the two-way softmax of its weights (the
+    larger subtracted first); then ``classifier``: a 3x3x3 SAME conv to
+    ``feature_channels``, softplus, a 1x1x1 conv to ``n_classes``.
+    Channels-last in and out."""
+
+    def __init__(self, in_channels: int, n_classes: int,
+                 feature_channels: int = 512):
+        super().__init__()
+        self.weight_xy_decoder = nn.Conv2d(in_channels, 1, 1)
+        self.weight_xz_decoder = nn.Conv2d(in_channels, 1, 1)
+        self.weight_yz_decoder = nn.Conv2d(in_channels, 1, 1)
+        self.classifier = nn.Sequential(
+            nn.Conv3d(in_channels, feature_channels, 3, padding=1),
+            nn.Softplus(),
+            nn.Conv3d(feature_channels, n_classes, 1))
+
+    def forward(self, planes) -> torch.Tensor:
+        xy, xz, yz = planes
+        f_xy, f_xz, f_yz = xy[:, :, :, None], xz[:, :, None], yz[:, None]
+        g_xy = pointwise(self.weight_xy_decoder, xy)[:, :, :, None]
+        g_xz = pointwise(self.weight_xz_decoder, xz)[:, :, None]
+        g_yz = pointwise(self.weight_yz_decoder, yz)[:, None]
+
+        def att(t1, w1, t2, w2):
+            m = torch.maximum(w1, w2)
+            e1, e2 = torch.exp(w1 - m), torch.exp(w2 - m)
+            z = e1 + e2
+            return t1 * (e1 / z) + t2 * (e2 / z)
+
+        fused = att(f_xy, g_xy, f_xz, g_xz) + att(f_xy, g_xy, f_yz, g_yz)
+        cls1, _, cls2 = self.classifier
+        x = F.softplus(cls1(to_nchw(fused)))
+        return pointwise(cls2, to_nhwc(x))
+
+
+class TriPlaneVoxelDecoder(nn.Module):
+    """Multi-scale tri-plane voxel decoder (upstream's VoxelDecoder0): a
+    VoxelDecoderScale ``decoder_{s}`` for each scale s of 1, 2 and 4 on
+    the planes ``xy``, ``xz``, ``yz`` given as {"rgb_{s}": plane} ->
+    {"voxel_{s}": (B, X, Y, Z, n_classes)}. No model path builds it, as
+    in muvo_tpu."""
+
+    SCALES = (1, 2, 4)
+
+    def __init__(self, in_channels: int, n_classes: int,
+                 feature_channels: int = 512):
+        super().__init__()
+        for scale in self.SCALES:
+            self.add_module(f"decoder_{scale}", VoxelDecoderScale(
+                in_channels, n_classes, feature_channels))
+
+    def forward(self, xy, xz, yz) -> Dict[str, torch.Tensor]:
+        return {f"voxel_{s}": getattr(self, f"decoder_{s}")(
+            (xy[f"rgb_{s}"], xz[f"rgb_{s}"], yz[f"rgb_{s}"]))
+            for s in self.SCALES}

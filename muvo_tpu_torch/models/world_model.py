@@ -29,12 +29,15 @@ Two fusion branches, as upstream's mile.py:
 The LiDAR encoder reads the range view, or with MODEL.LIDAR.POINT_PILLAR
 the PointPillars canvas of the raw points (``point_pillars``,
 ``point_pillar_encoder``, ``point_pillar_decoder``, as upstream names
-them). The encoders are resnet18 or mobilevitv2 trunks (MODEL.ENCODER.NAME,
-MODEL.LIDAR.ENCODER). MODEL.TRANSITION.ENABLED False drops the RSSM: the
-state is the embedding. Two configurations raise NotImplementedError
-instead of running something else: MODEL.MEASUREMENTS (not ported yet),
-and the transformer branch without LiDAR, which muvo_tpu cannot run either
-(its transformer branch always reads the LiDAR features).
+them). The encoders are resnet18, resnet34 or mobilevitv2 trunks
+(MODEL.ENCODER.NAME, MODEL.LIDAR.ENCODER). MODEL.MEASUREMENTS adds the
+route-command, next route-command and GPS encoders (``command_encoder``,
+``command_next_encoder``, ``gps_encoder``), whose features join the route
+and speed features in either branch. MODEL.TRANSITION.ENABLED False drops
+the RSSM: the state is the embedding. The transformer branch without LiDAR
+raises NotImplementedError instead of running something else: muvo_tpu
+cannot run it either (its transformer branch always reads the LiDAR
+features).
 
 ``forward`` is the training and evaluation pass over a sequence (muvo_tpu's
 ``__call__``): encode every frame, roll the RSSM over the sequence, then the
@@ -57,9 +60,11 @@ from torch import nn
 from muvo_tpu_torch.models.backbones.resnet import build_backbone
 from muvo_tpu_torch.models.common import (
     BevDownSample4,
+    CommandEncoder,
     Decoder,
     DecoderDS,
     FeatureCompressor,
+    GpsEncoder,
     Policy,
     RouteEncode,
     SpeedEncoder,
@@ -94,7 +99,6 @@ def checkpointed(fn, *args):
 def _check_supported(cfg):
     m = cfg.MODEL
     unsupported = {
-        "MODEL.MEASUREMENTS (not ported yet)": m.MEASUREMENTS.ENABLED,
         "the transformer branch without LiDAR (MODEL.TRANSFORMER.ENABLED "
         "with MODEL.LIDAR.ENABLED False; muvo_tpu cannot run it either)":
             m.TRANSFORMER.ENABLED and not m.LIDAR.ENABLED,
@@ -171,16 +175,26 @@ class MuvoWorldModel(nn.Module):
         if m.ROUTE.ENABLED:
             self.backbone_route = RouteEncode(m.ROUTE.CHANNELS,
                                               m.ROUTE.BACKBONE)
+        self.measurements = bool(m.MEASUREMENTS.ENABLED)
+        if self.measurements:
+            cc = m.MEASUREMENTS.COMMAND_CHANNELS
+            self.command_encoder = CommandEncoder(cc)
+            self.command_next_encoder = CommandEncoder(cc)
+            self.gps_encoder = GpsEncoder(m.MEASUREMENTS.GPS_CHANNELS)
         self.speed_enc = SpeedEncoder(m.SPEED.CHANNELS,
                                       cfg.SPEED.NORMALISATION)
-        route_c = m.ROUTE.CHANNELS if m.ROUTE.ENABLED else 0
+        # the route, measurement and speed features' width
+        vector_c = m.SPEED.CHANNELS + (m.ROUTE.CHANNELS if m.ROUTE.ENABLED
+                                       else 0)
+        if self.measurements:
+            vector_c += (2 * m.MEASUREMENTS.COMMAND_CHANNELS
+                         + m.MEASUREMENTS.GPS_CHANNELS)
         if self.fusion:
-            self.features_combine = nn.Linear(
-                2 * emb + route_c + m.SPEED.CHANNELS, emb)
+            self.features_combine = nn.Linear(2 * emb + vector_c, emb)
         else:
             self.backbone_bev, (trunk_c,) = build_backbone(
                 m.BEV.BACKBONE, out_indices=(3,),
-                in_channels=bev_c + route_c + m.SPEED.CHANNELS)
+                in_channels=bev_c + vector_c)
             self.final_state_conv = FeatureCompressor(trunk_c, emb)
             if self.lidar:
                 self.lidar_state_conv = FeatureCompressor(
@@ -284,7 +298,8 @@ class MuvoWorldModel(nn.Module):
     def _fuse_tokens(self, x, batch: Dict, dropout: bool,
                      generator: Optional[torch.Generator]) -> torch.Tensor:
         """The transformer branch: camera and LiDAR tokens fused, then
-        compressed and joined with the route and speed features."""
+        compressed and joined with the route, measurement and speed
+        features."""
         tf_c = self.cfg.MODEL.TRANSFORMER.CHANNELS
         lidar = self._lidar_features(batch)
         h_i, w_i = x.shape[1:3]
@@ -309,18 +324,30 @@ class MuvoWorldModel(nn.Module):
         return self.features_combine(torch.cat(features, dim=-1))
 
     def _vector_features(self, batch: Dict):
-        """The route (where enabled) and speed features, (b*s, C) each."""
+        """The route and the measurements (where enabled) and the speed
+        features, (b*s, C) each, in muvo_tpu's order: route, route command,
+        next route command, GPS, speed."""
         features = []
         if self.cfg.MODEL.ROUTE.ENABLED:
             features.append(self.backbone_route(
                 pack_sequence_dim(batch["route_map"])))
+        if self.measurements:
+            gps = torch.cat([batch["gps_vector"], batch["gps_vector_next"]],
+                            dim=-1)
+            features += [
+                self.command_encoder(
+                    pack_sequence_dim(batch["route_command"])),
+                self.command_next_encoder(
+                    pack_sequence_dim(batch["route_command_next"])),
+                self.gps_encoder(pack_sequence_dim(gps))]
         features.append(self.speed_enc(pack_sequence_dim(batch["speed"])))
         return features
 
     def _bev_embedding(self, x, batch: Dict) -> torch.Tensor:
-        """The MILE branch: the route and speed features broadcast over the
-        BEV features ``x``, ``backbone_bev``'s stride-16 map compressed to
-        the embedding, joined with the compressed LiDAR features."""
+        """The MILE branch: the route, measurement and speed features
+        broadcast over the BEV features ``x``, ``backbone_bev``'s stride-16
+        map compressed to the embedding, joined with the compressed LiDAR
+        features."""
         n, h, w = x.shape[:3]
         features = [x] + [f[:, None, None].expand(n, h, w, f.shape[-1])
                           for f in self._vector_features(batch)]

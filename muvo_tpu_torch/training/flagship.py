@@ -26,11 +26,14 @@ class FlagshipStep(NamedTuple):
 
 
 def flagship_cfg(large: bool = False, batch_override: int = 0,
-                 remat: str = ""):
+                 remat: str = "", opts=()):
+    """muvo.yml with ``opts`` (dotted ``KEY VALUE`` pairs, e.g. another
+    encoder) merged before the step's own settings."""
     from muvo_tpu_torch.config import get_cfg
 
     cfg = get_cfg()
     cfg.merge_from_file(str(MUVO_YML))
+    cfg.merge_from_list(list(opts))
     cfg.MODEL.TRANSFORMER.LARGE = large
     cfg.BATCHSIZE = batch_override or (1 if large else 4)
     cfg.MODEL.REMAT = True
@@ -61,15 +64,16 @@ def set_flash_bwd(model, bwd: str):
 
 def build_flagship_step(large: bool = False, batch_override: int = 0,
                         remat: str = "", device=None,
-                        seed: int = 0) -> FlagshipStep:
+                        seed: int = 0, opts=()) -> FlagshipStep:
     """The benchmark train step: config, initialised trainer, batch and
     generator. ``large``: the LARGE step; ``batch_override``: sequences
-    (default 4, LARGE 1); ``remat``: "off|voxel|all[,enc]". The flash
-    backward is K5 unless ``set_flash_bwd`` picks K6."""
+    (default 4, LARGE 1); ``remat``: "off|voxel|all[,enc]"; ``opts``:
+    muvo.yml's options changed (``flagship_cfg``). The flash backward is
+    K5 unless ``set_flash_bwd`` picks K6."""
     from muvo_tpu_torch.data.synthetic import synthetic_batch
     from muvo_tpu_torch.training.trainer import WorldModelTrainer
 
-    cfg = flagship_cfg(large, batch_override, remat)
+    cfg = flagship_cfg(large, batch_override, remat, opts)
     trainer = WorldModelTrainer(cfg, device=device)
     seq = cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON
     batch = trainer.to_device(synthetic_batch(cfg, cfg.BATCHSIZE, seq, seed))

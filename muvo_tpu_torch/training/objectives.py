@@ -29,6 +29,19 @@ def _weights(table, enabled: bool, device):
             if enabled else None)
 
 
+def _same_size(output: Dict, batch: Dict, key: str, label: str):
+    """Raises where an output and its label differ in size. The decoders
+    size their outputs from IMAGE.CROP; EVAL.RESOLUTION resizes the image
+    labels only, so with it the RGB loss cannot compare them (muvo_tpu's
+    loss fails at the same term)."""
+    got, want = output[key].shape[2:4], batch[label].shape[2:4]
+    if got != want:
+        raise ValueError(
+            f"{key} is {tuple(got)} (from IMAGE.CROP) but {label} is "
+            f"{tuple(want)}: EVAL.RESOLUTION resizes the labels, not the "
+            f"decoders, so this loss cannot be taken")
+
+
 def compute_loss(cfg, batch: Dict, output: Dict) -> Dict[str, torch.Tensor]:
     losses: Dict[str, torch.Tensor] = {}
     action_weight = cfg.LOSSES.WEIGHT_ACTION
@@ -81,6 +94,7 @@ def compute_loss(cfg, batch: Dict, output: Dict) -> Dict[str, torch.Tensor]:
         rgb_weight = 0.1
         for k in (1, 2, 4):
             discount = 1.0 / k
+            _same_size(output, batch, f"rgb_{k}", f"rgb_label_{k}")
             rgb = spatial_regression_loss(output[f"rgb_{k}"],
                                           batch[f"rgb_label_{k}"], norm=1)
             rgb_instance = 0.0

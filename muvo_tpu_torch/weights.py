@@ -206,6 +206,14 @@ def speed_entries(sd, prefix, p):
     dense_entries(sd, prefix + "2.", p["Dense_1"])
 
 
+def command_entries(sd, prefix, p):
+    """CommandEncoder: flax's Embed table (6, C) is torch's Embedding
+    weight as it is."""
+    sd[prefix + "0.weight"] = np.asarray(p["Embed_0"]["embedding"])
+    dense_entries(sd, prefix + "1.", p["Dense_0"])
+    dense_entries(sd, prefix + "3.", p["Dense_1"])
+
+
 def policy_entries(sd, prefix, p):
     for i in range(4):
         dense_entries(sd, f"{prefix}fc.{2 * i}.", p[f"Dense_{i}"])
@@ -300,6 +308,23 @@ def conv_decoder_entries(sd, prefix, p, head):
     head_entries(sd, prefix, p, head)
 
 
+def voxel_decoder_scale_entries(sd, prefix, p):
+    """VoxelDecoderScale: the planes' 1x1 weight convs and the classifier
+    (muvo_tpu's cls1, cls2 are upstream's classifier.0, classifier.2)."""
+    for plane in ("xy", "xz", "yz"):
+        conv_bias_entries(sd, f"{prefix}weight_{plane}_decoder.",
+                          p[f"weight_{plane}"])
+    conv_bias_entries(sd, prefix + "classifier.0.", p["cls1"])
+    conv_bias_entries(sd, prefix + "classifier.2.", p["cls2"])
+
+
+def triplane_entries(sd, prefix, p):
+    """TriPlaneVoxelDecoder: one VoxelDecoderScale a scale."""
+    for scale in (1, 2, 4):
+        voxel_decoder_scale_entries(sd, f"{prefix}decoder_{scale}.",
+                                    p[f"decoder_{scale}"])
+
+
 # (attribute / upstream prefix, head type); muvo_tpu uses the same names
 CONV_DECODERS = (("rgb_decoder", "rgb"), ("lidar_re", "lidar_re"),
                  ("lidar_segmentation", "lidar_seg"),
@@ -368,6 +393,10 @@ def state_dict_from_jax(params, batch_stats, cfg) -> Dict[str, torch.Tensor]:
     if m.ROUTE.ENABLED:
         route_entries(sd, "backbone_route.", p["backbone_route"],
                       s["backbone_route"])
+    if "command_encoder" in p:  # MODEL.MEASUREMENTS
+        command_entries(sd, "command_encoder.", p["command_encoder"])
+        command_entries(sd, "command_next_encoder.", p["command_next_encoder"])
+        speed_entries(sd, "gps_encoder.", p["gps_encoder"])  # same layout
     speed_entries(sd, "speed_enc.", p["speed_enc"])
     if "rssm" in p:
         rssm_entries(sd, "rssm.", p["rssm"])

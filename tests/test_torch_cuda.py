@@ -1119,3 +1119,83 @@ def test_mile_encode_on_card_matches_host(dev):
         got = card.encode({k: v.to(dev) for k, v in pb.items()})
     assert got.shape == want.shape == (1, 1, cfg.MODEL.EMBEDDING_DIM)
     assert _norm_rel(got.cpu(), want) <= 1e-3
+
+
+def _edge_distance(points, h, w, fov=(-30.0, 10.0), lidar=(1.0, 0.0, 2.0)):
+    """Each point's distance in rad (float64) to the nearest yaw or pitch
+    bin edge of an h x w range view."""
+    import numpy as np
+
+    c = points.double().numpy() * np.array([1.0, -1.0, 1.0]) - lidar
+    depth = np.linalg.norm(c, axis=-1)
+    yaw = np.arctan2(-c[..., 1], c[..., 0])
+    pitch = np.arcsin(np.clip(c[..., 2] / np.maximum(depth, 1e-12), -1, 1))
+    fov_down, span = np.deg2rad(fov[0]), np.deg2rad(fov[1] - fov[0])
+    tw = 0.5 * (1.0 - yaw / np.pi) * w
+    th = (1.0 - (pitch + abs(fov_down)) / span) * h
+    return np.minimum(np.abs(tw - np.round(tw)) * 2 * np.pi / w,
+                      np.abs(th - np.round(th)) * span / h)
+
+
+def test_range_projection_on_card_matches_host(dev):
+    """project_torch at muvo.yml's 64 x 1024 on 6 frames of 60,000 points
+    (two padded): the card's pixels are the host's except where the
+    card's atan2 and asin round a point within 1e-6 rad of a bin edge to
+    the other side, or its norm turns a depth tie within 2 ulp the other
+    way, at most 0.1% of the pixels; where the winner is the same, xyz
+    are the same bits (the winner's own point) and depth is within 2 ulp
+    (the card's norm rounds its sum of squares otherwise)."""
+    import numpy as np
+
+    from muvo_tpu_torch.geometry.range_view import RangeProjector
+
+    proj = RangeProjector(64, 1024)
+    gen = torch.Generator().manual_seed(0)
+    pts = torch.rand((6, 60000, 3), generator=gen) * 80 - 40
+    pts[..., 2] = torch.rand((6, 60000), generator=gen) * 9 - 3
+    ids = torch.arange(60000, dtype=torch.int32).expand(6, -1).contiguous()
+    valid = torch.ones((6, 60000), dtype=torch.bool)
+    valid[1, 50000:] = valid[4, 1000:] = False
+    host = proj.project_torch(pts, ids, valid)
+    card = [t.cpu() for t in proj.project_torch(pts.to(dev), ids.to(dev),
+                                                valid.to(dev))]
+    hit = host[0] >= 0
+    bad = (card[2] != host[2]) | ((card[0] >= 0) != hit)
+    assert bad.float().mean() <= 1e-3
+    near = _edge_distance(pts, 64, 1024) < 1e-6
+    for f, i, j in bad.nonzero().tolist():
+        sides = [(int(s[f, i, j]), np.float32(d[f, i, j]))
+                 for s, d in ((host[2], host[0]), (card[2], card[0]))
+                 if d[f, i, j] >= 0]
+        depths = [d for _, d in sides]
+        tie = len(depths) == 2 and (abs(depths[0] - depths[1])
+                                    <= 2 * np.spacing(max(depths)))
+        assert tie or near[f, [w for w, _ in sides]].any(), (f, i, j)
+    same = ~bad
+    assert torch.equal(card[1][same], host[1][same])
+    depth = host[0][same].numpy()
+    assert (np.abs(card[0][same].numpy() - depth)
+            <= 2 * np.spacing(np.abs(depth))).all()
+    assert hit.sum() > 100000
+
+
+def test_triplane_decoder_on_card_matches_host(dev):
+    """TriPlaneVoxelDecoder at three scales (planes 24 x 24 x 8 and
+    halves, 16 channels, 32 feature channels), fp32 with TF32 off: each
+    scale within 1e-5 norm-relative of the host's."""
+    from muvo_tpu_torch.models.stylegan import TriPlaneVoxelDecoder
+
+    torch.manual_seed(0)
+    host = TriPlaneVoxelDecoder(16, 2, 32).eval()
+    gen = torch.Generator().manual_seed(1)
+    planes = [{}, {}, {}]
+    for s in (1, 2, 4):
+        x, y, z = 24 // s, 24 // s, 8 // s
+        for plane, shape in zip(planes, ((x, y), (x, z), (y, z))):
+            plane[f"rgb_{s}"] = torch.randn((2, *shape, 16), generator=gen)
+    with torch.no_grad():
+        want = host(*planes)
+        got = host.to(dev)(*({k: v.to(dev) for k, v in p.items()}
+                             for p in planes))
+    for key, w in want.items():
+        assert _norm_rel(got[key].cpu(), w) <= 1e-5, key

@@ -153,15 +153,16 @@ def test_released_eval_configs_build_a_model(name):
 
 def test_one_frame_yml_names_what_is_not_ported():
     """one_frame.yml (the default config's MILE branch without the RSSM)
-    builds; the port names what it still refuses: measurements, and the
-    transformer branch without LiDAR, which muvo_tpu cannot run either."""
+    builds, also with measurements; the port names what it still
+    refuses: the transformer branch without LiDAR, which muvo_tpu cannot
+    run either."""
     model = MuvoWorldModel(_config("one_frame.yml"))
     assert model.rssm is None and not model.fusion and model.lifting
     cfg = _config("one_frame.yml")
     cfg.MODEL.MEASUREMENTS.ENABLED = True
-    with pytest.raises(NotImplementedError) as raised:
-        MuvoWorldModel(cfg)
-    assert "MODEL.MEASUREMENTS" in str(raised.value)
+    with torch.device("meta"):
+        model = MuvoWorldModel(cfg)
+    assert model.measurements and model.gps_encoder[0].in_features == 4
     cfg = _config("muvo.yml")
     cfg.MODEL.LIDAR.ENABLED = False
     with pytest.raises(NotImplementedError) as raised:

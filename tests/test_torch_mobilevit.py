@@ -88,8 +88,10 @@ def test_build_backbone_dispatches_mobilevit():
                 "stages.3.1.transformer.3.mlp.fc2.bias",
                 "stages.4.1.norm.weight", "stages.4.1.conv_proj.bn.bias"):
         assert key in keys, key
-    with pytest.raises(ValueError, match="resnet34"):
-        build_backbone("resnet34")
+    # resnet34 is a resnet trunk now; a name muvo_tpu does not know raises
+    assert not isinstance(build_backbone("resnet34")[0], MobileViTV2Features)
+    with pytest.raises(ValueError, match="resnet50"):
+        build_backbone("resnet50")
 
 
 def _mobilevit_cfgs():

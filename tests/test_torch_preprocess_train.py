@@ -65,17 +65,22 @@ def test_label_pyramids_match_prepare_labels():
 
 
 def test_unported_label_branches_raise():
-    """Only EVAL.RESOLUTION and POINTS.DEVICE_PROJECTION are left."""
+    """None is left: POINTS.DEVICE_PROJECTION and EVAL.RESOLUTION, the
+    last two, run (tests/test_torch_range_projection.py and
+    tests/test_torch_eval_resolution.py hold them against muvo_tpu)."""
     cfg = tiny_test_cfg()
     cfg.POINTS.DEVICE_PROJECTION = True
     batch = {k: torch.from_numpy(v)
              for k, v in synthetic_batch(cfg, 1, 2, seed=0).items()}
-    with pytest.raises(NotImplementedError, match="DEVICE_PROJECTION"):
-        pp.PreProcess(cfg)(batch)
+    out = pp.PreProcess(cfg)(batch)
+    assert out["range_view_pcd_xyzd"].shape == (1, 2, 64, 128, 4)
+    assert "range_view_label_4" in out
     cfg = tiny_test_cfg()
     cfg.EVAL.RESOLUTION.ENABLED = True
-    with pytest.raises(NotImplementedError, match="EVAL.RESOLUTION"):
-        pp.PreProcess(cfg)
+    cfg.EVAL.RESOLUTION.FACTOR = 2
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic_batch(cfg, 1, 2, seed=0).items()}
+    assert pp.PreProcess(cfg)(batch)["image"].shape == (1, 2, 32, 64, 3)
 
 
 @pytest.mark.parametrize("std", [0.1, 1.7])

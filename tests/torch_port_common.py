@@ -70,6 +70,16 @@ def close(got, want, tol: float = 1e-4):
     assert err <= tol * max(1.0, np.abs(want).max()), err
 
 
+def assert_norm_rel(got, want, tol: float = 1e-5):
+    """|got - want| / |want| <= tol (Frobenius norms, float64), with equal
+    shapes."""
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    rel = np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+    assert rel <= tol, rel
+
+
 def randn(rs, *shape):
     return rs.randn(*shape).astype(np.float32)
 
