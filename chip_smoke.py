@@ -156,6 +156,22 @@ exits nonzero (there is no CPU fallback):
    own noise (its change on a rerun, or from a scaled loss, the larger).
    tools/torch_large_grad_check.py repeats this phase alone.
 18. microbench: tools/torch_flash_microbench.py, K4-mb and K4 at bh 16.
+19. train_ddp (after train_options, on train_entry's drive): two ranks
+   on the one card under gloo, each a spawned process joining the group
+   as torchrun starts it (muvo_tpu_torch/parallel/mesh.py). muvo.yml's
+   step without noise on one sequence each, in bf16 and in fp32, the
+   gradients averaged over the ranks, against one process's step at batch
+   2 from the same weights (losses; each gradient leaf within its
+   tolerance plus 8x the one process's own noise); then ``train.main``
+   under both ranks (global batch 2, ACCUMULATE_GRAD_BATCHES 2, 4 steps):
+   the ranks' parameters bit-equal, one checkpoint by rank 0 with
+   world_size 2, bf16 K1, K2, K1-dx, K2-dx, K3 and K3-up launched as
+   predicted on each rank (the path train_ddp of the kernels line).
+   Each rank's step ms and peak MiB, the all-reduce ms.
+20. train_rl (last): the PPO expert (XtMaCNN, beta) on the kinematic
+   env's 15 x 192 x 192 birdview, fp32: one 512-step rollout, the
+   deterministic forward and one update card against host within 1e-5,
+   then one epoch of 256-sample minibatches. Rollout frames/s, update ms.
 
 Each main path's launch counts are set to 0 just before it runs and read
 just after; each wrapper counts its launches by the tensors' type. The
@@ -691,8 +707,11 @@ def predicted_fp32_decode_launches(cfg, dev):
 
 
 def norm_rel(got, want):
-    """|got - want| / |want| in float64 (inf where only want is zero)."""
-    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    """|got - want| / |want| in float64 (inf where only want is zero), on
+    ``want``'s device (a host copy of the card's leaves costs seconds a
+    model)."""
+    want = want.detach().double()
+    got = got.detach().to(want.device, torch.float64)
     num, den = (got - want).norm().item(), want.norm().item()
     if den == 0.0:
         return 0.0 if num == 0.0 else math.inf
@@ -700,7 +719,7 @@ def norm_rel(got, want):
 
 
 def host_noise(trainer, batch, grads):
-    """Per leaf, the largest norm-relative change of the host's gradient
+    """Per leaf, the largest norm-relative change of ``trainer``'s gradient
     over NOISE_DRAWS relative ULP changes of every parameter."""
     model = trainer.state.model
     saved = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -711,7 +730,7 @@ def host_noise(trainer, batch, grads):
             with torch.no_grad():
                 for n, p in model.named_parameters():
                     p.copy_(saved[n] * (1.0 + ULP * torch.randn(
-                        p.shape, generator=gen)))
+                        p.shape, generator=gen).to(p.device)))
             _, moved = trainer.grads(batch, stochastic=False)
             for k, g in grads.items():
                 noise[k] = max(noise[k], norm_rel(moved[k], g))
@@ -2747,6 +2766,395 @@ def training_large_phase(dev):
     return launches, split_typed
 
 
+DDP_RANKS = 2  # train_ddp: ranks sharing the one card under gloo
+# the steps held against one process: as trained (bf16 autocast), and in
+# fp32 (TF32 off), where the one process's own noise is small enough for
+# the check to see a fault (in bf16 a relative 1e-7 change of the
+# parameters moves its gradient leaves by a median 0.32 norm-relative)
+DDP_CHECKS = ("bfloat16", "float32")
+DDP_STEPS = 4  # train.main steps under the ranks (ACCUMULATE 2: 2 updates)
+DDP_TIMEOUT = 600.0  # seconds each rank may take
+RL_STEPS = 512  # train_rl: one rollout of the kinematic env
+RL_BATCH = 256  # PPO's minibatch
+RL_CHECK = 64  # the minibatch of the card-against-host update
+RL_TOL = 1e-5  # PPO policy card against host, fp32, norm-relative
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def state_sha256(model) -> str:
+    """sha256 of a model's parameters and buffers, in state_dict order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for key, value in model.state_dict().items():
+        h.update(key.encode())
+        h.update(value.detach().cpu().contiguous().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def ddp_rank_step(cfg, dev, rows, dtype: str, work: Path):
+    """A rank's step without noise from the seed's weights on ``rows`` in
+    ``dtype`` ("bfloat16": autocast; "float32": TF32 off), timed (the last
+    of three warm), its gradients averaged over the ranks and timed; rank
+    0 saves the losses and the averaged gradients to ddp_<dtype>.pt."""
+    from muvo_tpu_torch.parallel import mesh
+    from muvo_tpu_torch.training.trainer import WorldModelTrainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = WorldModelTrainer(cfg, device=dev,
+                                compute_dtype=getattr(torch, dtype))
+    trainer.init_state(seed=0)
+    grads_ms = []
+    for _ in range(2):  # the second is timed warm
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        metrics, _ = trainer.grads(rows, stochastic=False)
+        torch.cuda.synchronize(dev)
+        grads_ms.append((time.perf_counter() - t0) * 1e3)
+    model = trainer.state.model
+    t0 = time.perf_counter()
+    mesh.average_gradients(model.parameters())
+    torch.cuda.synchronize(dev)
+    out = {"grads_ms": grads_ms,
+           "allreduce_ms": (time.perf_counter() - t0) * 1e3,
+           "allreduce_mib": sum(p.grad.numel() * p.grad.element_size()
+                                for p in model.parameters()
+                                if p.grad is not None) / 2 ** 20,
+           "peak_mib": torch.cuda.max_memory_allocated(dev) / 2 ** 20}
+    if mesh.rank() == 0:
+        torch.save({"losses": {k: v.item() for k, v in metrics.items()},
+                    "grads": {n: p.grad.cpu() for n, p in
+                              model.named_parameters()}},
+                   work / f"ddp_{dtype}.pt")
+    return out
+
+
+def ddp_rank(rank: int, world: int, port: int, work: str, argv):
+    """One rank of train_ddp (a process of its own, joining the group as
+    torchrun would start it): muvo.yml's step without noise on its half
+    of a seeded batch of ``world`` in each of DDP_CHECKS (ddp_rank_step),
+    then ``train.main`` with ``argv`` on the drive, its launches counted.
+    Writes ddp_rank<r>.json."""
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "LOCAL_RANK": str(rank),
+                       "LOCAL_WORLD_SIZE": str(world),
+                       "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)})
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import torch.distributed as dist
+
+    from muvo_tpu_torch.data.synthetic import synthetic_batch
+    from muvo_tpu_torch.parallel import mesh
+    from muvo_tpu_torch.train import main as train_main
+
+    work = Path(work)
+    out = {"rank": rank}
+    try:
+        dev = mesh.init_from_env()
+        out.update(device=str(dev), backend=dist.get_backend())
+        cfg = muvo_cfg()
+        batch = synthetic_batch(cfg, world, seed=5)
+        rows = {k: v[rank:rank + 1] for k, v in batch.items()}
+        for dtype in DDP_CHECKS:
+            out[dtype] = ddp_rank_step(cfg, dev, rows, dtype, work)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        with instrumented_train_loop(dev) as rec:
+            run = train_main(list(argv), device=dev)
+        out["launches"] = read_typed_launches()
+        out.update(train_ms=rec["train_ms"], gap_ms=rec["gap_ms"],
+                   save_s=rec["save_s"], log_dir=run.log_dir,
+                   steps=run.step, updates=run.trainer.state.optimizer.updates,
+                   state_sha256=state_sha256(run.trainer.state.model),
+                   main_peak_mib=torch.cuda.max_memory_allocated(dev)
+                   / 2 ** 20)
+    except BaseException as e:
+        out["error"] = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        (work / f"ddp_rank{rank}.json").write_text(json.dumps(out))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ddp_ranks(work: Path, argv, world: int):
+    """``world`` ddp_rank processes, spawned; every rank's record. A rank
+    that fails, exits nonzero or outlives DDP_TIMEOUT fails the phase (the
+    others are stopped)."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=ddp_rank,
+                         args=(r, world, port, str(work), argv), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    start = time.monotonic()
+    try:
+        for p in procs:
+            p.join(max(0.0, DDP_TIMEOUT - (time.monotonic() - start)))
+    finally:
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    records = [json.loads(path.read_text()) if path.is_file() else {}
+               for path in (work / f"ddp_rank{r}.json"
+                            for r in range(world))]
+    if late or any(p.exitcode for p in procs) or any(
+            "error" in r or not r for r in records):
+        raise AssertionError(f"train_ddp ranks: late {late}, exit codes "
+                             f"{[p.exitcode for p in procs]}, "
+                             f"{[r.get('error') for r in records]}")
+    return records
+
+
+DDP_TOL = {"bfloat16": (BF16_TOL, BF16_TOL),  # (each loss, each leaf)
+           "float32": (LOSS_TOL, GRAD_TOL)}
+
+
+def ddp_vs_one(cfg, dev, dtype: str, saved, world: int):
+    """The ranks' ``dtype`` step (``saved``: rank 0's losses and averaged
+    gradients) against one process's at batch ``world``, same weights:
+    each loss term within DDP_TOL's first relative, each gradient leaf
+    within its second norm-relative plus NOISE_FACTOR x the one process's
+    own noise, the larger of its change from a rescaled loss (seed_noise)
+    and from every parameter moved by a relative ULP (host_noise).
+    Returns (readings, failures)."""
+    from muvo_tpu_torch.data.synthetic import synthetic_batch
+    from muvo_tpu_torch.training.trainer import WorldModelTrainer
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    one = WorldModelTrainer(cfg, device=dev,
+                            compute_dtype=getattr(torch, dtype))
+    one.init_state(seed=0)
+    batch = synthetic_batch(cfg, world, seed=5)
+    want_m, want_g = one.grads(batch, stochastic=False)
+    want_g = {k: g.detach().clone() for k, g in want_g.items()}
+    seeded = seed_noise(one, batch, want_g)
+    moved = host_noise(one, batch, want_g)
+    noise = {k: max(seeded[k], moved[k]) for k in want_g}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    del one
+    torch.cuda.empty_cache()
+    loss_tol, grad_tol = DDP_TOL[dtype]
+    loss_rel = {k: abs(saved["losses"][k] - v.item()) / max(abs(v.item()),
+                                                           1e-6)
+                for k, v in want_m.items()}
+    grad_rel = {k: norm_rel(saved["grads"][k], g) for k, g in want_g.items()}
+    failures = [(k, grad_rel[k], noise[k]) for k in grad_rel
+                if not grad_rel[k] <= grad_tol + NOISE_FACTOR * noise[k]]
+    failures += [(k, v) for k, v in loss_rel.items() if not v <= loss_tol]
+    return {"one_process_peak_mib": peak,
+            "check_s": time.perf_counter() - t0,
+            "max_loss_rel": max(loss_rel.values()),
+            "worst_loss": max(loss_rel, key=loss_rel.get),
+            "max_grad_norm_rel": max(grad_rel.values()),
+            "median_grad_norm_rel": statistics.median(grad_rel.values()),
+            "worst_grad": max(grad_rel, key=grad_rel.get),
+            "seed_noise_median": statistics.median(seeded.values()),
+            "ulp_noise_median": statistics.median(moved.values()),
+            "worst_over_noise": max((grad_rel[k] - grad_tol)
+                                    / max(noise[k], 1e-30)
+                                    for k in grad_rel),
+            "worst_leaves_over_noise": sorted(
+                ((k, grad_rel[k], noise[k]) for k in grad_rel),
+                key=lambda t: -(t[1] - grad_tol) / max(t[2], 1e-30))[:5],
+            "grad_leaves": len(grad_rel), "loss_tol": loss_tol,
+            "grad_tol": grad_tol}, failures
+
+
+def train_ddp_phase(dev, work: Path, world: int = DDP_RANKS):
+    """``world`` ranks (DDP_RANKS sharing the one card under gloo, unless
+    asked for more; NCCL where every rank has a card of its own) at
+    muvo.yml's full width, one sequence each. (a) One step without noise
+    from the seed's weights on a seeded batch of ``world``, in bf16 (as
+    trained) and in fp32, its gradients averaged over the ranks, held
+    against one process's step at that batch with the same weights
+    (ddp_vs_one). (b) ``train.main`` on train_entry's drive under the
+    ranks, muvo.yml but for a global batch of ``world``,
+    ACCUMULATE_GRAD_BATCHES 2 and DDP_STEPS steps: the ranks' parameters
+    and buffers bit-equal at the end, rank 0 alone logging and writing one
+    checkpoint whose sidecar records the world size, bf16 K1, K2, K1-dx,
+    K2-dx, K3 and K3-up launched as predicted on each rank. Prints each
+    rank's step ms, the gradients' all-reduce ms and each rank's peak MiB.
+    Returns the ranks' launches by type, summed."""
+    from muvo_tpu_torch.training.flagship import MUVO_YML
+
+    phase_t0 = time.perf_counter()
+    cfg = muvo_cfg()
+    argv = ["--config-file", str(MUVO_YML),
+            "DATASET.DATAROOT", str(work / "drives"),
+            "DATASET.FILTER_BEGINNING_OF_RUN_SEC", "0.0",
+            "LOG_DIR", str(work / "ddp"), "BATCHSIZE", str(world),
+            "OPTIMIZER.ACCUMULATE_GRAD_BATCHES", "2",
+            "STEPS", str(DDP_STEPS), "LOGGING_INTERVAL", "1",
+            "VAL_CHECK_INTERVAL", "1000"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ddp_ranks(work, argv, world)
+    ranks_s = time.perf_counter() - t0
+    checks, failures = {}, {}
+    for dtype in DDP_CHECKS:
+        path = work / f"ddp_{dtype}.pt"
+        saved = torch.load(path, weights_only=True)
+        path.unlink()
+        checks[dtype], failures[dtype] = ddp_vs_one(cfg, dev, dtype, saved,
+                                                    world)
+        checks[dtype].update({key: [r[dtype][key] for r in ranks]
+                              for key in ("grads_ms", "allreduce_ms",
+                                          "peak_mib")},
+                             allreduce_mib=ranks[0][dtype]["allreduce_mib"])
+    per_step = predicted_launches(cfg)
+    launches = {}
+    for r in ranks:
+        for kid, types in r["launches"].items():
+            for dtype, n in types.items():
+                counts = launches.setdefault(kid, {})
+                counts[dtype] = counts.get(dtype, 0) + n
+    ckpts = sorted(Path(ranks[0]["log_dir"], "checkpoints").glob("ckpt_*"))
+    meta = Path(ranks[0]["log_dir"], "checkpoints", f"meta_{DDP_STEPS}.json")
+    recorded = json.loads(meta.read_text())["metadata"]["world_size"]
+    records = logged_losses(ranks[0]["log_dir"])
+    emit({"phase": "train_ddp", "config": "muvo.yml", "ranks": world,
+          "backend": [r["backend"] for r in ranks],
+          "devices": [r["device"] for r in ranks], "ranks_s": ranks_s,
+          "phase_s": time.perf_counter() - phase_t0,
+          "steps_vs_one_process": checks, "noise_factor": NOISE_FACTOR,
+          "main_step_ms": [r["train_ms"] for r in ranks],
+          "main_gap_ms": [r["gap_ms"] for r in ranks],
+          "main_peak_mib": [r["main_peak_mib"] for r in ranks],
+          "ckpt_save_s": [r["save_s"] for r in ranks],
+          "updates": [r["updates"] for r in ranks],
+          "state_sha256": [r["state_sha256"] for r in ranks],
+          "checkpoints": [p.name for p in ckpts], "world_size": recorded,
+          "logged_records": len(records), "launches": launches,
+          "launches_per_rank_step_predicted": per_step})
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    if set(r["backend"] for r in ranks) != {backend} or (
+            backend == "nccl"
+            and len({r["device"] for r in ranks}) != world):
+        raise AssertionError(f"{world} ranks on {torch.cuda.device_count()} "
+                             f"card(s) must use {backend}, a card each "
+                             f"where they have one")
+    if any(failures.values()):
+        raise AssertionError(f"the {world}-rank steps differ from one "
+                             f"process's: "
+                             f"{ {k: v[:5] for k, v in failures.items()} }")
+    if len({r["state_sha256"] for r in ranks}) != 1:
+        raise AssertionError("the ranks' parameters differ after train.main")
+    if [r["updates"] for r in ranks] != [DDP_STEPS // 2] * world:
+        raise AssertionError(f"updates {[r['updates'] for r in ranks]}")
+    if [p.name for p in ckpts] != [f"ckpt_{DDP_STEPS}.pt"] or (
+            recorded != world):
+        raise AssertionError(f"checkpoints {ckpts}, world_size {recorded}")
+    if [r["step"] for r in records if "train_loss" in r] != list(
+            range(1, DDP_STEPS + 1)):
+        raise AssertionError("rank 0 did not log each step once")
+    for kid in KERNEL_NAMES:
+        want = per_step[kid] * DDP_STEPS * world
+        got = launches.get(kid, {})
+        if got.get("bfloat16", 0) != want or set(got) - {"bfloat16"}:
+            raise AssertionError(f"{kid}: {got} launches under the ranks, "
+                                 f"predicted {want} bf16")
+    return launches
+
+
+def rl_batch(buffer, idx):
+    return {k: v[idx] for k, v in buffer.flatten().items()}
+
+
+def train_rl_phase(dev):
+    """The PPO expert at full width: XtMaCNN on the kinematic env's
+    15 x 192 x 192 birdview (fp32, TF32 off). One RL_STEPS-step rollout
+    with sampled actions; the deterministic forward on 16 of its frames
+    and one PPO update on RL_CHECK of them, card against host from the same
+    weights, within RL_TOL norm-relative (each output, each parameter
+    after the update); then PPO's train over the rollout, one epoch of
+    RL_BATCH minibatches. Prints the rollout's frames/s and the update
+    ms."""
+    import numpy as np
+
+    from muvo_tpu_torch.rl.policy import PpoPolicy
+    from muvo_tpu_torch.rl.ppo import PPO, RolloutBuffer
+    from muvo_tpu_torch.sim.kinematic_env import KinematicDrivingEnv
+    from muvo_tpu_torch.train_rl import rollout
+
+    phase_t0 = time.perf_counter()
+    torch.manual_seed(0)
+    host = PpoPolicy()
+    policy = copy.deepcopy(host).to(dev)
+    env = KinematicDrivingEnv(seed=0, episode_steps=300)
+    obs = env.reset()
+    buffer = RolloutBuffer(RL_STEPS, {"birdview": (15, 192, 192),
+                                      "state": (6,)})
+    generator = torch.Generator(device=dev).manual_seed(1)
+    state = {"last_done": 0.0, "ep_reward": 0.0, "episodes": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    obs = rollout(env, obs, policy, buffer, generator, dev, state)
+    torch.cuda.synchronize(dev)
+    rollout_s = time.perf_counter() - t0
+    buffer.compute_returns_and_advantage(np.zeros(1, np.float32),
+                                         np.array([state["last_done"]]))
+    check = rl_batch(buffer, np.arange(16))
+    with torch.no_grad():
+        got = policy(torch.from_numpy(check["obs_birdview"]).to(dev),
+                     torch.from_numpy(check["obs_state"]).to(dev),
+                     deterministic=True)
+        want = host(torch.from_numpy(check["obs_birdview"]),
+                    torch.from_numpy(check["obs_state"]),
+                    deterministic=True)
+    forward_rel = [norm_rel(g, w) for g, w in zip(got, want)]
+    mb = rl_batch(buffer, np.arange(RL_CHECK))
+    card_ppo = PPO(copy.deepcopy(policy), batch_size=RL_CHECK)
+    host_ppo = PPO(host, batch_size=RL_CHECK)
+    card_m = card_ppo.update(mb)
+    host_m = host_ppo.update(mb)
+    update_rel = {k: norm_rel(v, dict(host.named_parameters())[k])
+                  for k, v in card_ppo.policy.named_parameters()}
+    loss_rel = {k: abs(card_m[k].item() - v.item()) / max(abs(v.item()), 1)
+                for k, v in host_m.items()}
+    ppo = PPO(policy, batch_size=RL_BATCH, n_epochs=1)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    summary = ppo.train(buffer)
+    torch.cuda.synchronize(dev)
+    train_s = time.perf_counter() - t0
+    emit({"phase": "train_rl", "policy": "XtMaCNN beta",
+          "birdview": [15, 192, 192], "rollout_steps": RL_STEPS,
+          "rollout_s": rollout_s, "rollout_frames_per_s": RL_STEPS / rollout_s,
+          "episodes": len(state["episodes"]), "ppo_batch": RL_BATCH,
+          "updates": summary["n_updates"], "train_s": train_s,
+          "update_ms": train_s / max(summary["n_updates"], 1) * 1e3,
+          "peak_mib": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+          "forward_rel": forward_rel,
+          "update_max_rel": max(update_rel.values()),
+          "update_worst": max(update_rel, key=update_rel.get),
+          "update_loss_rel": max(loss_rel.values()), "tol": RL_TOL,
+          "phase_s": time.perf_counter() - phase_t0, "summary": summary})
+    if not max(forward_rel) <= RL_TOL:
+        raise AssertionError(f"policy forward card vs host: {forward_rel}")
+    if not (max(update_rel.values()) <= RL_TOL
+            and max(loss_rel.values()) <= RL_TOL):
+        raise AssertionError(f"PPO update card vs host: "
+                             f"{max(update_rel.values())}, {loss_rel}")
+    if summary["n_updates"] != RL_STEPS // RL_BATCH or not all(
+            math.isfinite(summary[k]) for k in ("loss", "kl")):
+        raise AssertionError(f"PPO train: {summary}")
+
+
 def measured_row(kid, dtype, results, backward, flash):
     """The row that the kernels line reports for ``kid`` in ``dtype``
     ("float32" or "bfloat16"): a voxel kernel at its MAIN_SHAPE stage (the
@@ -2847,6 +3255,7 @@ def main() -> int:
         paths["train_heads"] = train_heads_phase(dev, work)
         paths["train_lifting"] = train_lifting_phase(dev, work)
         paths["train_options"] = train_options_phase(dev, work, entry_gap_ms)
+        paths["train_ddp"] = train_ddp_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths["serving_mobilevit"] = serving_mobilevit_phase(dev)
@@ -2856,6 +3265,7 @@ def main() -> int:
     paths["training_large"], paths["training_large_split"] = (
         training_large_phase(dev))
     paths["microbench"] = microbench_phase()
+    train_rl_phase(dev)
 
     emit({"kernels": kernel_entries(paths, results, backward, flash)})
     print(nvidia_smi(), flush=True)

@@ -4,6 +4,7 @@ holds equal)."""
 import numpy as np
 
 CARLA_FPS = 10
+WHEEL_BASE = 2.8711279296875  # metres (the kinematic env's bicycle)
 
 # torchvision ImageNet statistics (the defaults of cfg.IMAGE.IMAGENET_*)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)

@@ -3,7 +3,10 @@
 Every loss upcasts its inputs to fp32 at first use, as muvo_tpu's do, so a
 bf16 model output feeds them directly. The data-dependent guards of
 upstream MUVO (an empty mask, SemScal's per-class count guards) are masked
-arithmetic with the same values, as in muvo_tpu.
+arithmetic with the same values, as in muvo_tpu. In a group of ranks
+the terms that are ratios of sums over the batch (the masked regressions,
+SemScal, GeoScal) take their sums over the global batch
+(parallel/mesh.py), so that every rank holds the one-process value.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from muvo_tpu_torch.parallel.mesh import global_sum, global_term
 
 _EPS = 1e-12
 
@@ -73,8 +78,9 @@ def spatial_regression_loss(prediction, target, norm: int = 1,
     diff = prediction.float() - target.float()
     loss = (diff.abs() if norm == 1 else diff ** 2).sum(-1, keepdim=True)
     mask = mask.expand(loss.shape)
-    denom = mask.sum().clamp_min(1)
-    return torch.where(mask, loss, torch.zeros_like(loss)).sum() / denom
+    total, count = global_sum(
+        torch.where(mask, loss, torch.zeros_like(loss)).sum(), mask.sum())
+    return global_term(total / count.clamp_min(1))
 
 
 def probabilistic_loss(prior_mu, prior_sigma, posterior_mu, posterior_sigma):
@@ -118,7 +124,10 @@ def _bce_vs_one(p):
 
 def _scal_terms(nominator, p_sum, target_sum, non_target_sum, spec_num):
     """SemScal's per-class precision, recall and specificity losses,
-    averaged over the classes present in the target."""
+    averaged over the classes present in the target, from the sums over
+    the global batch."""
+    nominator, p_sum, target_sum, non_target_sum, spec_num = global_sum(
+        nominator, p_sum, target_sum, non_target_sum, spec_num)
     precision = nominator / p_sum.clamp_min(_EPS)
     recall = nominator / target_sum.clamp_min(_EPS)
     specificity = spec_num / non_target_sum.clamp_min(_EPS)
@@ -129,7 +138,7 @@ def _scal_terms(nominator, p_sum, target_sum, non_target_sum, spec_num):
                                   _bce_vs_one(specificity), zero)
     present = target_sum > 0
     count = present.float().sum().clamp_min(1.0)
-    return torch.where(present, loss_c, zero).sum() / count
+    return global_term(torch.where(present, loss_c, zero).sum() / count)
 
 
 def sem_scal_loss(prediction, target, ignore_index: int = 255):
@@ -158,12 +167,22 @@ def geo_scal_loss(prediction, target, ignore_index: int = 255):
     nonempty = 1 - empty
     mask = (target != ignore_index).float()
     nonempty_target = ((target != 0) & (target != ignore_index)).float()
-    intersection = (nonempty_target * nonempty * mask).sum()
-    precision = intersection / (nonempty * mask).sum().clamp_min(_EPS)
-    recall = intersection / nonempty_target.sum().clamp_min(_EPS)
-    spec = ((mask - nonempty_target) * empty * mask).sum() / (
-        (mask - nonempty_target).sum().clamp_min(_EPS))
-    return _bce_vs_one(precision) + _bce_vs_one(recall) + _bce_vs_one(spec)
+    return _geo_terms(nonempty_target * nonempty * mask, nonempty * mask,
+                      nonempty_target, (mask - nonempty_target) * empty * mask,
+                      mask - nonempty_target)
+
+
+def _geo_terms(intersection, predicted, target, spec_num, spec_den):
+    """GeoScal's precision, recall and specificity losses from the sums
+    of its five maps over the global batch."""
+    intersection, predicted, target, spec_num, spec_den = global_sum(
+        intersection.sum(), predicted.sum(), target.sum(), spec_num.sum(),
+        spec_den.sum())
+    precision = intersection / predicted.clamp_min(_EPS)
+    recall = intersection / target.clamp_min(_EPS)
+    spec = spec_num / spec_den.clamp_min(_EPS)
+    return global_term(_bce_vs_one(precision) + _bce_vs_one(recall)
+                       + _bce_vs_one(spec))
 
 
 def voxel_losses_fused(logits, target, weights: Optional[torch.Tensor] = None,
@@ -204,12 +223,9 @@ def voxel_losses_fused(logits, target, weights: Optional[torch.Tensor] = None,
     p0 = torch.exp(lg[..., 0] - lse[..., 0])
     m2 = mask[..., 0]
     nonempty_target = ((target != 0) & (target != ignore_index)).float()
-    intersection = (nonempty_target * (1 - p0) * m2).sum()
-    g_precision = intersection / ((1 - p0) * m2).sum().clamp_min(_EPS)
-    g_recall = intersection / nonempty_target.sum().clamp_min(_EPS)
-    g_spec = ((m2 - nonempty_target) * p0 * m2).sum() / (
-        (m2 - nonempty_target).sum().clamp_min(_EPS))
-    geo = _bce_vs_one(g_precision) + _bce_vs_one(g_recall) + _bce_vs_one(g_spec)
+    geo = _geo_terms(nonempty_target * (1 - p0) * m2, (1 - p0) * m2,
+                     nonempty_target, (m2 - nonempty_target) * p0 * m2,
+                     m2 - nonempty_target)
     return seg, sem, geo
 
 

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from muvo_tpu_torch.parallel import mesh
+
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC / NDHWC -> NCHW / NCDHW view."""
@@ -55,6 +57,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if mesh.is_active():
+            return self._global_forward(x)
         if _frozen_stats:
             return F.batch_norm(x, None, None, self.weight, self.bias, True,
                                 0.0, self.eps)
@@ -72,6 +76,33 @@ class BatchNorm2d(nn.BatchNorm2d):
             added = var - keep * self.running_var
             self.running_var.mul_(keep).add_(added * ((n - 1) / max(n, 1)))
         return y
+
+    def _global_forward(self, x):
+        """Training in a group of ranks: the statistics of the global batch
+        (each rank's count, mean and sum of squared deviations, in fp32,
+        or float64 for float64 inputs, combined in float64 by
+        mesh.combine_moments), so the output and the running update are
+        one process's at the global batch. A recompute under frozen
+        statistics gathers them again, on every rank alike."""
+        dims = (0,) + tuple(range(2, x.ndim))
+        xs = x if x.dtype == torch.float64 else x.float()
+        c = xs.shape[1]
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        local = xs.mean(dims)
+        m2 = ((xs - local.view(shape)) ** 2).sum(dims)
+        count = xs.new_full((1,), xs.numel() // c)
+        rows = mesh.batch_stats_gather(torch.cat([count, local, m2]))
+        mean, var = mesh.combine_moments(rows[:, :1], rows[:, 1:c + 1],
+                                         rows[:, c + 1:])
+        mean, var = mean.to(xs.dtype), var.to(xs.dtype)
+        if not _frozen_stats:
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.mul_(keep).add_(self.momentum * mean)
+                self.running_var.mul_(keep).add_(self.momentum * var)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xs - mean.view(shape)) * scale.view(shape)
+        return (y + self.bias.view(shape)).to(x.dtype)
 
 
 class ConvBN(nn.Sequential):

@@ -23,6 +23,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from muvo_tpu_torch.parallel import mesh
+
 
 class MaskedBatchNorm1d(nn.BatchNorm1d):
     """BatchNorm over the valid points only: in training, mask-weighted
@@ -37,9 +39,8 @@ class MaskedBatchNorm1d(nn.BatchNorm1d):
         x32 = x.float()
         if self.training:
             m = mask[:, None].float()
-            cnt = m.sum().clamp_min(1.0)
-            mean = (x32 * m).sum(0) / cnt
-            var = ((x32 - mean) ** 2 * m).sum(0) / cnt
+            stats = self._global_stats if mesh.is_active() else self._stats
+            mean, var = stats(x32, m)
             with torch.no_grad():
                 keep = 1.0 - self.momentum
                 self.running_mean.mul_(keep).add_(self.momentum * mean)
@@ -48,6 +49,26 @@ class MaskedBatchNorm1d(nn.BatchNorm1d):
             mean, var = self.running_mean, self.running_var
         y = ((x32 - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
         return y * self.weight + self.bias
+
+    @staticmethod
+    def _stats(x32, m):
+        cnt = m.sum().clamp_min(1.0)
+        mean = (x32 * m).sum(0) / cnt
+        return mean, ((x32 - mean) ** 2 * m).sum(0) / cnt
+
+    @staticmethod
+    def _global_stats(x32, m):
+        """In a group of ranks: the valid points' mean and biased variance
+        over the global batch, from each rank's count, masked mean and sum
+        of squared deviations (mesh.combine_moments)."""
+        c = x32.shape[1]
+        count = m.sum().reshape(1)
+        local = (x32 * m).sum(0) / count.clamp_min(1.0)
+        m2 = ((x32 - local) ** 2 * m).sum(0)
+        rows = mesh.batch_stats_gather(torch.cat([count, local, m2]))
+        mean, var = mesh.combine_moments(rows[:, :1], rows[:, 1:c + 1],
+                                         rows[:, c + 1:])
+        return mean.to(x32.dtype), var.to(x32.dtype)
 
 
 class PointNet(nn.Module):

@@ -24,6 +24,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from muvo_tpu_torch.parallel import mesh
+
 
 class RepresentationModel(nn.Module):
     def __init__(self, in_channels: int, latent_dim: int,
@@ -46,8 +48,8 @@ def sample_from_distribution(mu, sigma, use_sample: bool,
                              generator: Optional[torch.Generator]):
     if not use_sample:
         return mu
-    noise = torch.randn(mu.shape, generator=generator, device=mu.device,
-                        dtype=mu.dtype)
+    # in a group of ranks, this rank's rows of the global batch's draw
+    noise = mesh.randn_slice(mu.shape, generator, mu.device, mu.dtype)
     return mu + sigma * noise
 
 

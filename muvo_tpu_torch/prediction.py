@@ -11,7 +11,11 @@ imagination metrics as JSON under ``test{i}`` and ``test{i}_imagine``.
     python -m muvo_tpu_torch.prediction --config-file muvo_tpu_torch/configs/muvo.yml \\
         DATASET.DATAROOT /path/to/carla_dataset PRETRAINED.PATH <run dir>/checkpoints
 
-It runs on the GPU unless ``main`` is given ``device="cpu"``.
+It runs on the GPU unless ``main`` is given ``device="cpu"``. Under
+``torchrun --nproc_per_node N -m muvo_tpu_torch.prediction ...`` each rank
+evaluates its slice of every batch (BATCHSIZE a multiple of N), the
+metrics are summed over the ranks, and rank 0 prints them; every rank
+returns them.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from muvo_tpu_torch.config import get_cfg, get_parser
 from muvo_tpu_torch.data.datamodule import make_test_samplers
 from muvo_tpu_torch.data.dataset import make_dataset
 from muvo_tpu_torch.data.loader import DataLoader
+from muvo_tpu_torch.parallel import mesh
 from muvo_tpu_torch.training.checkpoint import restore_pretrained
 from muvo_tpu_torch.training.evaluator import Evaluator
 from muvo_tpu_torch.training.trainer import WorldModelTrainer
@@ -30,8 +35,9 @@ from muvo_tpu_torch.training.trainer import WorldModelTrainer
 
 def main(argv=None, device=None) -> Dict[str, Dict[str, float]]:
     cfg = get_cfg(get_parser().parse_args(argv))
-    trainer = WorldModelTrainer(cfg, device=device)
-    print(f"device: {trainer.device}")
+    trainer = WorldModelTrainer(cfg, device=mesh.init_from_env(device))
+    say = print if mesh.rank() == 0 else (lambda *args: None)
+    say(f"device: {trainer.device}; ranks: {mesh.world_size()}")
 
     seq_len = cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON
     test_ds = make_dataset(cfg, "train", seq_len)
@@ -40,8 +46,8 @@ def main(argv=None, device=None) -> Dict[str, Dict[str, float]]:
     state = trainer.init_state()
     # the model and step alone: scoring needs no optimizer state
     if restore_pretrained(cfg.PRETRAINED.PATH, state, with_optimizer=False):
-        print(f"Restored checkpoint from {cfg.PRETRAINED.PATH} "
-              f"(step {state.step})")
+        say(f"Restored checkpoint from {cfg.PRETRAINED.PATH} "
+            f"(step {state.step})")
 
     evaluator = Evaluator(trainer)
     results = {}
@@ -54,10 +60,10 @@ def main(argv=None, device=None) -> Dict[str, Dict[str, float]]:
         recon, imagine = evaluator.run(loader)
         results[f"test{idx}"] = recon
         results[f"test{idx}_imagine"] = imagine
-        print(f"[test{idx}] recon: {recon}")
-        print(f"[test{idx}] imagine: {imagine}")
+        say(f"[test{idx}] recon: {recon}")
+        say(f"[test{idx}] imagine: {imagine}")
 
-    print(json.dumps(results, indent=2))
+    say(json.dumps(results, indent=2))
     return results
 
 

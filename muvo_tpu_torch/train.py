@@ -14,6 +14,16 @@ upstream MUVO Lightning checkpoint, or a port checkpoint) loads its weights
 alone. Each validation logs the panels of each val loader's first batch
 (training/visualise.py). It runs on the GPU unless ``main`` is given
 ``device="cpu"``.
+
+Data parallel, one process a rank (parallel/mesh.py):
+
+    torchrun --nproc_per_node N -m muvo_tpu_torch.train --config-file ... \\
+        BATCHSIZE <global batch, a multiple of N> [KEY VALUE ...]
+
+Each rank loads its slice of every global batch and runs on its card (or
+the one card they share, under gloo); the gradients, the BatchNorm
+statistics and the ratio loss terms are the global batch's. Rank 0 alone
+writes the logs, the panels and the checkpoints; every rank restores.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from muvo_tpu_torch.config import get_cfg, get_parser
 from muvo_tpu_torch.data.datamodule import make_val_samplers
 from muvo_tpu_torch.data.dataset import make_dataset
 from muvo_tpu_torch.data.loader import DataLoader, device_prefetch
+from muvo_tpu_torch.parallel import mesh
 from muvo_tpu_torch.training.checkpoint import (CheckpointManager,
                                                 restore_pretrained)
 from muvo_tpu_torch.training.logging import MetricsLogger, StepTimer
@@ -73,9 +84,16 @@ def _restore(cfg, state, ckpt: CheckpointManager) -> bool:
     return restore_pretrained(cfg.PRETRAINED.PATH, state)
 
 
+def _say(*args) -> None:
+    """print, on rank 0 only."""
+    if mesh.rank() == 0:
+        print(*args, flush=True)
+
+
 def _validate(cfg, trainer, val_loaders, logger, step: int) -> None:
     """LIMIT_VAL_BATCHES eval steps of each val loader: the sums of their
-    losses, and the panels of each loader's first batch."""
+    losses (the global batch's in a group of ranks), and the panels of
+    each loader's first batch (rank 0's slice)."""
     for vi, val_loader in val_loaders:
         val_metrics = {}
         with contextlib.closing(device_prefetch(iter(val_loader),
@@ -86,9 +104,10 @@ def _validate(cfg, trainer, val_loaders, logger, step: int) -> None:
                 generator = torch.Generator(
                     device=trainer.device).manual_seed(EVAL_SEED)
                 out = trainer.eval_step(vbatch, generator)
-                for k, v in out["losses"].items():
+                losses = mesh.mean_over_ranks(out["losses"])
+                for k, v in losses.items():
                     val_metrics[k] = val_metrics.get(k, 0) + float(v)
-                if i == 0:
+                if i == 0 and mesh.rank() == 0:
                     _log_panels(cfg, out, logger, step, f"val{vi}")
         logger.log(step, val_metrics, prefix=f"val{vi}")
 
@@ -111,12 +130,15 @@ def main(argv=None, device=None) -> TrainRun:
     # cap the arenas BEFORE any loader thread spawns
     cap_malloc_arenas(2)
 
-    run_name = (time.strftime("%d%B%Yat%H_%M_%S") + "_" + socket.gethostname()
-                + "_" + cfg.TAG.replace(" ", "_").replace(",", "")[:48])
+    device = mesh.init_from_env(device)
+    run_name = mesh.broadcast_object(
+        time.strftime("%d%B%Yat%H_%M_%S") + "_" + socket.gethostname()
+        + "_" + cfg.TAG.replace(" ", "_").replace(",", "")[:48])
     log_dir = os.path.join(cfg.LOG_DIR, run_name)
     trainer = WorldModelTrainer(cfg, device=device)
-    logger = MetricsLogger(log_dir)
-    print(f"Logging to {log_dir}; device: {trainer.device}")
+    logger = MetricsLogger(log_dir, write=mesh.rank() == 0)
+    _say(f"Logging to {log_dir}; device: {trainer.device}; "
+         f"ranks: {mesh.world_size()}")
 
     seq_len = cfg.RECEPTIVE_FIELD + cfg.FUTURE_HORIZON
     train_ds = make_dataset(cfg, "train", seq_len)
@@ -134,7 +156,7 @@ def main(argv=None, device=None) -> TrainRun:
         try:
             val_datasets.append(make_dataset(cfg, f"val{i}", seq_len))
         except Exception as e:
-            print(f"val{i} unavailable ({e}); skipping")
+            _say(f"val{i} unavailable ({e}); skipping")
             val_datasets.append(None)
     lengths = [len(ds) if ds is not None else 1 for ds in val_datasets]
     val_loaders = [
@@ -146,23 +168,25 @@ def main(argv=None, device=None) -> TrainRun:
 
     state = trainer.init_state()
     n_params = sum(p.numel() for p in state.model.parameters())
-    print(f"Model parameters: {n_params / 1e6:.2f}M")
+    _say(f"Model parameters: {n_params / 1e6:.2f}M")
 
     ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"))
     start_step = 0
     if _restore(cfg, state, ckpt):
         start_step = state.step
-        print(f"Resumed from step {start_step}")
+        _say(f"Resumed from step {start_step}")
 
     schedule = make_schedule(cfg)
-    # profiler window: trace steps [3, 3 + PROFILE_STEPS) once warm
-    profile_start = 3 if cfg.PROFILE_STEPS else -1
+    # profiler window: trace steps [3, 3 + PROFILE_STEPS) once warm, on
+    # rank 0
+    profile_start = 3 if cfg.PROFILE_STEPS and mesh.rank() == 0 else -1
     profile_stop = profile_start + cfg.PROFILE_STEPS
     profiler = None
 
     timer = StepTimer()
     step = start_step
-    frames_per_step = cfg.BATCHSIZE * seq_len
+    # each rank's frames: muvo_tpu divides by jax.device_count()
+    frames_per_step = cfg.BATCHSIZE * seq_len // mesh.world_size()
     # the (seed, epoch)-deterministic shuffle lets a restored run skip to
     # the exact batch it stopped at
     epoch = start_step // steps_per_epoch
@@ -205,8 +229,8 @@ def main(argv=None, device=None) -> TrainRun:
                         frames_per_step)
                     scalars["lr"] = float(schedule(step))
                     logger.log(step, scalars, prefix="train")
-                    print(f"step {step}: loss={scalars['loss']:.4f} "
-                          f"fps/chip={scalars['fps_per_chip']:.2f}")
+                    _say(f"step {step}: loss={scalars['loss']:.4f} "
+                         f"fps/chip={scalars['fps_per_chip']:.2f}")
 
                 if step % cfg.VAL_CHECK_INTERVAL == 0:
                     _validate(cfg, trainer, val_loaders, logger, step)
@@ -218,7 +242,7 @@ def main(argv=None, device=None) -> TrainRun:
         ckpt.save(step, state, cfg_dict=cfg.convert_to_dict())
     ckpt.wait()
     logger.close()
-    print(f"Training complete at step {step}.")
+    _say(f"Training complete at step {step}.")
     return TrainRun(log_dir, trainer, start_step, step)
 
 

@@ -7,7 +7,8 @@ the model's state_dict in the Lightning form that upstream MUVO writes
 (its keys are upstream's, BatchNorm buffers included), the optimizer's
 state (AdamW moments, the accumulation counts and accumulated gradients),
 and the number of train steps taken. A ``meta_<step>.json`` sidecar
-carries the git metadata and the config. ``load_torch_state_dict`` strips
+carries the git metadata, the world size of the run (its number of
+ranks, as muvo_tpu writes its device count) and the config. ``load_torch_state_dict`` strips
 the ``model.`` prefix, so an upstream MUVO ``.ckpt`` loads into the port's
 model directly, and a port checkpoint into muvo_tpu's
 ``load_reference_weights``.
@@ -23,6 +24,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import torch
+
+from muvo_tpu_torch.parallel import mesh
 
 _CKPT = re.compile(r"^ckpt_(\d+)\.pt$")
 PREFIX = "model."
@@ -75,7 +78,18 @@ class CheckpointManager:
 
     def save(self, step: int, state, cfg_dict: Optional[Dict] = None) -> str:
         """Writes step ``step`` of ``state`` (a TrainState), then drops the
-        oldest steps beyond ``max_to_keep``. Returns the file's path."""
+        oldest steps beyond ``max_to_keep``. Returns the file's path. In a
+        group of ranks every rank calls it, the accumulated gradients are
+        averaged over the ranks (so that the ranks hold the same state),
+        rank 0 alone writes, and all wait for the write."""
+        path = self.path(step)
+        state.optimizer.average_accumulated()
+        if mesh.rank() == 0:
+            self._write(step, state, cfg_dict)
+        mesh.barrier()
+        return path
+
+    def _write(self, step: int, state, cfg_dict: Optional[Dict]) -> None:
         payload = {
             "state_dict": {PREFIX + k: v.detach().cpu()
                            for k, v in state.model.state_dict().items()},
@@ -86,7 +100,8 @@ class CheckpointManager:
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)  # a cut save never leaves a readable half
-        sidecar = {"metadata": {**_git_metadata(), "world_size": 1}}
+        sidecar = {"metadata": {**_git_metadata(),
+                                "world_size": mesh.world_size()}}
         if cfg_dict is not None:
             sidecar["config"] = cfg_dict
         with open(os.path.join(self.directory, f"meta_{step}.json"), "w") as f:
@@ -96,7 +111,6 @@ class CheckpointManager:
             meta = os.path.join(self.directory, f"meta_{old}.json")
             if os.path.isfile(meta):
                 os.remove(meta)
-        return path
 
     def restore(self, step: Optional[int] = None, state=None,
                 with_optimizer: bool = True) -> Optional[Dict]:
@@ -104,6 +118,7 @@ class CheckpointManager:
         "metadata" and "config"; None if there is no checkpoint. Given a
         TrainState, loads the model (strictly), the optimizer (unless
         ``with_optimizer`` is False) and the step count into it."""
+        mesh.barrier()  # no rank reads before a save in flight is written
         step = step if step is not None else self.latest_step()
         if step is None:
             return None

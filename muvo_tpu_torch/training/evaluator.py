@@ -16,6 +16,12 @@ that of ``SeedSequence((7, i, s))`` for its imagination sample s
 N_SAMPLES, and each sample's draws do not move with the batches before it.
 Each generator draws its step's noise first, then the 10,000 LiDAR columns
 of that step's Chamfer distance, on the device.
+
+In a group of ranks each rank evaluates its slice of every batch with the
+same generators: the RSSM draws the global batch's noise and keeps its
+rows (parallel/mesh.py:randn_slice), the Chamfer columns are every rank's
+alike, and ``MetricSuite.compute`` sums the accumulators over the ranks,
+so the metrics are one process's on the same global batches.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from muvo_tpu_torch import metrics as M
 from muvo_tpu_torch.data.loader import device_prefetch
+from muvo_tpu_torch.parallel import mesh
 
 CLASS_NAMES_BEV = [
     "Background", "Road", "Lane marking", "Vehicle", "Pedestrian",
@@ -127,31 +134,47 @@ class MetricSuite:
                 cfg.VOXEL_SEG.N_CLASSES)
 
     def compute(self) -> Dict[str, float]:
+        """The metrics of everything added; in a group of ranks, of every
+        rank's batches (the accumulators summed over the ranks first, so
+        every rank must call it)."""
+        state = self.summed_state()
         cfg = self.cfg
         out: Dict[str, float] = {}
         if cfg.SEMANTIC_SEG.ENABLED:
-            scores = M.jaccard_compute(self.state["iou"]).cpu().numpy()
+            scores = M.jaccard_compute(state["iou"]).cpu().numpy()
             for name, val in zip(CLASS_NAMES_BEV, scores):
                 out[f"bev_iou_{name}"] = float(val)
             out["bev_mean_iou"] = float(scores.mean())
         if cfg.EVAL.RGB_SUPERVISION:
-            out["ssim"] = M.mean_compute(self.state["ssim"]).item()
-            out["psnr"] = M.mean_compute(self.state["psnr"]).item()
+            out["ssim"] = M.mean_compute(state["ssim"]).item()
+            out["psnr"] = M.mean_compute(state["psnr"]).item()
         if cfg.LIDAR_RE.ENABLED:
-            out["chamfer_distance"] = M.mean_compute(self.state["cd"]).item()
+            out["chamfer_distance"] = M.mean_compute(state["cd"]).item()
         if cfg.LIDAR_SEG.ENABLED:
-            scores = M.jaccard_compute(self.state["pcd_iou"]).cpu().numpy()
+            scores = M.jaccard_compute(state["pcd_iou"]).cpu().numpy()
             out["lidar_mean_iou"] = float(scores.mean())
         if cfg.SEMANTIC_IMAGE.ENABLED:
-            scores = M.jaccard_compute(self.state["image_iou"]).cpu().numpy()
+            scores = M.jaccard_compute(state["image_iou"]).cpu().numpy()
             out["camera_mean_iou"] = float(scores.mean())
         if cfg.VOXEL_SEG.ENABLED:
-            stats = M.ssc_compute(self.state["ssc"])
+            stats = M.ssc_compute(state["ssc"])
             out["voxel_precision"] = stats["precision"].item()
             out["voxel_recall"] = stats["recall"].item()
             out["voxel_iou"] = stats["iou"].item()
             out["voxel_iou_ssc_mean"] = stats["iou_ssc_mean"].item()
         return out
+
+    def summed_state(self) -> Dict:
+        """The accumulators (confusion matrices, SSC counts, the (sum,
+        count) means), each summed over the ranks of a group (a copy)."""
+        if not mesh.is_active():
+            return self.state
+        state = {k: ({n: t.clone() for n, t in v.items()}
+                     if isinstance(v, dict) else v.clone())
+                 for k, v in self.state.items()}
+        mesh.sum_over_ranks([t for v in state.values() for t in (
+            v.values() if isinstance(v, dict) else [v])])
+        return state
 
 
 class Evaluator:

@@ -20,8 +20,16 @@ from typing import Dict, Optional
 
 
 class MetricsLogger:
-    def __init__(self, log_dir: str):
+    """Scalars, images and videos of a run under ``log_dir``. With
+    ``write`` False (the ranks of a group other than rank 0) it writes
+    nothing."""
+
+    def __init__(self, log_dir: str, write: bool = True):
         self.log_dir = log_dir
+        self.write = write
+        self._jsonl = self._tb = None
+        if not write:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self.jsonl_path = os.path.join(log_dir, "metrics.jsonl")
         self._jsonl = open(self.jsonl_path, "a")
@@ -33,6 +41,8 @@ class MetricsLogger:
             self._tb = SummaryWriter(log_dir)
 
     def log(self, step: int, scalars: Dict[str, float], prefix: str = ""):
+        if not self.write:
+            return
         record = {"step": int(step)}
         for key, value in scalars.items():
             name = f"{prefix}_{key}" if prefix else key
@@ -45,6 +55,8 @@ class MetricsLogger:
 
     def log_image(self, step: int, name: str, image):
         """image: (H, W, 3) uint8."""
+        if not self.write:
+            return
         if self._tb is not None:
             self._tb.add_image(name, image, step, dataformats="HWC")
             return
@@ -58,6 +70,8 @@ class MetricsLogger:
 
     def log_video(self, step: int, name: str, frames, fps: int = 2):
         """frames: (T, H, W, 3) uint8."""
+        if not self.write:
+            return
         import numpy as np
 
         frames = np.asarray(frames)
@@ -72,6 +86,8 @@ class MetricsLogger:
                        np.concatenate(list(frames), axis=1))
 
     def close(self):
+        if not self.write:
+            return
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

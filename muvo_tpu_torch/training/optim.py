@@ -20,6 +20,8 @@ from typing import Callable, Dict, List
 import torch
 from torch import nn
 
+from muvo_tpu_torch.parallel import mesh
+
 
 def make_schedule(cfg) -> Callable[[int], float]:
     """The learning rate of optimizer update ``count`` (0, 1, ...)."""
@@ -86,7 +88,14 @@ class Optimizer:
     learning rate of the update count, which advances once per update.
     ``state_dict`` holds all of it, the accumulated gradients included
     (keyed by parameter name), so a run resumed between two updates goes
-    on as if it had not stopped."""
+    on as if it had not stopped.
+
+    In a group of ranks each rank accumulates its own gradients and the
+    applying call averages them over the ranks before AdamW
+    (parallel/mesh.py): one all-reduce an update, whatever
+    ACCUMULATE_GRAD_BATCHES is. The mean over micro-batches and the mean
+    over ranks commute, so the update is the one-process update at the
+    global batch."""
 
     def __init__(self, cfg, model: nn.Module):
         self.model = model
@@ -116,12 +125,20 @@ class Optimizer:
             for p in params:
                 p.grad = self.acc.pop(p, None)
             self.mini_step = 0
+        mesh.average_gradients(params)
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.updates)
         self.adamw.step()
         self.model.zero_grad(set_to_none=True)
         self.updates += 1
         return True
+
+    def average_accumulated(self) -> None:
+        """In a group of ranks, the accumulated gradients replaced by their
+        mean over the ranks, so that any rank's optimizer state is every
+        rank's (a checkpoint holds rank 0's). The applying call's mean is
+        the same either way."""
+        mesh.average_(list(self.acc.values()))
 
     def state_dict(self) -> Dict:
         """AdamW's state, the micro-batch and update counts, and the

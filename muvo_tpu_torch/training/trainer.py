@@ -22,6 +22,7 @@ from muvo_tpu_torch.device import resolve_device
 from muvo_tpu_torch.models.preprocess import PreProcess
 from muvo_tpu_torch.models.world_model import (MuvoWorldModel,
                                                imagine_inputs, last_state)
+from muvo_tpu_torch.parallel import mesh
 from muvo_tpu_torch.training.objectives import compute_loss, reduce_loss
 from muvo_tpu_torch.training.optim import Optimizer
 from muvo_tpu_torch.utils.precision import autocast, compute_dtype_from_cfg
@@ -31,8 +32,14 @@ def step_generator(device, step: int, seed: int = 42) -> torch.Generator:
     """The random stream of train step ``step``: a generator on ``device``
     seeded from (seed, step) alone, as muvo_tpu folds the step into one key
     (``fold_in(PRNGKey(42), step)``), so that a resumed run draws at each
-    step what an uninterrupted run draws there."""
-    entropy = np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)
+    step what an uninterrupted run draws there. In a group of ranks the
+    rank is folded in too, (seed, step, rank): each rank's slice of the
+    batch draws its own augmentation, dropout and noise (muvo_tpu draws
+    one key's values over the sharded global batch instead), and a
+    resumed run of the same world size draws what the uninterrupted one
+    draws."""
+    key = (seed, step, mesh.rank()) if mesh.is_active() else (seed, step)
+    entropy = np.random.SeedSequence(key).generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(entropy[0]))
 
 
@@ -91,15 +98,18 @@ class WorldModelTrainer:
         """Forward and backward of one training step without the update:
         ({"loss", every loss term} as device scalars, {parameter name:
         gradient}). ``stochastic=False`` runs without augmentation, dropout
-        or sampling noise, for checks."""
+        or sampling noise, for checks. In a group of ranks the losses are
+        the global batch's (their mean over the ranks) and the gradients
+        this rank's, before the optimizer averages them."""
         model = self.state.model.train()
         model.zero_grad(set_to_none=True)
         pb = self.preprocess(self.to_device(batch), training=stochastic,
                              generator=generator)
         total, losses, _ = self._loss(pb, True, generator, stochastic)
         total.backward()
-        metrics = {"loss": total.detach(),
-                   **{k: v.detach() for k, v in losses.items()}}
+        metrics = mesh.mean_over_ranks(
+            {"loss": total.detach(),
+             **{k: v.detach() for k, v in losses.items()}})
         return metrics, {n: p.grad for n, p in model.named_parameters()}
 
     def train_step(self, batch: Dict,

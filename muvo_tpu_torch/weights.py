@@ -1,4 +1,5 @@
-"""muvo_tpu parameters -> the port's state_dict (upstream MUVO's keys).
+"""muvo_tpu parameters -> the port's state_dict (upstream MUVO's keys; for
+the PPO expert, carla-roach's rl_birdview keys: ``ppo_state_dict_from_jax``).
 
 The inverse of muvo_tpu/training/weight_convert.py's
 convert_reference_state_dict, written against numpy only: conv kernels
@@ -416,3 +417,66 @@ def running_stats(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The BatchNorm running statistics of a state_dict."""
     return {k: v for k, v in sd.items()
             if k.endswith(("running_mean", "running_var"))}
+
+
+def flat_rows(kernel, flat_shape) -> np.ndarray:
+    """A Dense kernel whose leading C*H*W rows read NHWC-flattened features
+    (muvo_tpu's order (H, W, C)), as the Linear weight of NCHW-flattened
+    ones (the port's order (C, H, W)); the trailing rows keep theirs."""
+    c, h, w = flat_shape
+    k = np.asarray(kernel)
+    perm = np.arange(c * h * w).reshape(h, w, c).transpose(2, 0, 1).reshape(-1)
+    return np.concatenate([k[perm], k[c * h * w:]], axis=0).T
+
+
+def ppo_state_dict_from_jax(params, policy) -> Dict[str, torch.Tensor]:
+    """muvo_tpu PpoPolicy params (numpy-convertible) -> the state_dict of
+    the port's ``policy`` (rl/policy.py, built with the same feature
+    extractor, distribution and birdview shape), for
+    ``load_state_dict(strict=True)``. Keys are carla-roach's rl_birdview
+    names: ``features_extractor.{cnn.{0,2,..,10}, state_linear.0,
+    linear.{0,2}}`` for XtMaCNN (``stacks.{i}.firstconv``,
+    ``stacks.{i}.blocks.{n}.conv{0,1}``, ``dense`` for ImpalaCNN),
+    ``policy_head.{0,2}``, ``value_head.{0,2,4}``, ``dist_mu`` and
+    ``dist_sigma``."""
+    from muvo_tpu_torch.rl.networks import ImpalaCNN
+
+    p = params.get("params", params)
+    sd: Dict[str, np.ndarray] = {}
+    f, fx = p["features"], policy.features_extractor
+    pre = "features_extractor."
+    if isinstance(fx, ImpalaCNN):
+        for i in range(len(fx.stacks)):
+            conv_bias_entries(sd, f"{pre}stacks.{i}.firstconv.",
+                              f[f"Conv_{i}"])
+            for n in range(fx.nblock):
+                block = f[f"_ImpalaResBlock_{i * fx.nblock + n}"]
+                for j in range(2):
+                    conv_bias_entries(
+                        sd, f"{pre}stacks.{i}.blocks.{n}.conv{j}.",
+                        block[f"Conv_{j}"])
+        fused = [(f"{pre}dense.", f["Dense_1"])]
+    else:
+        for i in range(6):
+            conv_bias_entries(sd, f"{pre}cnn.{2 * i}.", f[f"Conv_{i}"])
+        fused = [(f"{pre}linear.0.", f["Dense_1"]),
+                 (f"{pre}linear.2.", f["Dense_2"])]
+    dense_entries(sd, f"{pre}state_linear.0.", f["Dense_0"])
+    (first, dense), *rest = fused
+    sd[first + "weight"] = flat_rows(dense["kernel"], fx.flat_shape)
+    sd[first + "bias"] = np.asarray(dense["bias"])
+    for prefix, dense in rest:
+        dense_entries(sd, prefix, dense)
+    for i in range(len(policy.policy_head) // 2):
+        dense_entries(sd, f"policy_head.{2 * i}.", p[f"pi_fc{i}"])
+    n_vf = len(policy.value_head) // 2
+    for i in range(n_vf):
+        dense_entries(sd, f"value_head.{2 * i}.", p[f"vf_fc{i}"])
+    dense_entries(sd, f"value_head.{2 * n_vf}.", p["vf_out"])
+    if policy.distribution == "beta":
+        dense_entries(sd, "dist_mu.0.", p["dist_alpha"])
+        dense_entries(sd, "dist_sigma.0.", p["dist_beta"])
+    else:
+        dense_entries(sd, "dist_mu.", p["dist_mu"])
+        sd["dist_sigma"] = np.asarray(p["log_std"])
+    return to_tensors(sd)

@@ -63,7 +63,45 @@ def test_get_cfg_equals_muvo_tpu(config_file):
         jax_config.get_cfg().convert_to_dict())
 
 
-@pytest.mark.parametrize("name", ["CARLA_FPS", "SEMANTIC_SEG_WEIGHTS",
+_IMPORT_NEW = """
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "muvo_tpu"))
+print(leaked)
+sys.exit(1 if leaked else 0)
+"""
+
+# the data-parallel and PPO modules, and the sim/ copies they run on
+NEW_MODULES = ("muvo_tpu_torch.parallel.mesh", "muvo_tpu_torch.rl.agent",
+               "muvo_tpu_torch.rl.distributions",
+               "muvo_tpu_torch.rl.networks", "muvo_tpu_torch.rl.policy",
+               "muvo_tpu_torch.rl.ppo", "muvo_tpu_torch.train_rl",
+               "muvo_tpu_torch.sim.reward",
+               "muvo_tpu_torch.sim.kinematic_env")
+
+
+def test_parallel_rl_and_sim_modules_load_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_NEW, *NEW_MODULES],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_kinematic_env_is_muvo_tpus_but_for_its_imports():
+    got = (ROOT / "muvo_tpu_torch/sim/kinematic_env.py").read_text()
+    want = (ROOT / "muvo_tpu/sim/kinematic_env.py").read_text().replace(
+        "from muvo_tpu.constants import", "from muvo_tpu_torch.constants import"
+    ).replace("from muvo_tpu.sim.reward import",
+              "from muvo_tpu_torch.sim.reward import")
+    assert got == want
+
+
+@pytest.mark.parametrize("name", ["CARLA_FPS", "WHEEL_BASE",
+                                  "SEMANTIC_SEG_WEIGHTS",
                                   "VOXEL_SEG_WEIGHTS",
                                   "EGO_VEHICLE_DIMENSION",
                                   "BIRDVIEW_COLOURS", "VOXEL_COLOURS"])
@@ -85,6 +123,7 @@ def test_label_remap_table_equals_muvo_tpus():
     ("muvo_tpu_torch/native/range_view.cpp", "muvo_tpu/native/range_view.cpp"),
     ("muvo_tpu_torch/utils/hostmem.py", "muvo_tpu/utils/hostmem.py"),
     ("muvo_tpu_torch/geometry/icp.py", "muvo_tpu/geometry/icp.py"),
+    ("muvo_tpu_torch/sim/reward.py", "muvo_tpu/sim/reward.py"),
 ])
 def test_host_sources_are_muvo_tpus(copy, original):
     assert (ROOT / copy).read_bytes() == (ROOT / original).read_bytes()
