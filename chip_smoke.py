@@ -168,10 +168,28 @@ exits nonzero (there is no CPU fallback):
    world_size 2, bf16 K1, K2, K1-dx, K2-dx, K3 and K3-up launched as
    predicted on each rank (the path train_ddp of the kernels line).
    Each rank's step ms and peak MiB, the all-reduce ms.
-20. train_rl (last): the PPO expert (XtMaCNN, beta) on the kinematic
+20. train_rl: the PPO expert (XtMaCNN, beta) on the kinematic
    env's 15 x 192 x 192 birdview, fp32: one 512-step rollout, the
    deterministic forward and one update card against host within 1e-5,
    then one epoch of 256-sample minibatches. Rollout frames/s, update ms.
+21. pipeline (last): collect -> voxelise -> train -> drive at muvo.yml's
+   full width through the port's entry points, on the kinematic env
+   (600 x 960 RGB and depth, 60,000 LiDAR points, a 192 x 192 birdview):
+   (a) the untrained expert on the card records a 26-frame train and a
+   23-frame val0 episode with ``data_collect.run_episode`` and the port's
+   DataWriter, each asserted valid (frames/s, the writer's save s); (b)
+   ``tools.generate_voxels.process_run`` at 192x192x64, one frame's rows
+   equal to the plain numpy functions run inline (s a frame); (c)
+   ``train.main`` on the drive, muvo.yml as users run it (batch 1, bf16,
+   remat off), 4 steps with one validation and one checkpoint: losses
+   finite, bf16 K1, K2, K1-dx, K2-dx, K3 and K3-up as predicted (the
+   path pipeline_train); (d) ``evaluate.build_agent`` on that checkpoint
+   and ``evaluate.run_episode`` for 30 ticks observed and 30 dreaming,
+   each tick's fp32 K1 and K2 as predicted for its one decode, K4 not,
+   controls finite and in range (the path closed_loop), then 10 ticks
+   under torch.profiler (the device's idle share) and the last tick's
+   decode card against host within 1e-3. Tick ms (median, p90), the
+   agent's host ms (``_obs_to_frame``) and the rest, peak MiB.
 
 Each main path's launch counts are set to 0 just before it runs and read
 just after; each wrapper counts its launches by the tensors' type. The
@@ -3155,6 +3173,335 @@ def train_rl_phase(dev):
         raise AssertionError(f"PPO train: {summary}")
 
 
+PIPELINE_SEED = 0  # the collection env's seed (the drive's is +1)
+# frames a split: 10 for FILTER_BEGINNING_OF_RUN_SEC 1.0, then 6-frame
+# sequences at stride 2: 4 (train) and 1 (val0) after the filter
+PIPELINE_FRAMES = {"train": 26, "val0": 23}
+PIPELINE_STEPS = 4  # train.main steps on the collected drive, validating
+                    # and saving at the last
+DRIVE_TICKS = 30    # closed-loop ticks observed, and as many dreaming
+PROFILED_TICKS = 10  # observed ticks under torch.profiler: the idle share
+LIDAR_POINTS = 60000  # a frame's LiDAR points, as train_entry's drive
+
+
+def busy_ms(prof) -> float:
+    """The union of the device's kernel and copy intervals in a
+    torch.profiler run, in ms; raises if it recorded none."""
+    intervals = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.time_range.end > e.time_range.start)
+    if not intervals:
+        raise AssertionError("the profiler recorded no device activity")
+    busy, end = 0.0, float("-inf")
+    for s, e in intervals:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e3
+
+
+def kinematic_env(cfg, seed: int, episode_steps: int):
+    """The CARLA-free env at muvo.yml's sizes: the camera's 600 x 960 RGB
+    and depth, the 192 x 192 birdview, LIDAR_POINTS points a frame."""
+    from muvo_tpu_torch.sim.kinematic_env import KinematicDrivingEnv
+
+    return KinematicDrivingEnv(seed=seed, episode_steps=episode_steps,
+                               image_hw=tuple(cfg.IMAGE.SIZE),
+                               bev_hw=(192, 192), lidar_points=LIDAR_POINTS)
+
+
+def collect_drive(dev, cfg, data: Path):
+    """(a) The untrained PPO expert (seeded, deterministic, on the card)
+    drives the kinematic env through ``data_collect.run_episode`` into the
+    port's DataWriter, one episode a split of PIPELINE_FRAMES. The
+    expert brakes gently and stands still, so each episode is valid (no
+    route deviation, not blocked within 100 steps) and its mean reward
+    near 0, under muvo.yml's FILTER_NORM_REWARD (0.6)."""
+    from muvo_tpu_torch import data_collect
+    from muvo_tpu_torch.rl.agent import RlBirdviewAgent
+    from muvo_tpu_torch.sim.data_writer import DataWriter
+
+    expert = RlBirdviewAgent(device=dev)
+    out = {}
+    for split, frames in PIPELINE_FRAMES.items():
+        run = data / "trainval" / split / "Town01" / "0000"
+        writer = DataWriter(str(run), "hero", run_info={"town": "Town01"})
+        save = writer.save_files
+        saved = []
+
+        def timed_save():
+            t0 = time.perf_counter()
+            save()
+            saved.append(time.perf_counter() - t0)
+
+        writer.save_files = timed_save
+        t0 = time.perf_counter()
+        valid, _, reward = data_collect.run_episode(
+            kinematic_env(cfg, PIPELINE_SEED, 300), expert, writer, frames)
+        seconds = time.perf_counter() - t0
+        if not (valid and saved):
+            raise AssertionError(f"the {split} episode is not valid")
+        out[split] = {"run": run, "frames": frames, "seconds": seconds,
+                      "save_s": saved[0], "frames_per_s": frames / seconds,
+                      "mean_reward": reward / frames}
+    return out
+
+
+def voxelise_drive(cfg, runs):
+    """(b) ``tools.generate_voxels.process_run`` at VOXEL.SIZE on each
+    run, then the first train frame's rows against the plain numpy
+    functions run inline on its files: equal."""
+    import numpy as np
+    import pandas as pd
+    from PIL import Image
+
+    from muvo_tpu_torch.data_collect import load_obs_configs
+    from muvo_tpu_torch.geometry import voxel
+    from muvo_tpu_torch.tools import generate_voxels as gv
+
+    fov = load_obs_configs()["hero"]["depth_semantic"]["fov"]
+    args = dict(fov=fov, resolution=cfg.VOXEL.RESOLUTION,
+                size=list(cfg.VOXEL.SIZE),
+                offset=gv.voxel_offset_from_cfg(cfg.VOXEL), workers=1)
+    seconds = {}
+    for split, r in runs.items():
+        t0 = time.perf_counter()
+        gv.process_run(str(r["run"]), **args)
+        seconds[split] = (time.perf_counter() - t0) / r["frames"]
+    run = runs["train"]["run"]
+    row = pd.read_pickle(run / "pd_dataframe.pkl").iloc[0]
+    img = np.asarray(Image.open(run / row["depth_semantic_path"]))
+    pcd, sem = voxel.depth_to_pcd(voxel.decode_depth(img[..., :3]),
+                                  img[..., -1], fov)
+    lidar = np.load(run / row["points_semantic_path"],
+                    allow_pickle=True).item()
+    pcd, sem = voxel.merge_point_clouds(
+        voxel.convert_coor_img(pcd, gv.CAMERA_POS), sem,
+        voxel.convert_coor_lidar(lidar["points_xyz"].astype(np.float64),
+                                 gv.LIDAR_POS), lidar["ObjTag"])
+    coords, vsem = voxel.voxel_filter(pcd, sem, args["resolution"],
+                                      args["size"], args["offset"])
+    want = np.concatenate([coords.astype(np.uint16),
+                           vsem[:, None].astype(np.uint16)], axis=1)
+    got = np.load(run / row["voxel_path"])
+    if not (got.dtype == want.dtype and np.array_equal(got, want)
+            and len(got)):
+        raise AssertionError(f"voxel rows {got.shape} differ from the "
+                             f"inline run's {want.shape}")
+    return {"s_per_frame": seconds, "rows_frame0": len(got)}
+
+
+def train_on_drive(dev, cfg, data: Path, work: Path):
+    """(c) ``train.main`` on the collected drive, muvo.yml as users run it
+    (batch 1, ACCUMULATE_GRAD_BATCHES 16, bf16, remat off) but for the
+    data root, the reward filter (the untrained expert's drive), the log
+    dir and the run's length: PIPELINE_STEPS steps, one validation and one
+    checkpoint at the last. Every logged loss finite; bf16 K1, K2, K1-dx,
+    K2-dx, K3 and K3-up as predicted over the training and the validation
+    steps. Returns the launches by type, the checkpoint directory and the
+    readings."""
+    from muvo_tpu_torch.train import main as train_main
+    from muvo_tpu_torch.training.flagship import MUVO_YML
+
+    argv = ["--config-file", str(MUVO_YML), "DATASET.DATAROOT", str(data),
+            "DATASET.FILTER_NORM_REWARD", "-1.0",
+            "LOG_DIR", str(work / "pipeline_logs"),
+            "STEPS", str(PIPELINE_STEPS), "LOGGING_INTERVAL", "1",
+            "VAL_CHECK_INTERVAL", str(PIPELINE_STEPS),
+            "LIMIT_VAL_BATCHES", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    with instrumented_train_loop(dev) as rec:
+        t0 = time.perf_counter()
+        run = train_main(argv, device=dev)
+        run_s = time.perf_counter() - t0
+    typed = read_typed_launches()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    records = logged_losses(run.log_dir)
+    ckpts = Path(run.log_dir) / "checkpoints"
+    n_train, n_val = len(rec["train_ms"]), len(rec["eval_ms"])
+    del run
+    val = rec["val_launches"]
+    train = {kid: {t: n - val.get(kid, {}).get(t, 0) for t, n in types.items()
+                   if n - val.get(kid, {}).get(t, 0)}
+             for kid, types in typed.items()}
+    per_step, per_eval = predicted_launches(cfg), predicted_eval_launches(cfg)
+    if (n_train, n_val) != (PIPELINE_STEPS, 1) or not any(
+            "train_loss" in r for r in records):
+        raise AssertionError(f"{n_train} train and {n_val} eval steps, "
+                             f"{len(records)} logged records")
+    if [p.name for p in ckpts.glob("ckpt_*.pt")] != [
+            f"ckpt_{PIPELINE_STEPS}.pt"]:
+        raise AssertionError(f"checkpoints: {sorted(ckpts.iterdir())}")
+    for kid in KERNEL_NAMES:
+        for what, counts, want in (
+                ("training", train, per_step[kid] * n_train),
+                ("validation", val, per_eval[kid] * n_val)):
+            got = counts.get(kid, {})
+            if got.get("bfloat16", 0) != want or set(got) - {"bfloat16"}:
+                raise AssertionError(f"{kid}: {got} launches in the "
+                                     f"{what} steps, predicted {want} bf16")
+    return typed, ckpts, {
+        "run_s": run_s, "step_ms": rec["train_ms"],
+        "step_ms_median": statistics.median(rec["train_ms"][1:]),
+        "host_gap_ms": rec["gap_ms"], "eval_ms": rec["eval_ms"],
+        "ckpt_save_s": rec["save_s"], "ckpt_mib": rec.get("ckpt_mib"),
+        "peak_mib": peak_mib, "logged_records": len(records),
+        "launches_train_by_type": train, "launches_val_by_type": val,
+        "launches_per_step_predicted": per_step,
+        "launches_per_eval_predicted": per_eval}
+
+
+def drive_agent(agent, cfg, ticks: int, want, seed: int):
+    """``evaluate.run_episode`` on fresh kinematic envs of ``ticks`` steps
+    until ``ticks`` ticks have run (an episode may end early on a route
+    deviation). Every control finite and in range, every tick's launches
+    ``want``. Returns each tick's ms and host ms (``_obs_to_frame``) and
+    the episodes' statistics."""
+    from muvo_tpu_torch import evaluate
+
+    rec = {"tick_ms": [], "host_ms": [], "bad": []}
+    frame, step = agent._obs_to_frame, agent.run_step
+
+    def timed_frame(obs):
+        t0 = time.perf_counter()
+        out = frame(obs)
+        rec["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def checked_step(obs, timestamp=None):
+        before = read_launches()
+        t0 = time.perf_counter()
+        control = step(obs, timestamp)  # .item() waits for the device
+        rec["tick_ms"].append((time.perf_counter() - t0) * 1e3)
+        launched = {k: v - before[k] for k, v in read_launches().items()
+                    if v - before[k]}
+        values = [control[k] for k in ("throttle", "steer", "brake")]
+        if (launched != want or not all(map(math.isfinite, values))
+                or not (0 <= values[0] <= 1 and -1 <= values[1] <= 1
+                        and 0 <= values[2] <= 1)):
+            rec["bad"].append((len(rec["tick_ms"]), launched, control))
+        return control
+
+    agent._obs_to_frame, agent.run_step = timed_frame, checked_step
+    episodes = []
+    try:
+        while len(rec["tick_ms"]) < ticks:
+            stat, _ = evaluate.run_episode(
+                kinematic_env(cfg, seed + len(episodes), ticks), agent,
+                ticks - len(rec["tick_ms"]))
+            episodes.append(stat)
+    finally:
+        del agent._obs_to_frame, agent.run_step
+    if rec["bad"]:
+        raise AssertionError(f"ticks off the prediction {want} or out of "
+                             f"range: {rec['bad'][:3]}")
+    return rec, episodes
+
+
+def closed_loop(dev, cfg, ckpts: Path):
+    """(d) ``evaluate.build_agent`` on the checkpoint, fp32 on the card:
+    DRIVE_TICKS ticks observed, then as many dreaming, each decoding the
+    192x192x64 voxels once (fp32 K1 and K2 as
+    predicted_fp32_decode_launches gives, no other kernel), then
+    PROFILED_TICKS observed ticks under torch.profiler for the device's
+    idle share, then the last tick's decode on the card against the
+    port's host run of the same weights and carry within DECODE_TOL.
+    Returns the launches by type and the readings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from muvo_tpu_torch import evaluate
+
+    t0 = time.perf_counter()
+    agent = evaluate.build_agent(cfg, str(ckpts), is_dreaming=False,
+                                 device=dev)
+    build_s = time.perf_counter() - t0
+    want = {k: n for k, n in predicted_fp32_decode_launches(cfg, dev).items()
+            if n}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    runs = {}
+    for label, dreaming in (("observed", False), ("dreaming", True)):
+        agent.is_dreaming = dreaming
+        rec, episodes = drive_agent(agent, cfg, DRIVE_TICKS, want,
+                                    PIPELINE_SEED + 1)
+        rest = [t - h for t, h in zip(rec["tick_ms"], rec["host_ms"])]
+        runs[label] = {
+            "ticks": len(rec["tick_ms"]), "episodes": episodes,
+            "tick_ms_median": statistics.median(rec["tick_ms"][1:]),
+            "tick_ms_mean": statistics.fmean(rec["tick_ms"][1:]),
+            "tick_ms_p90": statistics.quantiles(rec["tick_ms"][1:],
+                                                n=10)[-1],
+            "host_ms_median": statistics.median(rec["host_ms"][1:]),
+            "rest_ms_median": statistics.median(rest[1:]),
+            "first_tick_ms": rec["tick_ms"][0]}
+    agent.is_dreaming = False
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        rec, _ = drive_agent(agent, cfg, PROFILED_TICKS, want,
+                             PIPELINE_SEED + 1)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    typed = read_typed_launches()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    busy = busy_ms(prof)
+    tick_ms = sum(rec["tick_ms"])
+    launches = read_launches()
+    host_model = copy.deepcopy(agent.session.model).cpu()
+    decode_err, host_s = decode_vs_host(agent.session, host_model, cfg)
+    if launches["K4"] or set(typed) != set(want) or any(
+            set(t) != {"float32"} for t in typed.values()):
+        raise AssertionError(f"the drive launched {typed}, predicted fp32 "
+                             f"{want} a tick only")
+    return typed, {
+        "build_agent_s": build_s, "runs": runs,
+        "launches_per_tick": want, "peak_mib": peak_mib,
+        "profiled_ticks": PROFILED_TICKS,
+        "profiled_tick_ms_median": statistics.median(rec["tick_ms"]),
+        "profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+        "device_idle_share_of_wall": 1.0 - busy / wall_ms,
+        "device_idle_share_of_ticks": 1.0 - busy / tick_ms,
+        # the profiler stretches the host's share of a tick, not the
+        # device's busy time: the same busy ms over the unprofiled
+        # observed ticks' mean
+        "device_idle_share_of_unprofiled_ticks": 1.0 - busy / (
+            PROFILED_TICKS * runs["observed"]["tick_ms_mean"]),
+        "decode_vs_host": decode_err, "decode_tol": DECODE_TOL,
+        "host_decode_s": host_s}
+
+
+def pipeline_phase(dev, work: Path):
+    """Collect -> voxelise -> train -> drive at muvo.yml's full width, in
+    ``work``, through the port's entry points: (a) collect_drive, (b)
+    voxelise_drive, (c) train_on_drive, (d) closed_loop. Returns the
+    launches by type of (c)'s training and validation and of (d)'s
+    drive."""
+    cfg = muvo_cfg()
+    data = work / "pipeline"
+    phase_t0 = time.perf_counter()
+    collected = collect_drive(dev, cfg, data)
+    voxels = voxelise_drive(cfg, collected)
+    train_typed, ckpts, trained = train_on_drive(dev, cfg, data, work)
+    drive_typed, drove = closed_loop(dev, cfg, ckpts)
+    emit({"phase": "pipeline", "config": "muvo.yml",
+          "image": list(cfg.IMAGE.SIZE), "lidar_points": LIDAR_POINTS,
+          "voxel": list(cfg.VOXEL.SIZE), "env_seed": PIPELINE_SEED,
+          "collect": {split: {k: v for k, v in r.items() if k != "run"}
+                      for split, r in collected.items()},
+          "voxelise": voxels, "train": trained, "drive": drove,
+          "phase_s": time.perf_counter() - phase_t0})
+    worst = max(drove["decode_vs_host"].values())
+    if not worst <= DECODE_TOL:
+        raise AssertionError(f"the agent's decode differs from the host's: "
+                             f"{worst}")
+    return train_typed, drive_typed
+
+
 def measured_row(kid, dtype, results, backward, flash):
     """The row that the kernels line reports for ``kid`` in ``dtype``
     ("float32" or "bfloat16"): a voxel kernel at its MAIN_SHAPE stage (the
@@ -3266,6 +3613,12 @@ def main() -> int:
         training_large_phase(dev))
     paths["microbench"] = microbench_phase()
     train_rl_phase(dev)
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        paths["pipeline_train"], paths["closed_loop"] = pipeline_phase(
+            dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     emit({"kernels": kernel_entries(paths, results, backward, flash)})
     print(nvidia_smi(), flush=True)

@@ -72,3 +72,21 @@ def preprocess_birdview_and_routemap(birdview: np.ndarray):
 def calculate_instance_mask(semantics: np.ndarray, vehicle_idx: int,
                             pedestrian_idx: int) -> np.ndarray:
     return ((semantics == vehicle_idx) | (semantics == pedestrian_idx)).astype(bool)
+
+
+def preprocess_measurements(route_command, ego_gps, target_gps, imu):
+    """Route command id + GPS vector toward the next target, in the ego frame.
+
+    (reference: muvo/data/dataset_utils.py:62-80)
+    """
+    from muvo_tpu_torch.sim.agents import gps_to_location, vec_global_to_ref
+
+    route_command = np.array(route_command, copy=True)
+    route_command[route_command < 0] = 4
+    route_command = np.int64(np.ravel(route_command)[0]) - 1
+
+    compass = 0.0 if np.isnan(imu[-1]) else imu[-1]
+    target_vec = gps_to_location(target_gps) - gps_to_location(ego_gps)
+    loc_in_ev = vec_global_to_ref(target_vec, np.rad2deg(compass) - 90.0)
+    gps_vector = np.array([loc_in_ev[0], loc_in_ev[1]], dtype=np.float32)
+    return route_command, gps_vector

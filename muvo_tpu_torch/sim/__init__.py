@@ -1,3 +1,5 @@
-"""Own copies of muvo_tpu/sim/'s numpy-only modules: the shaped reward
-and the CARLA-free kinematic driving env (tests/test_torch_isolation.py
-holds them equal to the originals)."""
+"""Own copies of muvo_tpu/sim/: the shaped reward, the CARLA-free
+kinematic driving env, the CARLA gym envs and their handlers, observation
+managers and scenario descriptions, the route planner and scripted
+agents, and the episode recorder (tests/test_torch_isolation.py holds
+each to its original)."""

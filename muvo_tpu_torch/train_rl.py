@@ -7,9 +7,10 @@ trained with the port's PPO on the CARLA-free kinematic env.
 Each iteration rolls the policy out for --n-steps env steps (actions
 sampled from a generator seeded by --seed + 1), computes GAE, runs PPO's
 epochs, and prints one JSON line; the policy's state_dict is saved to
---out at the end. ``--env carla`` needs the port's own sim/ (the CARLA
-envs), which it does not have yet. It runs on the GPU unless ``main`` is
-given ``device="cpu"``.
+--out at the end. ``--env carla`` trains on the port's CARLA EndlessEnv
+(``--carla-map``, ``--host``, ``--port``), which needs a running CARLA
+server and the carla package. It runs on the GPU unless ``main`` is given
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--env", default="kinematic",
                     choices=["kinematic", "carla"])
+    ap.add_argument("--carla-map", default="Town01")
+    ap.add_argument("--host", default="localhost")
+    ap.add_argument("--port", type=int, default=2000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--episode-steps", type=int, default=300)
     ap.add_argument("--total-timesteps", type=int, default=20000)
@@ -43,14 +47,27 @@ def parser() -> argparse.ArgumentParser:
 
 
 def make_env(args):
-    if args.env != "kinematic":
-        raise NotImplementedError(
-            "--env carla needs the CARLA envs (muvo_tpu/sim/envs.py), which "
-            "the port has no copy of yet; use --env kinematic")
-    from muvo_tpu_torch.sim.kinematic_env import KinematicDrivingEnv
+    if args.env == "kinematic":
+        from muvo_tpu_torch.sim.kinematic_env import KinematicDrivingEnv
 
-    return KinematicDrivingEnv(seed=args.seed,
-                               episode_steps=args.episode_steps)
+        return KinematicDrivingEnv(seed=args.seed,
+                                   episode_steps=args.episode_steps)
+    from muvo_tpu_torch.sim.envs import EndlessEnv
+
+    obs_configs = {"hero": {
+        "birdview": {"module": "birdview.chauffeurnet"},
+        "speed": {"module": "actor_state.speed"},
+        "control": {"module": "actor_state.control"},
+        "velocity": {"module": "actor_state.velocity"},
+    }}
+    reward_configs = {"hero": {
+        "entry_point": "muvo_tpu_torch.sim.reward:ValeoActionReward"}}
+    terminal_configs = {"hero": {
+        "entry_point": "muvo_tpu_torch.sim.reward:ValeoTerminal"}}
+    return EndlessEnv(args.carla_map, args.host, args.port, args.seed,
+                      no_rendering=True, obs_configs=obs_configs,
+                      reward_configs=reward_configs,
+                      terminal_configs=terminal_configs)
 
 
 def rollout(env, obs, policy, buffer, generator, device, state: Dict):

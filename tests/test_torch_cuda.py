@@ -1199,3 +1199,55 @@ def test_triplane_decoder_on_card_matches_host(dev):
                              for p in planes))
     for key, w in want.items():
         assert _norm_rel(got[key].cpu(), w) <= 1e-5, key
+
+
+def test_agent_tick_on_card_matches_host(dev):
+    """The closed-loop agent (agents/muvo_agent.py) at tiny_test_cfg in
+    fp32 with one transformer layer: the same weights on the card and on
+    the host, both fed the host's observations (the kinematic env stepped
+    with the host agent's controls) for 4 ticks, observed then dreaming.
+    Each tick decodes once: conv2 and conv3 of the 64^3 voxel decoder
+    launch fp32 K2 and K1 once each on the card. The controls, and the
+    last tick's decode of the card's latent on both sides, within 1e-3 of
+    max(1, max |host|), chip_smoke.py's DECODE_TOL."""
+    import copy
+
+    from muvo_tpu_torch.agents.muvo_agent import MuvoAgent
+    from muvo_tpu_torch.data.synthetic import tiny_test_cfg
+    from muvo_tpu_torch.inference import LatentCarry
+    from muvo_tpu_torch.models.world_model import MuvoWorldModel
+    from muvo_tpu_torch.sim.kinematic_env import KinematicDrivingEnv
+
+    cfg = tiny_test_cfg()
+    cfg.PRECISION = "32"
+    cfg.MODEL.TRANSFORMER.N_LAYERS = 1
+    torch.manual_seed(0)
+    model = MuvoWorldModel(cfg)
+    host = MuvoAgent(cfg, copy.deepcopy(model), device="cpu")
+    card = MuvoAgent(cfg, model, device=dev)
+    for dreaming in (False, True):
+        env = KinematicDrivingEnv(seed=4, episode_steps=10, image_hw=(96, 160))
+        obs = env.reset()
+        host.reset()
+        card.reset()
+        host.is_dreaming = card.is_dreaming = dreaming
+        for tick in range(4):
+            n = (zconv.zconv3d_leaky.launches, zconv.upzconv3d_leaky.launches)
+            got = card.run_step(obs["hero"])
+            torch.cuda.synchronize()
+            assert (zconv.zconv3d_leaky.launches - n[0],
+                    zconv.upzconv3d_leaky.launches - n[1]) == (2, 2)
+            want = host.run_step(obs["hero"])
+            for key, w in want.items():
+                assert abs(got[key] - w) <= 1e-3 * max(1.0, abs(w)), (
+                    dreaming, tick, key, got[key], w)
+            obs = env.step({"hero": want})[0]
+    carry = card.session.carry
+    with torch.inference_mode():
+        got = card.session.decode(carry)
+        want = host.session.decode(LatentCarry(*(t.cpu() for t in carry)))
+    for key, w in want.items():
+        g = got[key].cpu()
+        assert g.shape == w.shape, key
+        rel = (g - w).abs().max() / max(1.0, w.abs().max().item())
+        assert rel.item() <= 1e-3, (key, rel.item())

@@ -74,13 +74,28 @@ print(leaked)
 sys.exit(1 if leaked else 0)
 """
 
-# the data-parallel and PPO modules, and the sim/ copies they run on
+# the data-parallel and PPO modules, the closed loop's and collection's
+# entry points, the offline tools, and the sim/ copies they run on
 NEW_MODULES = ("muvo_tpu_torch.parallel.mesh", "muvo_tpu_torch.rl.agent",
                "muvo_tpu_torch.rl.distributions",
                "muvo_tpu_torch.rl.networks", "muvo_tpu_torch.rl.policy",
                "muvo_tpu_torch.rl.ppo", "muvo_tpu_torch.train_rl",
                "muvo_tpu_torch.sim.reward",
-               "muvo_tpu_torch.sim.kinematic_env")
+               "muvo_tpu_torch.sim.kinematic_env",
+               "muvo_tpu_torch.agents.muvo_agent", "muvo_tpu_torch.evaluate",
+               "muvo_tpu_torch.data_collect",
+               "muvo_tpu_torch.tools.generate_voxels",
+               "muvo_tpu_torch.tools.preprocess_pcd",
+               "muvo_tpu_torch.sim.agents", "muvo_tpu_torch.sim.birdview",
+               "muvo_tpu_torch.sim.carla_map_adapter",
+               "muvo_tpu_torch.sim.data_writer", "muvo_tpu_torch.sim.env",
+               "muvo_tpu_torch.sim.envs", "muvo_tpu_torch.sim.handlers",
+               "muvo_tpu_torch.sim.hazard",
+               "muvo_tpu_torch.sim.route_planner",
+               "muvo_tpu_torch.sim.server_utils",
+               "muvo_tpu_torch.sim.task_vehicle",
+               "muvo_tpu_torch.sim.traffic_light",
+               "muvo_tpu_torch.sim.weather")
 
 
 def test_parallel_rl_and_sim_modules_load_no_jax():
@@ -98,6 +113,108 @@ def test_kinematic_env_is_muvo_tpus_but_for_its_imports():
     ).replace("from muvo_tpu.sim.reward import",
               "from muvo_tpu_torch.sim.reward import")
     assert got == want
+
+
+SIM_COPIES = sorted(
+    str(f.relative_to(ROOT / "muvo_tpu"))
+    for f in (ROOT / "muvo_tpu" / "sim").rglob("*.py")
+    if f.relative_to(ROOT / "muvo_tpu" / "sim").as_posix() not in (
+        "__init__.py", "reward.py", "kinematic_env.py"))
+# the copies' differences from muvo_tpu's files beyond the package's name:
+# the route planner imports networkx where it plans, not at import, since
+# sim.agents (and so data.dataset_utils.preprocess_measurements) needs
+# only its RoadOption and the GPU machine has no networkx; the envs
+# register under the port's own gymnasium namespace.
+LAZY_NETWORKX = (
+    ("import numpy as np\nimport networkx as nx\n", "import numpy as np\n"),
+    ("        self.resolution = resolution\n        self._graph",
+     "        self.resolution = resolution\n        import networkx as nx"
+     "  # only the planner needs it, not RoadOption\n\n        self._graph"),
+    ("        end = self._localize(destination)\n        route = nx",
+     "        end = self._localize(destination)\n        import networkx as nx"
+     "\n\n        route = nx"),
+)
+
+
+def _without_register_envs(text):
+    return text[:text.index("\n\n\n", text.index("        return all_tasks"))]
+
+
+@pytest.mark.parametrize("name", SIM_COPIES)
+def test_sim_copy_is_muvo_tpus_but_for_its_package(name):
+    """Each sim/ copy is muvo_tpu's file with ``muvo_tpu.`` read as
+    ``muvo_tpu_torch.``, but for the differences named above."""
+    got = (ROOT / "muvo_tpu_torch" / name).read_text()
+    want = (ROOT / "muvo_tpu" / name).read_text().replace("muvo_tpu.",
+                                                          "muvo_tpu_torch.")
+    if name == "sim/route_planner.py":
+        for old, new in LAZY_NETWORKX:
+            assert want.count(old) == 1, old
+            want = want.replace(old, new)
+    if name == "sim/envs.py":
+        got, want = _without_register_envs(got), _without_register_envs(want)
+    assert got == want
+
+
+def test_envs_register_in_the_ports_namespace():
+    """envs.py's one other difference: its register_envs."""
+    from muvo_tpu_torch.sim import envs
+
+    tail = (ROOT / "muvo_tpu_torch/sim/envs.py").read_text()[
+        len(_without_register_envs(
+            (ROOT / "muvo_tpu_torch/sim/envs.py").read_text())):]
+    assert "gym.register(id=gym_id(env_id)" in tail
+    assert envs.gym_id("Endless-v0") == "muvo_tpu_torch/Endless-v0"
+
+
+@pytest.mark.parametrize("name", sorted(
+    [str(f.relative_to(ROOT / "muvo_tpu"))
+     for f in (ROOT / "muvo_tpu/sim/scenario_descriptions").rglob("*")
+     if f.is_file()]
+    + [str(f.relative_to(ROOT / "muvo_tpu"))
+       for f in (ROOT / "muvo_tpu/configs/collect").rglob("*.yml")]))
+def test_sim_data_and_collect_configs_are_muvo_tpus(name):
+    assert (ROOT / "muvo_tpu_torch" / name).read_bytes() == (
+        ROOT / "muvo_tpu" / name).read_bytes()
+
+
+def test_ports_sim_data_is_complete():
+    for sub in ("sim/scenario_descriptions", "configs/collect"):
+        names = {f.relative_to(ROOT / "muvo_tpu_torch" / sub)
+                 for f in (ROOT / "muvo_tpu_torch" / sub).rglob("*")
+                 if f.is_file()}
+        assert names == {f.relative_to(ROOT / "muvo_tpu" / sub)
+                         for f in (ROOT / "muvo_tpu" / sub).rglob("*")
+                         if f.is_file()}
+
+
+_NO_NETWORKX = """
+import sys
+sys.modules["networkx"] = None  # as on a machine without it
+import numpy as np
+from muvo_tpu_torch.data.dataset_utils import preprocess_measurements
+import muvo_tpu_torch.data_collect, muvo_tpu_torch.evaluate
+import muvo_tpu_torch.sim.data_writer, muvo_tpu_torch.tools.generate_voxels
+print(preprocess_measurements(np.array([2]), np.zeros(3),
+                              np.array([1e-4, 0.0, 0.0]), np.zeros(7)))
+"""
+
+
+def test_measurements_and_entry_points_need_no_networkx():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _NO_NETWORKX], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_dataset_utils_is_muvo_tpus():
+    got = (ROOT / "muvo_tpu_torch/data/dataset_utils.py").read_text()
+    want = (ROOT / "muvo_tpu/data/dataset_utils.py").read_text().replace(
+        "muvo_tpu.", "muvo_tpu_torch.")
+    note = "An own copy of muvo_tpu/data/dataset_utils.py (a test holds it equal).\n"
+    assert got == want.replace("\n\nSemantics match", "\n\n" + note
+                               + "Semantics match", 1)
 
 
 @pytest.mark.parametrize("name", ["CARLA_FPS", "WHEEL_BASE",
