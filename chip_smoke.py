@@ -1,10 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [PHASE ...]
 
 Phases, each printing JSON lines; a failed phase raises and the script
-exits nonzero (there is no CPU fallback):
+exits nonzero (there is no CPU fallback). With no arguments every phase
+below runs, on one card. Named phases (PHASES, e.g. ``health
+profile_step``) run alone, in this order, after the device and build
+phases; a phase on train_entry's drive (ON_ENTRY_DRIVE) brings
+train_entry with it, and ``train_ddp_all`` (train_ddp with a rank on each
+visible card, NCCL) runs only when named. A run of named phases prints no
+kernels line, and its last line names the phases.
 
 1. device: the card's name and nvidia-smi's name and power limit.
 2. build: compiles muvo_tpu_torch/csrc/*.cu (one nvcc each, in parallel).
@@ -191,6 +197,27 @@ exits nonzero (there is no CPU fallback):
    decode card against host within 1e-3. Tick ms (median, p90), the
    agent's host ms (``_obs_to_frame``) and the rest, peak MiB.
 
+22. health (after pipeline): the training-health run of
+   muvo_tpu_torch/tools/health_run.py at muvo.yml's full width and full
+   frames, cut to a smoke test: one training and one held-out episode of 24
+   steps collected with the scripted driver (600 x 960, 30,000 points),
+   voxelised, the random-init weights and the constant prediction evaluated
+   on one held-out batch of 2 (the constant one launching no kernel),
+   ``train.main`` for 4 steps at batch 2 (ACCUMULATE_GRAD_BATCHES 1,
+   decoder remat) with a checkpoint, that checkpoint evaluated. Metrics and
+   losses finite, the restored step right; bf16 K1, K2, K1-dx, K2-dx, K3
+   and K3-up launched as predicted in training (the path health_train), K1
+   and K2 in the evaluations (health_evaluate). Frames/s, the writer's save
+   s, voxel s a frame, step ms, peak MiB, both evaluations' metrics.
+23. profile_step: muvo_tpu_torch/tools/profile_step.py's run_and_trace
+   on the flagship step (2 warm steps, 3 traced with a record_function
+   range around every submodule): every port kernel in the trace
+   attributed to a MuvoWorldModel/voxel_decoder/... scope, the device
+   time that no scope claims (the [unattributed] and [backward] buckets)
+   under UNSCOPED_SHARE of the step's and the world model's scopes at
+   least MODEL_SHARE, the six bf16 voxel kernels launched as predicted
+   (the path profile_step); the top 10 scopes at depth 3 in ms a step.
+
 Each main path's launch counts are set to 0 just before it runs and read
 just after; each wrapper counts its launches by the tensors' type. The
 kernels line has one entry for each kernel and type that a main path
@@ -210,6 +237,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -3502,6 +3530,261 @@ def pipeline_phase(dev, work: Path):
     return train_typed, drive_typed
 
 
+HEALTH_EPISODE_STEPS = 24  # a health episode's steps, in each split
+HEALTH_TRAIN_STEPS = 4     # train.main steps of the health phase
+HEALTH_EVAL_BATCHES = 1    # held-out batches each evaluation scores
+# the health run's train.main overrides (runs/health_torch/SUMMARY.md) but
+# for the length, the logging and the validation interval
+HEALTH_OPTS = ("BATCHSIZE", "2", "MODEL.REMAT", "True",
+               "MODEL.REMAT_ENCODER", "False", "N_WORKERS", "2",
+               "OPTIMIZER.ACCUMULATE_GRAD_BATCHES", "1", "STEPS", "4",
+               "LOGGING_INTERVAL", "1", "VAL_CHECK_INTERVAL", "4",
+               "LIMIT_VAL_BATCHES", "1")
+
+
+@contextlib.contextmanager
+def timed_saves(rec):
+    """Each DataWriter.save_files' seconds into ``rec``."""
+    from muvo_tpu_torch.sim.data_writer import DataWriter
+
+    save = DataWriter.save_files
+
+    def timed(self):
+        t0 = time.perf_counter()
+        save(self)
+        rec.append(time.perf_counter() - t0)
+
+    DataWriter.save_files = timed
+    try:
+        yield rec
+    finally:
+        DataWriter.save_files = save
+
+
+def health_phase(dev, work: Path):
+    """The training-health run at muvo.yml's full width and full frames
+    (muvo_tpu_torch/tools/health_run.py, python -m muvo_tpu_torch.train),
+    cut to a smoke test: (a) ``collect`` one training and one held-out
+    episode of HEALTH_EPISODE_STEPS steps with the scripted driver (600 x
+    960, 30,000 points), a thread a split; (b) ``voxelize``; (c)
+    ``evaluate --random-init`` on HEALTH_EVAL_BATCHES batches of 2; (d)
+    ``train.main`` for HEALTH_TRAIN_STEPS steps at batch 2, ACCUMULATE 1,
+    decoder remat, a checkpoint at the last; (e) ``evaluate`` that
+    checkpoint. Every metric and loss finite, the restored step right, bf16
+    K1, K2, K1-dx, K2-dx, K3 and K3-up launched as predicted in (d) and K1,
+    K2 in (c) and (e), nothing else. Returns the launches by type of the
+    training and of the two evaluations."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from muvo_tpu_torch.tools import health_run
+    from muvo_tpu_torch.train import main as train_main
+    from muvo_tpu_torch.training.flagship import MUVO_YML
+
+    data = work / "health"
+    phase_t0 = time.perf_counter()
+    saves = []
+    with timed_saves(saves), ThreadPoolExecutor(2) as pool:
+        t0 = time.perf_counter()
+        jobs = [pool.submit(health_run.collect, str(data), split, 1,
+                            HEALTH_EPISODE_STEPS, seed0)
+                for split, seed0 in (("train", health_run.TRAIN_SEED0),
+                                     ("val", health_run.VAL_SEED0))]
+        runs = [run for job in jobs for run in job.result()]
+        collect_s = time.perf_counter() - t0
+    frames = sum(len(os.listdir(Path(run) / "image")) for run in runs)
+    t0 = time.perf_counter()
+    health_run.voxelize(str(data), health_run.flagship_cfg(str(data)))
+    voxel_s = (time.perf_counter() - t0) / frames
+
+    cfg = health_run.flagship_cfg(str(data))
+    cfg.merge_from_list(list(HEALTH_OPTS))
+    fwd = 2 if cfg.MODEL.REMAT else 1
+    per_step = predicted_launches(cfg)
+    decodes = HEALTH_EVAL_BATCHES * (1 + cfg.PREDICTION.N_SAMPLES)
+    per_eval = {kid: per_step[kid] // fwd * decodes if kid in ("K1", "K2")
+                else 0 for kid in KERNEL_NAMES}
+
+    def evaluated(ckpt="", step=None):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = health_run.evaluate(
+            str(data), ckpt, not ckpt, HEALTH_EVAL_BATCHES,
+            str(work / f"health_eval_{step or 0}.json"), step=step,
+            device=dev)
+        seconds = time.perf_counter() - t0
+        typed = read_typed_launches()
+        for kid in KERNEL_NAMES:
+            got = typed.get(kid, {})
+            if got.get("bfloat16", 0) != per_eval[kid] or set(got) - {
+                    "bfloat16"}:
+                raise AssertionError(f"evaluate launched {kid} {got}, "
+                                     f"predicted {per_eval[kid]} bf16")
+        values = [v for part in ("recon", "imagine")
+                  for v in out[part].values()]
+        if not (values and all(map(math.isfinite, values))
+                and out["step"] == (step or 0)):
+            raise AssertionError(f"evaluation of step {step}: {out}")
+        return out, seconds, typed
+
+    floor, floor_s, floor_typed = evaluated()
+    reset_launches()
+    t0 = time.perf_counter()
+    constant = health_run.evaluate(
+        str(data), "", False, HEALTH_EVAL_BATCHES,
+        str(work / "health_eval_constant.json"), device=dev, constant=True)
+    constant_s = time.perf_counter() - t0
+    values = [v for part in ("recon", "imagine")
+              for v in constant[part].values()]
+    if any(read_launches().values()) or not (
+            values and all(map(math.isfinite, values))
+            and constant["recon"]["voxel_recall"] == 1.0):
+        raise AssertionError(f"constant prediction: {constant}, launches "
+                             f"{read_launches()}")
+    argv = ["--config-file", str(MUVO_YML), "DATASET.DATAROOT", str(data),
+            "DATASET.FILTER_BEGINNING_OF_RUN_SEC", "0.0",
+            "DATASET.FILTER_NORM_REWARD", "-1000.0",
+            "LOG_DIR", str(work / "health_logs"), *HEALTH_OPTS]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    with instrumented_train_loop(dev) as rec:
+        run = train_main(argv, device=dev)
+    train_typed = read_typed_launches()
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    records = logged_losses(run.log_dir)
+    ckpts = Path(run.log_dir) / "checkpoints"
+    del run
+    if len(rec["train_ms"]) != HEALTH_TRAIN_STEPS or not any(
+            "train_loss" in r for r in records):
+        raise AssertionError(f"{len(rec['train_ms'])} train steps, "
+                             f"{len(records)} logged records")
+    for kid in KERNEL_NAMES:
+        got = train_typed.get(kid, {})
+        want = per_step[kid] * HEALTH_TRAIN_STEPS
+        if got.get("bfloat16", 0) != want or set(got) - {"bfloat16"}:
+            raise AssertionError(f"train.main launched {kid} {got}, "
+                                 f"predicted {want} bf16")
+    trained, trained_s, trained_typed = evaluated(str(ckpts),
+                                                  HEALTH_TRAIN_STEPS)
+    evals = {kid: {"bfloat16": floor_typed[kid]["bfloat16"]
+                   + trained_typed[kid]["bfloat16"]}
+             for kid in floor_typed}
+    emit({"phase": "health", "config": "muvo.yml", "frames": frames,
+          "image": list(health_run.IMAGE_HW),
+          "lidar_points": health_run.LIDAR_POINTS,
+          "collect_s": collect_s, "frames_per_s": frames / collect_s,
+          "save_s": saves, "voxel_s_per_frame": voxel_s,
+          "step_ms": rec["train_ms"],
+          "step_ms_median": statistics.median(rec["train_ms"][1:]),
+          "host_gap_ms": rec["gap_ms"], "ckpt_save_s": rec["save_s"],
+          "ckpt_mib": rec.get("ckpt_mib"), "peak_mib": peak_mib,
+          "launches_per_step_predicted": per_step,
+          "launches_train_by_type": train_typed,
+          "launches_per_evaluation_predicted": per_eval,
+          "launches_evaluate_by_type": evals,
+          "evaluate_s": [floor_s, trained_s], "constant_s": constant_s,
+          "random_init": {k: floor[k] for k in ("recon", "imagine")},
+          "constant": {k: constant[k] for k in ("recon", "imagine")},
+          "trained": {k: trained[k] for k in ("step", "recon", "imagine")},
+          "phase_s": time.perf_counter() - phase_t0})
+    return train_typed, evals
+
+
+# the port's kernels by their CUDA names (tools/torch_profile_train.py's
+# groups)
+PORT_KERNEL = (r"zconv_tc_kernel|zconv_kernel<|zconv_(up_|dx_|dxup_)?f32_"
+               r"kernel|dw_tc_kernel|dw_f32_kernel|sum_rows_kernel|"
+               r"flash_fwd_|flash_bwd_|flash_dq_flush_kernel|scale_q_kernel")
+# the most of the step's device time that no scope may claim: kernels
+# outside every module range and every phase bucket (a broken backward
+# mapping lands them here) ...
+UNSCOPED = ("[unattributed]", "[backward]")
+UNSCOPED_SHARE = 0.01
+# ... and the least that the world model's scopes must claim (a broken
+# forward hook leaves its kernels in the [loss] bucket around the model)
+MODEL_SHARE = 0.85
+
+
+def profile_step_phase(dev, work: Path):
+    """``tools.profile_step.run_and_trace`` on the flagship step at full
+    width (2 warm steps, 3 traced with the module scopes): every port
+    kernel of the trace is attributed to a
+    ``MuvoWorldModel/voxel_decoder/...`` scope, the UNSCOPED buckets hold
+    under UNSCOPED_SHARE of the device time and the model's scopes at
+    least MODEL_SHARE, and the six bf16 voxel kernels launched as
+    predicted. Prints the top 10 scopes at depth 3 (ms a step). Returns
+    the launches by type."""
+    import re
+
+    from muvo_tpu_torch.tools import profile_step as ps
+
+    trace_dir = work / "profile_step"
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_launches()
+    path, fs = ps.run_and_trace(str(trace_dir), device=dev)
+    typed = read_typed_launches()
+    steps = ps.WARM_STEPS + ps.TRACED_STEPS
+    per_step = predicted_launches(fs.cfg)
+    del fs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    events = ps.load_trace(str(trace_dir))
+    by_name = ps.summarize(str(trace_dir), top=10, events=events)
+    by_scope = ps.summarize_by_scope(str(trace_dir), depth=3, top=10,
+                                     events=events)
+    components = ps.summarize_by_scope(str(trace_dir), depth=2, top=10,
+                                       events=events)
+    rows = ps.attribute(events)
+    read_s = time.perf_counter() - t0
+    port = Counter((r["scope"], r["name"]) for r in rows
+                   if re.search(PORT_KERNEL, r["name"]))
+    stray = sorted({k for k in port
+                    if not k[0].startswith("MuvoWorldModel/voxel_decoder/")})
+    n = ps.TRACED_STEPS
+    unscoped = sum(by_scope["ms"].get(k, 0.0) for k in UNSCOPED)
+    model_ms = sum(v for k, v in by_scope["ms"].items()
+                   if k.startswith("MuvoWorldModel"))
+    top = sorted(by_scope["ms"].items(), key=lambda kv: -kv[1])[:10]
+    emit({"phase": "profile_step", "config": "muvo.yml flagship step",
+          "trace_mib": Path(path).stat().st_size / 2 ** 20,
+          "trace_events": len(events), "read_s": read_s,
+          "device_ms_per_step": by_name["total_ms"] / n,
+          "unscoped_ms_per_step": unscoped / n,
+          "model_scopes_ms_per_step": model_ms / n,
+          "top_scopes_depth3_ms_per_step": [[k, v / n] for k, v in top],
+          "scopes_depth2_ms_per_step": {
+              k: v / n for k, v in sorted(components["ms"].items(),
+                                          key=lambda kv: -kv[1])},
+          "buckets_ms_per_step": {k: v / n for k, v in by_scope["ms"].items()
+                                  if k.startswith("[")},
+          "port_kernels": {f"{s} {name}": c for (s, name), c in port.items()},
+          "launches_by_type": typed, "launches_per_step_predicted": per_step,
+          "phase_s": time.perf_counter() - phase_t0})
+    # a sanity sum: both read the same device events, so they agree by
+    # construction; the attribution is held by the checks below
+    if not abs(by_scope["total_ms"] - by_name["total_ms"]) <= (
+            1e-3 * by_name["total_ms"]):
+        raise AssertionError(f"by scope {by_scope['total_ms']} ms, by name "
+                             f"{by_name['total_ms']}")
+    if not unscoped < UNSCOPED_SHARE * by_name["total_ms"]:
+        raise AssertionError(f"{unscoped} ms of {by_name['total_ms']} in "
+                             f"{UNSCOPED}, claimed by no scope")
+    if not model_ms >= MODEL_SHARE * by_name["total_ms"]:
+        raise AssertionError(f"the model's scopes claim {model_ms} ms of "
+                             f"{by_name['total_ms']}")
+    if not port or stray:
+        raise AssertionError(f"port kernels outside the voxel decoder's "
+                             f"scopes: {stray[:10]} ({len(port)} found)")
+    for kid in KERNEL_NAMES:
+        got = typed.get(kid, {})
+        if got.get("bfloat16", 0) != per_step[kid] * steps or set(got) - {
+                "bfloat16"}:
+            raise AssertionError(f"profile_step launched {kid} {got}, "
+                                 f"predicted {per_step[kid] * steps} bf16")
+    return typed
+
+
 def measured_row(kid, dtype, results, backward, flash):
     """The row that the kernels line reports for ``kid`` in ``dtype``
     ("float32" or "bfloat16"): a voxel kernel at its MAIN_SHAPE stage (the
@@ -3560,17 +3843,38 @@ def kernel_entries(paths, results, backward, flash):
     return kernels
 
 
-def main() -> int:
+# the phases in the order they run; train_ddp_all only when named
+PHASES = ("kernel", "backward_kernel", "flash_kernel", "serving", "training",
+          "train_entry", "prediction", "train_heads", "train_lifting",
+          "train_options", "train_ddp", "train_ddp_all",
+          "serving_mobilevit", "serving_lifting", "serving_options",
+          "serving_large", "training_large", "microbench", "train_rl",
+          "pipeline", "health", "profile_step")
+# the phases on train_entry's recorded drive (prediction and train_options
+# also read its panels and host gaps)
+ON_ENTRY_DRIVE = ("prediction", "train_heads", "train_lifting",
+                  "train_options", "train_ddp", "train_ddp_all")
+
+
+def main(argv=None) -> int:
+    named = sys.argv[1:] if argv is None else list(argv)
+    if set(named) - set(PHASES):
+        print(f"chip_smoke: phases are {' '.join(PHASES)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a "
               "GPU", file=sys.stderr)
         return 2
+    run = set(named) or set(PHASES) - {"train_ddp_all"}
+    if run & set(ON_ENTRY_DRIVE):
+        run.add("train_entry")
     from muvo_tpu_torch.ops._build import build_all, build_log
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)  # the allocator, before a phase reads it
     smi = nvidia_smi()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
@@ -3587,44 +3891,77 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln
                     or "Compiling entry" in ln or "Performance Loss" in ln]})
 
-    results = kernel_phase(dev)
-    backward = backward_kernel_phase(dev)
-    flash = flash_kernel_phase(dev)
-    paths = {"serving": serving_phase(dev, muvo_cfg()),
-             "training": training_phase(dev)}
+    results = kernel_phase(dev) if "kernel" in run else None
+    backward = backward_kernel_phase(dev) if "backward_kernel" in run else None
+    flash = flash_kernel_phase(dev) if "flash_kernel" in run else None
+    paths = {}
+    if "serving" in run:
+        paths["serving"] = serving_phase(dev, muvo_cfg())
+    if "training" in run:
+        paths["training"] = training_phase(dev)
     work = Path(__file__).resolve().parent / "build" / f"run_{os.getpid()}"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        paths["train_entry"], panels, entry_gap_ms = train_entry_phase(
-            dev, work)
-        paths["prediction"], paths["sim_run"] = prediction_phase(dev, work,
-                                                                 panels)
-        paths["train_heads"] = train_heads_phase(dev, work)
-        paths["train_lifting"] = train_lifting_phase(dev, work)
-        paths["train_options"] = train_options_phase(dev, work, entry_gap_ms)
-        paths["train_ddp"] = train_ddp_phase(dev, work)
+        if "train_entry" in run:
+            paths["train_entry"], panels, entry_gap_ms = train_entry_phase(
+                dev, work)
+        if "prediction" in run:
+            paths["prediction"], paths["sim_run"] = prediction_phase(
+                dev, work, panels)
+        if "train_heads" in run:
+            paths["train_heads"] = train_heads_phase(dev, work)
+        if "train_lifting" in run:
+            paths["train_lifting"] = train_lifting_phase(dev, work)
+        if "train_options" in run:
+            paths["train_options"] = train_options_phase(dev, work,
+                                                         entry_gap_ms)
+        if "train_ddp" in run:
+            paths["train_ddp"] = train_ddp_phase(dev, work)
+        if "train_ddp_all" in run:
+            shutil.rmtree(work / "ddp", ignore_errors=True)
+            train_ddp_phase(dev, work, torch.cuda.device_count())
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    paths["serving_mobilevit"] = serving_mobilevit_phase(dev)
-    paths["serving_lifting"] = serving_lifting_phase(dev)
-    paths["serving_options"] = serving_options_phase(dev)
-    paths["serving_large"] = serving_large_phase(dev)
-    paths["training_large"], paths["training_large_split"] = (
-        training_large_phase(dev))
-    paths["microbench"] = microbench_phase()
-    train_rl_phase(dev)
-    shutil.rmtree(work, ignore_errors=True)
-    try:
-        paths["pipeline_train"], paths["closed_loop"] = pipeline_phase(
-            dev, work)
-    finally:
+    if "serving_mobilevit" in run:
+        paths["serving_mobilevit"] = serving_mobilevit_phase(dev)
+    if "serving_lifting" in run:
+        paths["serving_lifting"] = serving_lifting_phase(dev)
+    if "serving_options" in run:
+        paths["serving_options"] = serving_options_phase(dev)
+    if "serving_large" in run:
+        paths["serving_large"] = serving_large_phase(dev)
+    if "training_large" in run:
+        paths["training_large"], paths["training_large_split"] = (
+            training_large_phase(dev))
+    if "microbench" in run:
+        paths["microbench"] = microbench_phase()
+    if "train_rl" in run:
+        train_rl_phase(dev)
+    for phase in ("pipeline", "health", "profile_step"):
+        if phase not in run:
+            continue
         shutil.rmtree(work, ignore_errors=True)
+        try:
+            if phase == "pipeline":
+                paths["pipeline_train"], paths["closed_loop"] = (
+                    pipeline_phase(dev, work))
+            elif phase == "health":
+                paths["health_train"], paths["health_evaluate"] = (
+                    health_phase(dev, work))
+            else:
+                paths["profile_step"] = profile_step_phase(dev, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
 
-    emit({"kernels": kernel_entries(paths, results, backward, flash)})
+    done = {"ok": True}
+    if named:
+        done["phases"] = [p for p in PHASES if p in run]
+    else:
+        emit({"kernels": kernel_entries(paths, results, backward, flash)})
     print(nvidia_smi(), flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    emit({**done, "device": {"platform": "gpu",
+                             "kind": torch.cuda.get_device_name(0),
+                             "count": torch.cuda.device_count()}})
     return 0
 
 

@@ -75,7 +75,8 @@ sys.exit(1 if leaked else 0)
 """
 
 # the data-parallel and PPO modules, the closed loop's and collection's
-# entry points, the offline tools, and the sim/ copies they run on
+# entry points, the offline and health-run tools, and the sim/ copies
+# they run on
 NEW_MODULES = ("muvo_tpu_torch.parallel.mesh", "muvo_tpu_torch.rl.agent",
                "muvo_tpu_torch.rl.distributions",
                "muvo_tpu_torch.rl.networks", "muvo_tpu_torch.rl.policy",
@@ -86,6 +87,10 @@ NEW_MODULES = ("muvo_tpu_torch.parallel.mesh", "muvo_tpu_torch.rl.agent",
                "muvo_tpu_torch.data_collect",
                "muvo_tpu_torch.tools.generate_voxels",
                "muvo_tpu_torch.tools.preprocess_pcd",
+               "muvo_tpu_torch.tools.health_run",
+               "muvo_tpu_torch.tools.profile_step",
+               "muvo_tpu_torch.tools.e2e_pipeline_demo",
+               "muvo_tpu_torch.tools.generate_scenarios",
                "muvo_tpu_torch.sim.agents", "muvo_tpu_torch.sim.birdview",
                "muvo_tpu_torch.sim.carla_map_adapter",
                "muvo_tpu_torch.sim.data_writer", "muvo_tpu_torch.sim.env",
