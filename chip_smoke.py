@@ -262,6 +262,13 @@ LOSS_TOL = 1e-4   # card vs host train step: each loss, relative
 # (tests/test_torch_train_step.py)
 GRAD_TOL = 2e-3
 NOISE_FACTOR = 8.0
+# ... and every card step, cuDNN on (train.main's) and off, against a
+# float64 host step, leaf by leaf: |step - f64| / |f64| <= GRAD_TOL +
+# F64_FACTOR * the host's own fp32 error there (the larger of its distance
+# from the float64 step and its noise). cuDNN's fp32 backward reads up to
+# about 6 of these units on the camera encoder; a TF32 step, which the
+# check also runs, must exceed the limit
+F64_FACTOR = 16.0
 ULP = 1e-7
 NOISE_DRAWS = 2
 # LARGE split against fused: the fused backward re-run from these multiples
@@ -867,9 +874,53 @@ def training_phase(dev):
     return launches
 
 
+def float64_grads(trainer, batch):
+    """The gradients of ``trainer``'s step (no noise or dropout) in
+    float64 on the host, on a copy of its model."""
+    from muvo_tpu_torch.training.objectives import compute_loss, reduce_loss
+
+    model = copy.deepcopy(trainer.state.model).double().train()
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        pb = trainer.preprocess(trainer.to_device(batch), training=False)
+        pb = {k: v.double() if v.is_floating_point() else v
+              for k, v in pb.items()}
+        output, _ = model(pb, training=True, stochastic=False)
+        reduce_loss(compute_loss(trainer.cfg, pb, output)).backward()
+    finally:
+        torch.set_default_dtype(default)
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def f64_readings(grads, exact, scale):
+    """Per leaf, the excess of the distance of ``grads`` from the
+    float64 step ``exact`` over GRAD_TOL, in units of ``scale`` (the
+    host's own fp32 error); and a summary of distances and units."""
+    dist = {k: norm_rel(g, exact[k]) for k, g in grads.items()}
+    units = {k: (d - GRAD_TOL) / max(scale[k], 1e-30)
+             for k, d in dist.items()}
+    worst = sorted(units, key=units.get, reverse=True)
+    return units, {
+        "max": max(dist.values()), "median": statistics.median(dist.values()),
+        "camera_encoder_max": max(v for k, v in dist.items()
+                                  if k.startswith("encoder.")),
+        "max_units": units[worst[0]],
+        "worst": [[k, dist[k], units[k]] for k in worst[:3]],
+        "leaves_over": sum(1 for v in units.values() if v > F64_FACTOR)}
+
+
 def card_vs_host(dev):
-    """One fp32 step on the card against the same step on the host CPU:
-    the same weights and batch, no sampling noise or dropout."""
+    """One fp32 step on the card against the same step on the host CPU and
+    a float64 host step: the same weights and batch, no sampling noise or
+    dropout. Three card steps run: train.main's (cuDNN on), one with cuDNN
+    off (PyTorch's own CUDA operators) and one with TF32 allowed. The
+    cuDNN-off step is held to the host leaf by leaf (GRAD_TOL +
+    NOISE_FACTOR x the host's noise); the host to the float64 step by its
+    noise; both fp32 card steps to the float64 step by F64_FACTOR x the
+    host's own error (cuDNN's fp32 backward rounds more coarsely than the
+    host's, and this small step magnifies rounding); the TF32 step must
+    fail that limit, which shows it can."""
     from muvo_tpu_torch.data.synthetic import synthetic_batch, tiny_test_cfg
     from muvo_tpu_torch.training.trainer import WorldModelTrainer
 
@@ -885,22 +936,42 @@ def card_vs_host(dev):
     torch.cuda.synchronize()
     tiny_launches = {k: v - before[k] for k, v in read_launches().items()
                      if k in ZCONV_KERNELS}
+    with torch.backends.cudnn.flags(enabled=False):
+        off_m, off_g = card.grads(batch, stochastic=False)
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            _, tf32_g = card.grads(batch, stochastic=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
     t0 = time.perf_counter()
     want_m, want_g = host.grads(batch, stochastic=False)
     host_s = time.perf_counter() - t0
-    if set(got_g) != set(want_g) or any(
-            v is None for v in (*got_g.values(), *want_g.values())):
+    if set(got_g) != set(want_g) or set(off_g) != set(want_g) or any(
+            v is None for v in (*got_g.values(), *off_g.values(),
+                                *want_g.values())):
         raise AssertionError("card and host gradients do not cover the same "
                              "parameters")
     want_g = {k: g.detach().clone() for k, g in want_g.items()}
     noise = host_noise(host, batch, want_g)
-    loss_rel = {k: abs(got_m[k].item() - v.item()) / max(abs(v.item()), 1e-6)
+    exact = float64_grads(host, batch)
+    host_f64 = {k: norm_rel(g, exact[k]) for k, g in want_g.items()}
+    scale = {k: max(host_f64[k], noise[k]) for k in want_g}
+    f64 = {name: f64_readings(g, exact, scale)
+           for name, g in (("card", got_g), ("cudnn_off", off_g),
+                           ("tf32", tf32_g))}
+    loss_rel = {f"{k}{tag}": abs(m[k].item() - v.item())
+                / max(abs(v.item()), 1e-6)
+                for tag, m in (("", got_m), (" (cuDNN off)", off_m))
                 for k, v in want_m.items()}
-    grad_rel = {k: norm_rel(got_g[k], v) for k, v in want_g.items()}
+    grad_rel = {k: norm_rel(off_g[k], v) for k, v in want_g.items()}
     over = {k: (grad_rel[k] - GRAD_TOL) / max(noise[k], 1e-30)
             for k in grad_rel}
     bad = {k: (grad_rel[k], noise[k]) for k in grad_rel
            if not grad_rel[k] <= GRAD_TOL + NOISE_FACTOR * noise[k]}
+    host_bad = {k: (host_f64[k], noise[k]) for k in host_f64
+                if not host_f64[k] <= GRAD_TOL + NOISE_FACTOR * noise[k]}
     emit({"phase": "training_vs_host", "config": "tiny_test_cfg voxel 64^3",
           "precision": "32 (TF32 off)", "launches": tiny_launches,
           "loss": got_m["loss"].item(), "loss_host": want_m["loss"].item(),
@@ -912,14 +983,33 @@ def card_vs_host(dev):
           "host_noise_max": max(noise.values()),
           "worst_over_noise": max(over.values()),
           "grad_leaves": len(grad_rel), "grad_tol": GRAD_TOL,
-          "noise_factor": NOISE_FACTOR, "host_step_s": host_s})
+          "noise_factor": NOISE_FACTOR, "f64_factor": F64_FACTOR,
+          "host_step_s": host_s,
+          "host_grad_from_f64": {
+              "max": max(host_f64.values()),
+              "median": statistics.median(host_f64.values()),
+              "camera_encoder_max": max(v for k, v in host_f64.items()
+                                        if k.startswith("encoder."))},
+          **{f"{name}_grad_from_f64": f64[name][1] for name in f64}})
     if not all(tiny_launches.values()):
         raise AssertionError(f"a kernel did not run in the tiny step: "
                              f"{tiny_launches}")
     if not max(loss_rel.values()) <= LOSS_TOL:
         raise AssertionError(f"card loss differs from host: {loss_rel}")
     if bad:
-        raise AssertionError(f"card gradients differ from host: {bad}")
+        raise AssertionError(f"card gradients (cuDNN off) differ from host: "
+                             f"{bad}")
+    if host_bad:
+        raise AssertionError(f"host gradients differ from float64: "
+                             f"{host_bad}")
+    for name in ("card", "cudnn_off"):
+        far = {k: v for k, v in f64[name][0].items() if v > F64_FACTOR}
+        if far:
+            raise AssertionError(f"{name} gradients differ from float64 "
+                                 f"(units of the host's error): {far}")
+    if not f64["tf32"][1]["leaves_over"]:
+        raise AssertionError("a TF32 step passes the float64 limit: the "
+                             "limit cannot tell it from an fp32 step")
 
 
 BEV_CLASSES = 8  # background, road, lane markings, vehicle, pedestrian,
@@ -3132,14 +3222,14 @@ def train_rl_phase(dev):
     ms."""
     import numpy as np
 
+    from muvo_tpu_torch.models import init
     from muvo_tpu_torch.rl.policy import PpoPolicy
     from muvo_tpu_torch.rl.ppo import PPO, RolloutBuffer
     from muvo_tpu_torch.sim.kinematic_env import KinematicDrivingEnv
     from muvo_tpu_torch.train_rl import rollout
 
     phase_t0 = time.perf_counter()
-    torch.manual_seed(0)
-    host = PpoPolicy()
+    host = init.build(PpoPolicy, 0)  # muvo_tpu's initialisers, seed 0
     policy = copy.deepcopy(host).to(dev)
     env = KinematicDrivingEnv(seed=0, episode_steps=300)
     obs = env.reset()
@@ -3561,12 +3651,44 @@ def timed_saves(rec):
         DataWriter.save_files = save
 
 
+def init_vs_host(dev, cfg):
+    """A fresh model of ``cfg`` as train.main builds it on the card
+    (WorldModelTrainer.init_state: models/init.py's rules drawn on the
+    host and copied to the card) against one that init.build makes on the
+    host from the same seed: every leaf bit-equal. Returns the leaf count
+    and the seconds of each build."""
+    from muvo_tpu_torch.evaluate import INIT_SEED
+    from muvo_tpu_torch.models import init
+    from muvo_tpu_torch.models.world_model import MuvoWorldModel
+    from muvo_tpu_torch.training.trainer import WorldModelTrainer
+
+    t0 = time.perf_counter()
+    card = WorldModelTrainer(cfg, device=dev).init_state(INIT_SEED).model
+    torch.cuda.synchronize(dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = init.build(lambda: MuvoWorldModel(cfg), INIT_SEED)
+    host_s = time.perf_counter() - t0
+    got, want = card.state_dict(), host.state_dict()
+    differ = sorted(k for k in want if k not in got
+                    or not torch.equal(got[k].cpu(), want[k]))
+    if differ or set(got) != set(want):
+        raise AssertionError(f"init on the card differs from the host's: "
+                             f"{differ[:5]} ({len(differ)} leaves)")
+    del card, host, got
+    torch.cuda.empty_cache()
+    return {"leaves": len(want), "bit_equal": True, "card_s": card_s,
+            "host_s": host_s}
+
+
 def health_phase(dev, work: Path):
     """The training-health run at muvo.yml's full width and full frames
     (muvo_tpu_torch/tools/health_run.py, python -m muvo_tpu_torch.train),
     cut to a smoke test: (a) ``collect`` one training and one held-out
     episode of HEALTH_EPISODE_STEPS steps with the scripted driver (600 x
-    960, 30,000 points), a thread a split; (b) ``voxelize``; (c)
+    960, 30,000 points), a thread a split; (b) ``voxelize``, then a fresh
+    model built on the card bit-equal to one built on the host
+    (``init_vs_host``); (c)
     ``evaluate --random-init`` on HEALTH_EVAL_BATCHES batches of 2; (d)
     ``train.main`` for HEALTH_TRAIN_STEPS steps at batch 2, ACCUMULATE 1,
     decoder remat, a checkpoint at the last; (e) ``evaluate`` that
@@ -3598,6 +3720,7 @@ def health_phase(dev, work: Path):
 
     cfg = health_run.flagship_cfg(str(data))
     cfg.merge_from_list(list(HEALTH_OPTS))
+    init_check = init_vs_host(dev, cfg)
     fwd = 2 if cfg.MODEL.REMAT else 1
     per_step = predicted_launches(cfg)
     decodes = HEALTH_EVAL_BATCHES * (1 + cfg.PREDICTION.N_SAMPLES)
@@ -3683,6 +3806,7 @@ def health_phase(dev, work: Path):
           "launches_per_evaluation_predicted": per_eval,
           "launches_evaluate_by_type": evals,
           "evaluate_s": [floor_s, trained_s], "constant_s": constant_s,
+          "init_card_vs_host": init_check,
           "random_init": {k: floor[k] for k in ("recon", "imagine")},
           "constant": {k: constant[k] for k in ("recon", "imagine")},
           "trained": {k: trained[k] for k in ("step", "recon", "imagine")},

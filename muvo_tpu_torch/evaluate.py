@@ -27,8 +27,6 @@ import sys
 from types import SimpleNamespace
 from typing import List, Optional
 
-import torch
-
 from muvo_tpu_torch.data_collect import load_obs_configs, load_test_suites
 
 INIT_SEED = 42  # the trainer's init_state seed: weights without a checkpoint
@@ -37,15 +35,14 @@ INIT_SEED = 42  # the trainer's init_state seed: weights without a checkpoint
 def build_agent(cfg, ckpt: str, is_dreaming: bool, device=None):
     """A MuvoAgent on ``cfg``'s model: weights from ``ckpt`` (a checkpoint
     directory, or a ``.ckpt`` / ``.pt`` / ``.pth`` file, through
-    ``training.checkpoint.restore_pretrained``), else initialised from
-    INIT_SEED."""
+    ``training.checkpoint.restore_pretrained``), else drawn from
+    muvo_tpu's initialisers with INIT_SEED (models/init.py)."""
     from muvo_tpu_torch.agents.muvo_agent import MuvoAgent
+    from muvo_tpu_torch.models import init
     from muvo_tpu_torch.models.world_model import MuvoWorldModel
     from muvo_tpu_torch.training.checkpoint import restore_pretrained
 
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(INIT_SEED)
-        model = MuvoWorldModel(cfg)
+    model = init.build(lambda: MuvoWorldModel(cfg), INIT_SEED)
     restore_pretrained(ckpt, SimpleNamespace(model=model, step=0),
                        with_optimizer=False)
     return MuvoAgent(cfg, model, is_dreaming=is_dreaming, device=device)

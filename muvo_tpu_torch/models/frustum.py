@@ -95,23 +95,36 @@ class FrustumPooling(nn.Module):
     def __init__(self, size, scale, offsetx, dbound, downsample: int,
                  sparse: bool = True, sparse_count: int = 10):
         super().__init__()
-        dx, bx, nx = gen_dx_bx(size, scale, offsetx)
+        _, bx, nx = gen_dx_bx(size, scale, offsetx)
         self.nx = tuple(int(n) for n in nx)
-        bev = bev_params_to_intrinsics(size, scale, offsetx)
-        # (scale x, offset x, scale y, offset y, z shift, 1 / cell height)
-        # in float32 as muvo_tpu's graph holds them, stored in float64
-        self.register_buffer("bev_affine", torch.tensor(
-            [bev[0, 0], bev[0, 2], bev[1, 1], bev[1, 2],
-             dx[2] / np.float32(2.0), np.float32(1) / dx[2]],
-            dtype=torch.float32).double(), persistent=False)
+        self._grid = (size, scale, offsetx, dbound)
+        for name, value in self._constants().items():
+            self.register_buffer(name, value, persistent=False)
         self._bx_z = float(bx[2])
-        ds = np.arange(dbound[0], dbound[1], dbound[2], dtype=np.float32)
-        self.register_buffer("ds", torch.from_numpy(ds), persistent=False)
-        self.D = int(ds.shape[0])
+        self.D = int(self.ds.shape[0])
         self.downsample = int(downsample)
         self.sparse = bool(sparse)
         self.sparse_count = int(sparse_count)
         self._frustums: Dict[Tuple, torch.Tensor] = {}
+
+    def _constants(self) -> Dict[str, torch.Tensor]:
+        """``bev_affine``: (scale x, offset x, scale y, offset y, z shift,
+        1 / cell height) in float32 as muvo_tpu's graph holds them, stored
+        in float64; ``ds``: the depth bins."""
+        size, scale, offsetx, dbound = self._grid
+        dx, _, _ = gen_dx_bx(size, scale, offsetx)
+        bev = bev_params_to_intrinsics(size, scale, offsetx)
+        affine = torch.tensor(
+            [bev[0, 0], bev[0, 2], bev[1, 1], bev[1, 2],
+             dx[2] / np.float32(2.0), np.float32(1) / dx[2]],
+            dtype=torch.float32).double()
+        ds = np.arange(dbound[0], dbound[1], dbound[2], dtype=np.float32)
+        return {"bev_affine": affine, "ds": torch.from_numpy(ds)}
+
+    def reference_init(self, generator):
+        # no draws: the buffers are the grid's constants, computed again
+        # (a model built on the meta device holds none yet)
+        return self._constants()
 
     def frustum(self, fh: int, fw: int, device=None) -> torch.Tensor:
         """(D, fH, fW, 3) grid of (u, v, depth) image-plane points,

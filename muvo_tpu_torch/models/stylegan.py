@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from muvo_tpu_torch.models.init import normal
 from muvo_tpu_torch.models.layers import (
     to_nchw,
     to_nhwc,
@@ -222,6 +223,17 @@ class BevDecoder(nn.Module):
     def forward(self, w) -> Dict[str, torch.Tensor]:
         return _constant_pyramid(self, w)
 
+    def reference_init(self, generator):
+        return _constant_init(self, generator)
+
+
+def _constant_init(decoder, generator):
+    """The learned constant's rule: normal(1.0), as muvo_tpu's
+    constant_tensor (muvo_tpu/models/stylegan.py:380 BevDecoder, :482
+    VoxelDecoder)."""
+    const = decoder.constant_tensor
+    return {"constant_tensor": normal(const.shape, 1.0, generator)}
+
 
 def _constant_pyramid(decoder, w) -> Dict[str, torch.Tensor]:
     """The BEV and voxel decoders' pass: the learned constant broadcast
@@ -307,6 +319,9 @@ class VoxelDecoder(nn.Module):
 
     def forward(self, w) -> Dict[str, torch.Tensor]:
         return _constant_pyramid(self, w)
+
+    def reference_init(self, generator):
+        return _constant_init(self, generator)
 
 
 class VoxelDecoderScale(nn.Module):

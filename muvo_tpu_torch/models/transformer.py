@@ -15,12 +15,14 @@ and draws its masks from an explicit ``torch.Generator``.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from muvo_tpu_torch.models.init import lecun_normal
 from muvo_tpu_torch.ops.attention import multi_head_attention
 
 
@@ -42,7 +44,17 @@ class SelfAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
-        nn.init.xavier_uniform_(self.in_proj_weight)
+        # built directly, the module holds PyTorch's defaults as its
+        # nn.Linear does (a Linear's weight rule); init.build draws
+        # muvo_tpu's rule below
+        nn.init.kaiming_uniform_(self.in_proj_weight, a=math.sqrt(5))
+
+    def reference_init(self, generator):
+        # muvo_tpu/models/transformer.py:55: in_proj is one Dense (d -> 3d),
+        # lecun_normal with a zero bias (out_proj: models/init.py's rule)
+        w = self.in_proj_weight
+        return {"in_proj_weight": lecun_normal(w.shape, w.shape[1], generator),
+                "in_proj_bias": torch.zeros(self.in_proj_bias.shape)}
 
     def forward(self, x, seq_len: Optional[int] = None):
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)

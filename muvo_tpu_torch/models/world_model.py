@@ -260,6 +260,12 @@ class MuvoWorldModel(nn.Module):
             else set(self.decoder_names))
         self.remat_encoder = bool(m.REMAT_ENCODER)
 
+    def reference_init(self, generator):
+        # the model's own tensor (the transformer branch): type_embedding
+        # starts at zeros (muvo_tpu/models/world_model.py:102); every
+        # submodule has its rule in models/init.py or its own module
+        return {"type_embedding": torch.zeros(self.type_embedding.shape)}
+
     # ==================================================================
     def _backbone(self, module, x):
         if self.remat_encoder:

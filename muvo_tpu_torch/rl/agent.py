@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from muvo_tpu_torch.device import resolve_device
+from muvo_tpu_torch.models import init
 from muvo_tpu_torch.rl.policy import PpoPolicy
 
 
@@ -92,9 +93,7 @@ class RlBirdviewAgent:
         if policy is None:
             # no checkpoint given: an untrained expert, so collection runs
             print("RlBirdviewAgent: no policy checkpoint, using random init")
-            with torch.random.fork_rng(devices=[]):
-                torch.manual_seed(0)
-                policy = PpoPolicy()
+            policy = init.build(PpoPolicy, 0)
         self.policy = policy.to(self.device).eval()
         self.input_states = list(input_states)
         self.acc_as_action = acc_as_action

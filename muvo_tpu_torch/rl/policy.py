@@ -58,6 +58,11 @@ class PpoPolicy(nn.Module):
             self.dist_sigma = nn.Parameter(
                 torch.full((action_dim,), LOG_STD_INIT))
 
+    def reference_init(self, generator):
+        # the Gaussians' state-independent log std: constant(-2.0)
+        # (muvo_tpu/rl/policy.py:43-44); the layers: models/init.py's rules
+        return {"dist_sigma": torch.full(self.dist_sigma.shape, LOG_STD_INIT)}
+
     def _dist(self, latent):
         if self.distribution == "beta":
             return BetaDist(1.0 + self.dist_mu(latent),

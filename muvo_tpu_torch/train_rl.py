@@ -104,6 +104,7 @@ def rollout(env, obs, policy, buffer, generator, device, state: Dict):
 
 def main(argv: Optional[List[str]] = None, device=None) -> List[Dict]:
     """Trains, saves the policy and returns each iteration's summary."""
+    from muvo_tpu_torch.models import init
     from muvo_tpu_torch.rl.agent import process_obs
     from muvo_tpu_torch.rl.policy import PpoPolicy
     from muvo_tpu_torch.rl.ppo import PPO, RolloutBuffer
@@ -114,10 +115,9 @@ def main(argv: Optional[List[str]] = None, device=None) -> List[Dict]:
     obs = env.reset()
     pi = process_obs(obs["hero"], INPUT_STATES, train=False)
     bv_shape, st_shape = pi["birdview"].shape[1:], pi["state"].shape[1:]
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(args.seed)
-        policy = PpoPolicy(birdview_shape=bv_shape, state_dim=st_shape[0])
-    policy = policy.to(device)
+    policy = init.build(lambda: PpoPolicy(birdview_shape=bv_shape,
+                                          state_dim=st_shape[0]),
+                        args.seed, device)
     ppo = PPO(policy, learning_rate=args.lr, batch_size=args.batch_size,
               n_epochs=args.n_epochs)
     generator = torch.Generator(device=device).manual_seed(args.seed + 1)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from muvo_tpu_torch.device import resolve_device
+from muvo_tpu_torch.models import init
 from muvo_tpu_torch.models.preprocess import PreProcess
 from muvo_tpu_torch.models.world_model import (MuvoWorldModel,
                                                imagine_inputs, last_state)
@@ -69,12 +70,12 @@ class WorldModelTrainer:
 
     def init_state(self, seed: int = 42,
                    model: Optional[MuvoWorldModel] = None) -> TrainState:
-        """A new model (initialised from ``seed``, unless one is given) on
-        the device, in training mode, with its optimizer."""
+        """A new model (drawn from muvo_tpu's initialisers with ``seed``,
+        models/init.py, unless one is given) on the device, in training
+        mode, with its optimizer."""
         if model is None:
-            with torch.random.fork_rng(devices=[]):
-                torch.manual_seed(seed)
-                model = MuvoWorldModel(self.cfg)
+            model = init.build(lambda: MuvoWorldModel(self.cfg), seed,
+                               self.device)
         model = model.to(self.device).train()
         self.state = TrainState(model, Optimizer(self.cfg, model))
         return self.state
